@@ -1,0 +1,365 @@
+"""Distributed decoupled GNN tensor parallelism (paper §3 + §4.1 + §4.2).
+
+The execution engine behind Algorithm 1, one process per TP rank:
+
+  vertex-sharded NN phase (L UPDATE rounds)
+    → split (all-to-all)                      ┐
+    → L chunk-by-chunk aggregation rounds     ├ dim-sharded, zero vertex deps
+    → gather (all-to-all)                     ┘
+    → masked softmax loss on local vertices (+ psum)
+
+Two execution modes:
+  * ``decoupled``            — one split + one gather per epoch (paper's DT)
+  * ``decoupled_pipelined``  — split/gather partitioned into per-chunk tasks
+                               interleaved with aggregation (paper's DT+IP)
+
+Every rank builds the same host-side bundle (:func:`prepare_bundle`) and
+takes its own vertex rows of it.  Parameters are replicated: the backward
+runs through the mirrored all-to-alls, and the factories sum the
+parameter gradients across ranks (``runtime.collectives`` says why).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..gnn import layers as L
+from ..gnn import models as M
+from ..graph import format as gf
+from ..graph.synthetic import GraphData
+from ..params import tree_leaves, tree_map, tree_unflatten
+from ..optim.adamw import apply_updates
+from ..runtime import collectives as C
+from ..runtime.mesh import TPMesh, padded_size
+from . import agg as AGG
+from . import chunks as CH
+from . import tp
+
+
+# ---------------------------------------------------------------------------
+# Host-side preparation
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class TPGraph:
+    """Replicated graph structure + comm plans (on every rank)."""
+
+    edges: L.EdgeListDev          # full graph
+    chunked: L.ChunkedDev         # chunk-scheduled view
+    comm_plan: CH.ChunkCommPlan   # per-chunk a2a tables
+    n: int
+    n_padded: int
+    n_workers: int
+    num_classes: int
+    c_padded: int                 # class dim padded to multiple of workers
+    in_dim_padded: int
+    # aggregation backend (core.agg): "segment" needs no extra data;
+    # "blocksparse" carries the per-chunk tile plans
+    agg: str = "segment"
+    bsp: Any = None               # SP.BlockSparsePlanDev | None
+
+
+@dataclasses.dataclass(frozen=True)
+class TPBundle:
+    """Training bundle: replicated graph + node arrays over all vertices
+    (each rank reads its own rows)."""
+
+    graph: TPGraph
+    features: torch.Tensor        # (n_padded, in_dim_padded)
+    labels: torch.Tensor          # (n_padded,) int64 (pad 0)
+    train_mask: torch.Tensor      # (n_padded,) f32
+    val_mask: torch.Tensor
+    test_mask: torch.Tensor
+
+    @property
+    def n_padded(self):
+        return self.graph.n_padded
+
+    @property
+    def n_workers(self):
+        return self.graph.n_workers
+
+    @property
+    def in_dim_padded(self):
+        return self.graph.in_dim_padded
+
+    def masks(self) -> dict:
+        return {"train": self.train_mask, "val": self.val_mask,
+                "test": self.test_mask}
+
+
+def _pad_graph(g: gf.Graph, n_padded: int) -> gf.Graph:
+    if n_padded == g.n:
+        return g
+    indptr = np.concatenate(
+        [g.indptr, np.full(n_padded - g.n, g.indptr[-1], g.indptr.dtype)])
+    return gf.Graph(n=n_padded, src=g.src, dst=g.dst, weight=g.weight,
+                    indptr=indptr)
+
+
+def prepare_bundle(data: GraphData, n_workers: int, n_chunks: int = 4,
+                   agg: str = "segment", agg_block_size: int = 128,
+                   device="cuda") -> TPBundle:
+    """Host-side prep for ``n_workers`` TP ranks, placed on ``device``.
+
+    ``agg`` selects the default aggregation backend
+    (:data:`repro_torch.core.agg.AGG_BACKENDS`) and builds its per-chunk
+    data: tile plans of block size ``agg_block_size`` for
+    ``"blocksparse"``.  The chunked segment view is always built."""
+    g = data.graph
+    n_padded = padded_size(g.n, n_workers * n_chunks)
+    gp = _pad_graph(g, n_padded)
+    cg = gf.chunk_graph(gp, n_chunks)
+    plan = CH.build_chunk_comm_plan(cg, n_workers, n_padded, device)
+    bsp = AGG.build_chunk_plans(gp, n_chunks, agg, bs=agg_block_size,
+                                device=device)
+
+    in_dim = data.features.shape[1]
+    in_dim_padded = padded_size(in_dim, n_workers)
+    c_padded = padded_size(data.num_classes, n_workers)
+
+    feats = np.zeros((n_padded, in_dim_padded), np.float32)
+    feats[: g.n, :in_dim] = data.features
+    labels = np.zeros((n_padded,), np.int64)
+    labels[: g.n] = data.labels
+
+    def pad_mask(m):
+        out = np.zeros((n_padded,), np.float32)
+        out[: g.n] = m.astype(np.float32)
+        return torch.from_numpy(out).to(device)
+
+    graph = TPGraph(
+        edges=L.edge_list_dev(gp, device), chunked=L.chunked_dev(cg, device),
+        comm_plan=plan,
+        n=g.n, n_padded=n_padded, n_workers=n_workers,
+        num_classes=data.num_classes, c_padded=c_padded,
+        in_dim_padded=in_dim_padded, agg=agg, bsp=bsp)
+    return TPBundle(
+        graph=graph,
+        features=torch.from_numpy(feats).to(device),
+        labels=torch.from_numpy(labels).to(device),
+        train_mask=pad_mask(data.train_mask),
+        val_mask=pad_mask(data.val_mask),
+        test_mask=pad_mask(data.test_mask))
+
+
+def padded_gnn_config(data: GraphData, bundle: TPBundle,
+                      model: str = "gcn", hidden_dim: int = 64,
+                      num_layers: int = 2,
+                      gamma: float = 1.0) -> M.GNNConfig:
+    """GNN config whose dims are padded for N-way TP divisibility."""
+    return M.GNNConfig(
+        model=model, in_dim=bundle.in_dim_padded,
+        hidden_dim=padded_size(hidden_dim, bundle.n_workers),
+        num_classes=bundle.graph.c_padded, num_layers=num_layers,
+        gamma=gamma)
+
+
+# ---------------------------------------------------------------------------
+# Dim-sharded propagation rounds (run on feature slices)
+# ---------------------------------------------------------------------------
+#
+# Every round is pure per-rank compute on the feature slice; the aggregation
+# backend dispatches inside the chunk loops without touching the split/
+# gather schedule.  Buffers written by the chunk steps carry one dump row
+# for the -1 pads of the comm tables (core.chunks).
+
+def _aggregate_once(graph: TPGraph, z, agg: str, w_chunk, scale: float):
+    """One full aggregation round over all chunks."""
+    if agg == "segment":
+        return L.aggregate_chunked(graph.chunked, z, edge_weight=w_chunk)
+    cs = graph.chunked.chunk_size
+    outs = [AGG.chunk_agg(agg, z, ax, cs, scale)
+            for ax in AGG.chunk_xs(graph, agg, w_chunk)]
+    return torch.cat(outs)[: z.shape[0]]
+
+
+def _propagate_plain(graph: TPGraph, z, w_chunk, rounds: int,
+                     agg: str = "segment", scale: float = 1.0):
+    for _ in range(rounds):
+        z = _aggregate_once(graph, z, agg, w_chunk, scale)
+    return z
+
+
+def _round_split_pipelined(h_local, graph: TPGraph, w_chunk, mesh: TPMesh,
+                           agg: str = "segment", scale: float = 1.0):
+    """First propagation round with per-chunk split interleaved (§4.2.2)."""
+    cs, plan = graph.chunked.chunk_size, graph.comm_plan
+    zbuf = h_local.new_zeros(plan.n_padded + 1, h_local.shape[1] // mesh.size)
+    outs = []
+    for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
+        zbuf = CH.chunk_split_step(h_local, plan.split_rows[c], zbuf, mesh)
+        outs.append(AGG.chunk_agg(agg, zbuf[:-1], ax, cs, scale))
+    return torch.cat(outs)[: plan.n_padded]
+
+
+def _round_gather_pipelined(z, graph: TPGraph, w_chunk, d_full: int,
+                            mesh: TPMesh, agg: str = "segment",
+                            scale: float = 1.0):
+    """Last propagation round with per-chunk gather interleaved."""
+    cs, plan = graph.chunked.chunk_size, graph.comm_plan
+    h_out = z.new_zeros(plan.n_padded // mesh.size + 1, d_full)
+    for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
+        out_c = AGG.chunk_agg(agg, z, ax, cs, scale)
+        h_out = CH.chunk_gather_step(out_c, plan.gather_rows[c], c * cs,
+                                     h_out, mesh)
+    return h_out[:-1]
+
+
+def _round_split_gather_pipelined(h_local, graph: TPGraph, w_chunk,
+                                  d_full: int, mesh: TPMesh,
+                                  agg: str = "segment", scale: float = 1.0):
+    """Single-round case: split, aggregate, gather all chunk-interleaved."""
+    cs, plan = graph.chunked.chunk_size, graph.comm_plan
+    zbuf = h_local.new_zeros(plan.n_padded + 1, h_local.shape[1] // mesh.size)
+    h_out = h_local.new_zeros(plan.n_padded // mesh.size + 1, d_full)
+    for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
+        zbuf = CH.chunk_split_step(h_local, plan.split_rows[c], zbuf, mesh)
+        out_c = AGG.chunk_agg(agg, zbuf[:-1], ax, cs, scale)
+        h_out = CH.chunk_gather_step(out_c, plan.gather_rows[c], c * cs,
+                                     h_out, mesh)
+    return h_out[:-1]
+
+
+# ---------------------------------------------------------------------------
+# Forward pass (per rank)
+# ---------------------------------------------------------------------------
+
+def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
+                         x_local, mesh: TPMesh, pipelined: bool = True,
+                         agg: str = "segment"):
+    """Decoupled TP forward: this rank's (V/N, D) rows in, its (V/N, C_pad)
+    logits out.  ``agg`` selects the aggregation backend of the
+    propagation rounds (:mod:`repro_torch.core.agg`); for the tile-based
+    backend the static γ of the propagation weights (γ·Â) is a scalar
+    post-multiplier, since γ·(Â@z) = (γÂ)@z."""
+    scale = cfg.gamma
+    h = M.mlp_phase(params, cfg, x_local)              # NN phase, local rows
+    w_chunk = None
+    if agg == "segment":
+        w_flat = M.propagation_edge_weights(params, cfg, graph.edges, h)
+        w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
+    n_rounds = cfg.num_layers
+    d_full = h.shape[1]
+
+    if not pipelined:
+        z = tp.split(h, mesh)                          # (V, C/N)
+        z = _propagate_plain(graph, z, w_chunk, n_rounds, agg, scale)
+        return tp.gather(z, mesh)                      # (V/N, C)
+    if n_rounds == 1:
+        return _round_split_gather_pipelined(
+            h, graph, w_chunk, d_full, mesh, agg, scale)
+    z = _round_split_pipelined(h, graph, w_chunk, mesh, agg, scale)
+    z = _propagate_plain(graph, z, w_chunk, n_rounds - 2, agg, scale)
+    return _round_gather_pipelined(z, graph, w_chunk, d_full, mesh, agg,
+                                   scale)
+
+
+# ---------------------------------------------------------------------------
+# Loss / train-step factories
+# ---------------------------------------------------------------------------
+
+_PIPELINED = {"decoupled": False, "decoupled_pipelined": True}
+
+
+def _make_tp_loss_and_acc(cfg: M.GNNConfig, mesh: TPMesh, mode: str,
+                          agg: str):
+    """(params, graph, x_local, labels_local, mask_local) → (loss, acc),
+    the loss and accuracy over every rank's vertices."""
+    if mode not in _PIPELINED:
+        raise ValueError(f"mode {mode!r} is not ported yet; expected one "
+                         f"of {tuple(_PIPELINED)}")
+    pipelined = _PIPELINED[mode]
+
+    def shard_loss(params, graph, x_local, labels_local, mask_local):
+        logits = tp_decoupled_forward(params, cfg, graph, x_local, mesh,
+                                      pipelined=pipelined, agg=agg)
+        sums = torch.stack(M.masked_loss_and_acc(
+            logits, labels_local, mask_local, graph.num_classes))
+        loss_sum, correct, cnt = C.psum(sums, mesh.group)
+        cnt = torch.clamp(cnt, min=1.0)
+        return loss_sum / cnt, correct / cnt
+
+    return shard_loss
+
+
+def _check_bundle_fits(bundle: TPBundle, mesh: TPMesh) -> None:
+    mesh.validate_divisible(n_vertices=bundle.n_padded,
+                            dim=bundle.in_dim_padded)
+    if bundle.n_workers != mesh.size:
+        raise ValueError(
+            f"bundle prepared for n_workers={bundle.n_workers} but the "
+            f"mesh has {mesh.size} ranks — re-run prepare_bundle with "
+            f"n_workers={mesh.size}")
+
+
+def _local_rows(bundle: TPBundle, mesh: TPMesh) -> slice:
+    shard = bundle.n_padded // mesh.size
+    return slice(mesh.index * shard, (mesh.index + 1) * shard)
+
+
+def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
+                     mode: str, agg):
+    """(params, mask) → (loss, acc) on this rank's rows of the bundle, with
+    ``mask`` over all vertices."""
+    _check_bundle_fits(bundle, mesh)
+    body = _make_tp_loss_and_acc(cfg, mesh, mode,
+                                 AGG.resolve_choice(bundle.graph, agg))
+    rows = _local_rows(bundle, mesh)
+    x, labels = bundle.features[rows], bundle.labels[rows]
+
+    def loss_and_acc(params, mask):
+        return body(params, bundle.graph, x, labels, mask[rows])
+
+    return loss_and_acc
+
+
+def _value_and_grad(loss_and_acc, mesh: TPMesh):
+    def value_and_grad_fn(params, mask):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = loss_and_acc(p, mask)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        # one all-reduce for every replicated parameter's gradient
+        flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+        grads = [f.view_as(g) for f, g in
+                 zip(flat.split([g.numel() for g in grads]), grads)]
+        return loss.detach(), tree_unflatten(params, grads)
+
+    return value_and_grad_fn
+
+
+def make_tp_value_and_grad(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
+                           mode: str = "decoupled_pipelined", agg=None):
+    """(params, mask) → (loss, grads), with ``mask`` over all vertices and
+    the grads summed across ranks (the same on every rank).  ``agg=None``
+    uses the bundle's prepared aggregation backend."""
+    return _value_and_grad(_make_local_loss(cfg, bundle, mesh, mode, agg),
+                           mesh)
+
+
+def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
+                      optimizer, mode: str = "decoupled_pipelined",
+                      agg=None):
+    """(train_step, evaluate) for TP training.
+
+    ``train_step(params, opt_state) → (params, opt_state, loss)``;
+    ``evaluate(params, split) → (loss, acc)`` over the ``"train"``,
+    ``"val"`` or ``"test"`` mask.  ``mode`` ∈ {decoupled,
+    decoupled_pipelined}; ``agg=None`` uses the bundle's backend."""
+    loss_and_acc = _make_local_loss(cfg, bundle, mesh, mode, agg)
+    vg = _value_and_grad(loss_and_acc, mesh)
+    masks = bundle.masks()
+
+    def train_step(params, opt_state):
+        loss, grads = vg(params, masks["train"])
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    @torch.no_grad()
+    def evaluate(params, split: str = "val"):
+        return loss_and_acc(params, masks[split])
+
+    return train_step, evaluate

@@ -1,0 +1,88 @@
+"""Collectives over a process group — the port's one caller of
+``torch.distributed``.
+
+Every byte the tensor-parallel engine moves between ranks goes through
+here, so a later backend or byte counter is a local change.  The group is
+a ``torch.distributed`` process group (``None`` is the default group),
+initialised by the caller.
+
+* :func:`all_to_all` is autograd-aware: its backward is the mirrored
+  all-to-all (split and concat axes swapped), written out explicitly
+  rather than taken from ``torch.distributed.nn``.
+* :func:`psum` sums across ranks.  Its backward passes the cotangent
+  through unchanged: the summed value is the same on every rank, and each
+  rank seeds its backward from it, so the gradient of what each rank
+  contributed is exactly that cotangent.  Parameters replicated on every
+  rank then get the sum of the ranks' gradients by a :func:`psum` of the
+  gradients after the backward (``core.decouple``) — the step JAX's
+  ``shard_map`` transpose performs implicitly.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def axis_index(group=None) -> int:
+    """This rank's coordinate in ``group``."""
+    return dist.get_rank(group)
+
+
+def axis_size(group=None) -> int:
+    """Number of ranks in ``group``."""
+    return dist.get_world_size(group)
+
+
+def _all_to_all(x: torch.Tensor, group, split_axis: int,
+                concat_axis: int) -> torch.Tensor:
+    n = axis_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(
+            f"all_to_all: axis {split_axis} of shape {tuple(x.shape)} does "
+            f"not divide the group size {n} — pad it first "
+            f"(runtime.padded_size)")
+    send = torch.stack(torch.chunk(x, n, dim=split_axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _all_to_all(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return (_all_to_all(g, group, concat_axis, split_axis),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, group=None, *, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Exchange equal blocks: ``x`` is cut into ``n`` equal blocks along
+    ``split_axis``, block ``j`` goes to rank ``j``, and the blocks received
+    are concatenated along ``concat_axis`` in rank order (JAX's tiled
+    ``all_to_all``; with ``split_axis == concat_axis == 0`` and
+    ``x.shape[0] == n`` it is also the untiled one)."""
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``x`` across the ranks of ``group`` (see the module docstring
+    for its backward)."""
+    return _Psum.apply(x, group)
