@@ -5,29 +5,66 @@
 
 Phases, each of which fails the run (non-zero exit) if it fails:
 
-1. device  — needs a CUDA device; prints the card's name and power limit
-             and turns TF32 off for matmul and cuDNN;
-2. build   — compiles the block-sparse SpMM kernel from the checkout's
-             sources (``build/torch_kernels/``);
-3. kernel  — the kernel against its plain PyTorch version on the card:
-             bs ∈ {32, 64, 128} × d ∈ {8, 41, 128, 200} on rectangular
-             plans (forward and transposed tiles), a stacked plan's padded
-             instance, an empty plan, and forward + autograd backward
-             through ``aggregate_plan``; each case held to
-             max|Δ| ≤ 1e-5·(1 + max|ref|);
-4. train   — the port's main path: decoupled-pipelined TP GCN training on
-             reddit_like(scale=1.0, seed=0) (n=23 000, 602 features, 41
-             classes; hidden 128, 2 layers, 4 chunks, blocksparse at
-             bs=128, AdamW lr 1e-2 wd 5e-4) over a 1-rank NCCL group:
-             3 warm-up + 10 timed steps with finite, falling loss, the
-             kernel launched on every step; then the step-0 loss and grads
-             recomputed with the plain version on the card and with the
-             segment backend, each held within rtol 1e-4 (per tensor,
-             max|Δ| ≤ 1e-4·max|ref|);
-5. timing  — one forward-chunk and one backward-chunk launch at the main
-             path's shapes with CUDA events, beside the plain version,
-             ``torch.sparse.mm`` on the same chunk of Â as CSR (timed
-             only, never on the path) and the card's bound.
+1. device   — needs a CUDA device; prints the card's name and power limit
+              and turns TF32 off for matmul and cuDNN;
+2. build    — compiles every kernel of the port (SpMM, flash attention,
+              SSD) from the checkout's sources in one build
+              (``build/torch_kernels/``) and prints the seconds;
+3. spmm     — the SpMM kernel against its plain PyTorch version on the
+              card: bs ∈ {32, 64, 128} × d ∈ {8, 41, 128, 200} on
+              rectangular plans (forward and transposed tiles), a stacked
+              plan's padded instance, an empty plan, and forward + autograd
+              backward through ``aggregate_plan``; each case held to
+              max|Δ| ≤ 1e-5·(1 + max|ref|);
+4. flash    — the flash-attention kernel against its plain version: fp32
+              and bf16, GQA groups g ∈ {1, 2, 4, 8}, causal and not,
+              window, softcap, ragged Sq ≠ Skv, hd ∈ {64, 80, 128, 256},
+              hdv ≠ hd; fp32 held to 1e-5·(1 + max|ref|), bf16 per
+              element to |Δ| ≤ 2^-7·|ref| + 1e-3 (both round the same fp32
+              math to bf16 once, so they differ by at most one bf16 ulp);
+5. ssd      — the SSD intra-chunk kernel against its plain version:
+              Q ∈ {16, 64, 256}, P ∈ {32, 64}, N ∈ {32, 64, 128}, H > 1
+              with B/C shared, held to 1e-4·(1 + max|ref|) (the kernel's
+              prefix sum adds in another order; exp(cs) at |cs| ~ 1e2);
+              and the full ``ssd_chunked_fused`` against ``ssd_chunked``
+              and ``ssd_dense_ref`` with S not a multiple of Q;
+6. gcn      — the GCN main path: decoupled-pipelined TP GCN training on
+              reddit_like(scale=1.0, seed=0) (n=23 000, 602 features, 41
+              classes; hidden 128, 2 layers, 4 chunks, blocksparse at
+              bs=128, AdamW lr 1e-2 wd 5e-4) over a 1-rank NCCL group:
+              3 warm-up + 10 timed steps with finite, falling loss, the
+              SpMM kernel launched on every step; then the step-0 loss and
+              grads recomputed with the plain version on the card and with
+              the segment backend, each held within rtol 1e-4 (per tensor,
+              max|Δ| ≤ 1e-4·max|ref|);
+7. spmm-t   — one forward-chunk and one backward-chunk SpMM launch at the
+              GCN path's shapes with CUDA events, beside the plain version,
+              ``torch.sparse.mm`` on the same chunk of Â as CSR (timed
+              only, never on the path) and the card's bound;
+8. serve    — the LM main path: Zamba2-2.7B at full width and depth
+              (2.06 B parameters, random weights from seed 0 drawn on the
+              card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
+              ``generate`` of 2 prompts × 2048 tokens from
+              ``SyntheticLM(32000, seed=0)`` + 32 greedy steps, 9 flash
+              launches in prefill and none in decode; then prefill and
+              decode timed (medians) and one prefill profiled;
+9. score    — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
+              under ``torch.no_grad()``: 9 flash and 45 SSD launches, a
+              finite loss; timed and profiled;
+10. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
+              path against the same path with both plain versions patched
+              in on the card — prefill logits within 1e-4·max|ref|,
+              identical greedy tokens over 8 steps, scoring loss within
+              1e-5 relative; and the bf16 scoring loss of phase 9 beside
+              its plain-version twin (printed, not gated);
+11. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
+              its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
+              (per element, as phase 4); one bf16 launch there timed beside
+              its plain version, ``scaled_dot_product_attention`` on the
+              same tensors (held for agreement to 1e-2·(1 + max|ref|): it
+              rounds the softmax weights to bf16; timed only, never on the
+              path) and its bound; one SSD launch at (2, 2048, 80, 64),
+              N=64, Q=256 beside its plain version and its bound.
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.
@@ -53,7 +90,12 @@ sys.path.insert(0, str(ROOT / "src"))
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 KERNEL_TOL = 1e-5
+BF16_ULP = 2.0 ** -7   # bf16 spacing relative to the value
+BF16_ATOL = 1e-3       # per-element floor for outputs near 0
+SDPA_TOL = 1e-2        # SDPA rounds the softmax weights to bf16
+SSD_TOL = 1e-4         # prefix sums in another order, exp(cs) at |cs| ~ 1e2
 PATH_RTOL = 1e-4
 
 
@@ -67,6 +109,23 @@ def _held(name: str, got: torch.Tensor, want: torch.Tensor,
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: max|Δ| {err} > {rtol}·({floor}+{ref})")
+    return err
+
+
+def _held_bf16(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """Hold a bf16 result per element, |Δ| ≤ 2^-7·|want| + 1e-3: one bf16
+    ulp of the value, for two roundings of the same fp32 math.  Returns
+    max|Δ|."""
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    worst = (diff / (BF16_ULP * want.abs() + BF16_ATOL)).max().item()
+    err = diff.max().item()
+    ok = worst <= 1.0
+    print(f"  {name:<44} max|Δ|={err:.3e}  worst |Δ|/(2^-7·|ref|+1e-3)="
+          f"{worst:.3f}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: |Δ| exceeds 2^-7·|ref| + 1e-3 "
+                             f"(worst ratio {worst})")
     return err
 
 
@@ -222,7 +281,7 @@ def train(dev):
                              f"{launches} in 13 steps")
     _, val_acc = evaluate(params, "val")
     print(f"  val accuracy after 13 steps {val_acc.item():.4f}")
-    profile = _profile_step(step, params, state)
+    profile = _profile(lambda: step(params, state), "step")
 
     vg = D.make_tp_value_and_grad(cfg, bundle, mesh,
                                   mode="decoupled_pipelined")
@@ -245,10 +304,10 @@ def train(dev):
     return bundle, data, launches, median_ms, profile
 
 
-def _profile_step(step, params, state) -> dict:
-    """Device busy time and the top kernels of one more training step
-    under ``torch.profiler`` (diagnostic: the wall time includes the
-    profiler's own cost)."""
+def _profile(fn, label: str) -> dict:
+    """Device busy time and the top kernels of one call of ``fn`` under
+    ``torch.profiler`` (diagnostic: the wall time includes the profiler's
+    own cost)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -256,7 +315,7 @@ def _profile_step(step, params, state) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        step(params, state)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -264,12 +323,12 @@ def _profile_step(step, params, state) -> dict:
                       if e.device_type == DeviceType.CUDA),
                      key=lambda k: -k[1])
     busy_ms = sum(k[1] for k in kernels)
-    print(f"  profiled step: device busy {busy_ms:.2f} ms of {wall_ms:.2f} "
-          f"ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
-    for name, ms, count in kernels[:6]:
-        print(f"    {ms:9.3f} ms  {count:4d}×  {name[:70]}")
+    print(f"  profiled {label}: device busy {busy_ms:.2f} ms of "
+          f"{wall_ms:.2f} ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
+    for name, ms, count in kernels[:8]:
+        print(f"    {ms:9.3f} ms  {count:5d}×  {name[:70]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "top": [[n[:70], ms, c] for n, ms, c in kernels[:6]]}
+            "top": [[n[:70], ms, c] for n, ms, c in kernels[:8]]}
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -370,15 +429,389 @@ def timing(bundle, data, dev):
     return rows, err
 
 
+# ---------------------------------------------------------------------------
+# LM kernels and the Zamba2-2.7B path
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = (
+    # b, hq, hkv, sq, skv, hd, hdv, dtype, causal, window, softcap
+    (2, 8, 8, 256, 256, 64, 64, torch.float32, True, None, None),
+    (2, 8, 4, 300, 300, 80, 80, torch.float32, True, None, None),
+    (1, 8, 2, 200, 333, 128, 128, torch.float32, False, None, None),
+    (1, 8, 1, 257, 257, 256, 256, torch.float32, True, None, None),
+    (2, 4, 2, 384, 384, 64, 64, torch.float32, True, 100, None),
+    (2, 4, 4, 256, 256, 80, 80, torch.float32, True, None, 20.0),
+    (1, 4, 2, 192, 192, 128, 64, torch.float32, True, None, None),
+    (1, 4, 4, 130, 70, 64, 64, torch.float32, True, None, None),
+    (2, 32, 32, 512, 512, 80, 80, torch.bfloat16, True, None, None),
+    (1, 16, 2, 300, 300, 128, 128, torch.bfloat16, True, None, None),
+    (1, 8, 4, 256, 400, 256, 256, torch.bfloat16, False, None, None),
+    (1, 8, 2, 256, 256, 64, 32, torch.bfloat16, True, 64, 30.0),
+)
+
+SSD_CASES = (
+    # b, s, h, p, n, q
+    (2, 64, 4, 32, 32, 16),
+    (2, 256, 3, 64, 64, 64),
+    (1, 512, 5, 64, 128, 256),
+    (2, 256, 2, 32, 128, 64),
+    (1, 768, 4, 64, 64, 256),
+    (2, 128, 8, 32, 64, 16),
+)
+
+
+def flash_cases(dev) -> float:
+    """Phase 4; returns the largest max|Δ| over the cases."""
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
+    gen = torch.Generator(device=dev).manual_seed(2)
+    errs = []
+    for b, hq, hkv, sq, skv, hd, hdv, dt, causal, win, cap in FLASH_CASES:
+        q = torch.randn(b, hq, sq, hd, generator=gen, device=dev).to(dt)
+        k = torch.randn(b, hkv, skv, hd, generator=gen, device=dev).to(dt)
+        v = torch.randn(b, hkv, skv, hdv, generator=gen, device=dev).to(dt)
+        kw = dict(causal=causal, window=win, softcap=cap)
+        got = flash_attention_bhsd(q, k, v, **kw)
+        torch.cuda.synchronize()
+        name = (f"{str(dt)[6:]} g={hq // hkv} {sq}x{skv} hd={hd}/{hdv} "
+                f"{'causal' if causal else 'full'}"
+                f"{f' win={win}' if win else ''}"
+                f"{f' cap={cap:g}' if cap else ''}")
+        want = flash_ref(q, k, v, **kw)
+        errs.append(_held(name, got, want) if dt == torch.float32
+                    else _held_bf16(name, got, want))
+    return max(errs)
+
+
+def _ssd_inputs(b, s, h, p, n, gen, dev):
+    x = torch.randn(b, s, h, p, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn(b, s, h, generator=gen, device=dev))
+    a = -torch.exp(0.3 * torch.randn(h, generator=gen, device=dev))
+    bm = torch.randn(b, s, n, generator=gen, device=dev) / math.sqrt(n)
+    cm = torch.randn(b, s, n, generator=gen, device=dev) / math.sqrt(n)
+    return x, dt, a, bm, cm
+
+
+def ssd_cases(dev) -> float:
+    """Phase 5; returns the largest max|Δ| over the cases."""
+    from repro_torch.kernels.ssd import (ssd_chunked_fused, ssd_dense_ref,
+                                         ssd_intra_chunk, ssd_intra_chunk_ref)
+    from repro_torch.nn.ssm import ssd_chunked
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = []
+    for b, s, h, p, n, q in SSD_CASES:
+        args = _ssd_inputs(b, s, h, p, n, gen, dev)
+        y, st = ssd_intra_chunk(*args, chunk=q)
+        torch.cuda.synchronize()
+        y_r, st_r = ssd_intra_chunk_ref(*args, chunk=q)
+        name = f"B={b} S={s} H={h} P={p} N={n} Q={q}"
+        errs.append(_held(f"{name} y_intra", y, y_r, SSD_TOL))
+        errs.append(_held(f"{name} states", st, st_r, SSD_TOL))
+    args = _ssd_inputs(2, 600, 4, 64, 64, gen, dev)
+    y, final = ssd_chunked_fused(*args, 256)
+    y_c, final_c = ssd_chunked(*args, 256)
+    errs.append(_held("ssd_chunked_fused S=600 Q=256 vs ssd_chunked", y,
+                      y_c, SSD_TOL))
+    errs.append(_held("  final state vs ssd_chunked", final, final_c,
+                      SSD_TOL))
+    errs.append(_held("ssd_chunked_fused S=600 Q=256 vs ssd_dense_ref", y,
+                      ssd_dense_ref(*args), SSD_TOL))
+    return max(errs)
+
+
+def _lm_counts():
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    return flash_attention_bhsd, ssd_intra_chunk
+
+
+def _zero_lm_counts():
+    for fn in _lm_counts():
+        fn.launches = 0
+
+
+def _read_lm_counts():
+    return tuple(fn.launches for fn in _lm_counts())
+
+
+def _plain_lm_kernels():
+    """Both LM kernels' plain versions patched in on the card (the
+    cross-check only; no entry point falls back to them)."""
+    from contextlib import ExitStack
+
+    from repro_torch.kernels.flash_attn import flash_ref
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd import ssd_intra_chunk_ref
+    stack = ExitStack()
+    stack.enter_context(mock.patch.object(flash_ops, "flash_attention_bhsd",
+                                          flash_ref))
+    stack.enter_context(mock.patch.object(ssd_ops, "ssd_intra_chunk",
+                                          ssd_intra_chunk_ref))
+    return stack
+
+
+def _expect(what: str, got, want) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: expected {want}, got {got}")
+
+
+def serve(dev):
+    """Phase 8: Zamba2-2.7B full width, bf16, generate + timing."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.params import tree_leaves
+    from repro_torch.serve import generate, make_serve_fns
+
+    cfg = dataclasses.replace(get_config("zamba2-2.7b"), attn_impl="flash",
+                              ssm_impl="fused")
+    t0 = time.perf_counter()
+    params = init_transformer(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"  {cfg.name}: {cfg.num_layers} layers "
+          f"({cfg.layer_kinds().count('mamba')} mamba2, "
+          f"{cfg.layer_kinds().count('shared_attn')} shared attention), "
+          f"d={cfg.d_model}, {n_params} parameters (fp32 on the card), "
+          f"initialised in {time.perf_counter() - t0:.1f} s; compute "
+          f"{cfg.dtype}")
+    n_attn = cfg.layer_kinds().count("shared_attn")   # 9 flash launches
+    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
+    prompt, steps = batch["tokens"], 32
+
+    torch.cuda.reset_peak_memory_stats()
+    _zero_lm_counts()
+    t = time.perf_counter()
+    res = generate(params, cfg, prompt, steps, device=dev)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t
+    counts = _read_lm_counts()
+    print(f"  generate 2 × 2048 + {steps} greedy steps in {gen_s:.2f} s; "
+          f"launches flash {counts[0]}, ssd {counts[1]}")
+    _expect("generate launches (flash, ssd)", counts, (n_attn, 0))
+    if res.tokens.shape != (2, 2048 + steps) or \
+            not torch.isfinite(res.prefill_logits).all():
+        raise AssertionError("generate: bad token shape or non-finite "
+                             "prefill logits")
+    print(f"  generated tokens {res.tokens[:, 2048:2048 + 8].tolist()} …")
+
+    prefill_fn, decode_fn = make_serve_fns(cfg)
+    tokens = torch.as_tensor(prompt, device=dev)
+    pre_ms, dec_ms = [], []
+    with torch.no_grad():
+        for _ in range(3):
+            _zero_lm_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = prefill_fn(params, tokens,
+                                        max_len=2048 + steps + 1)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t) * 1e3)
+            _expect("prefill launches (flash, ssd)", _read_lm_counts(),
+                    (n_attn, 0))
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        _zero_lm_counts()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step_logits, caches = decode_fn(params, tok, caches)
+            tok = torch.argmax(step_logits[:, -1], dim=-1)[:, None].to(
+                torch.int32)
+            torch.cuda.synchronize()
+            dec_ms.append((time.perf_counter() - t) * 1e3)
+        _expect("decode launches over 32 steps (flash, ssd)",
+                _read_lm_counts(), (0, 0))
+        prof_dec = _profile(lambda: decode_fn(params, tok, caches),
+                            "decode step")
+        prof = _profile(lambda: prefill_fn(params, tokens,
+                                           max_len=2048 + steps), "prefill")
+    peak = torch.cuda.max_memory_allocated()
+    pre, dec = statistics.median(pre_ms), statistics.median(dec_ms)
+    tok_s = 2 * steps / (sum(dec_ms) / 1e3)
+    print(f"  prefill {pre:.2f} ms (median of {pre_ms}); decode "
+          f"{dec:.3f} ms per step (median of {steps}); {tok_s:.1f} "
+          f"tokens/s over the decode steps (batch 2); prefill "
+          f"{2 * 2048 / (pre / 1e3):.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    return cfg, params, batch, {
+        "params": n_params, "generate_s": gen_s, "prefill_ms": pre,
+        "prefill_ms_runs": pre_ms, "decode_ms": dec, "decode_ms_runs": dec_ms,
+        "decode_tokens_per_s": tok_s, "peak_bytes": peak,
+        "launches": {"flash": counts[0], "ssd": counts[1]}, "profile": prof,
+        "profile_decode": prof_dec}
+
+
+def score(cfg, params, batch, dev):
+    """Phase 9: forward + lm_loss on 2 × 2048, under no_grad."""
+    from repro_torch.models import transformer as T
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    targets = torch.as_tensor(batch["targets"], device=dev)
+
+    def run():
+        logits, _ = T.forward(params, cfg, tokens)
+        return T.lm_loss(logits, targets)
+
+    with torch.no_grad():
+        _zero_lm_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = run().item()
+        first_ms = (time.perf_counter() - t) * 1e3
+        counts = _read_lm_counts()
+        print(f"  scoring loss {loss:.6f} (log V = "
+              f"{math.log(cfg.vocab_size):.4f}); launches flash "
+              f"{counts[0]}, ssd {counts[1]}; first call {first_ms:.1f} ms")
+        kinds = cfg.layer_kinds()
+        _expect("scoring launches (flash, ssd)", counts,
+                (kinds.count("shared_attn"), kinds.count("mamba")))
+        if not math.isfinite(loss):
+            raise AssertionError(f"scoring loss not finite: {loss}")
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run().item()
+            ms.append((time.perf_counter() - t) * 1e3)
+        prof = _profile(run, "scoring forward")
+        with _plain_lm_kernels():
+            loss_plain = run().item()
+    print(f"  scoring {statistics.median(ms):.2f} ms (median of {ms}); "
+          f"{2 * 2048 / (statistics.median(ms) / 1e3):.0f} tokens/s; bf16 "
+          f"loss kernel vs plain versions |Δ|={abs(loss - loss_plain):.3e} "
+          f"(plain {loss_plain:.6f}; not gated)")
+    return {"loss": loss, "loss_plain": loss_plain, "ms": statistics.median(ms),
+            "ms_runs": ms, "launches": {"flash": counts[0], "ssd": counts[1]},
+            "profile": prof}
+
+
+def cross_check_fp32(cfg, params, batch, dev) -> float:
+    """Phase 10: the kernel path against the plain versions, fp32."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    prompt = batch["tokens"][:1, :512]
+    tokens = torch.as_tensor(prompt, device=dev)
+    targets = torch.as_tensor(batch["targets"][:1, :512], device=dev)
+
+    def run():
+        res = generate(params, cfg32, prompt, 8, device=dev)
+        with torch.no_grad():
+            logits, _ = T.forward(params, cfg32, tokens)
+            loss = T.lm_loss(logits, targets).item()
+        return res, loss
+
+    res_k, loss_k = run()
+    with _plain_lm_kernels():
+        res_p, loss_p = run()
+    err = _held("fp32 prefill logits 1×512, kernels vs plain",
+                res_k.prefill_logits, res_p.prefill_logits, PATH_RTOL, 0.0)
+    if not np.array_equal(res_k.tokens, res_p.tokens):
+        raise AssertionError(f"fp32 greedy tokens differ: "
+                             f"{res_k.tokens[:, 512:]} vs "
+                             f"{res_p.tokens[:, 512:]}")
+    print(f"  fp32 greedy tokens identical over 8 steps: "
+          f"{res_k.tokens[0, 512:].tolist()}")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  fp32 scoring loss 1×512: kernels {loss_k:.7f}, plain "
+          f"{loss_p:.7f}, relative |Δ| {rel:.2e}  "
+          f"{'ok' if rel <= 1e-5 else 'FAIL'}")
+    if rel > 1e-5:
+        raise AssertionError(f"fp32 scoring loss differs by {rel:.2e}")
+    return err
+
+
+def lm_timing(dev):
+    """Phase 11: one flash and one SSD launch at the LM path's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
+    from repro_torch.kernels.ssd import ssd_intra_chunk, ssd_intra_chunk_ref
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {}
+
+    b, h, s, hd = 2, 32, 2048, 80
+    q32, k32, v32 = (torch.randn(b, h, s, hd, generator=gen, device=dev)
+                     for _ in range(3))
+    err = _held("flash at (2,32,2048,80) fp32 causal vs plain",
+                flash_attention_bhsd(q32, k32, v32), flash_ref(q32, k32, v32))
+    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
+    del q32, k32, v32
+    err = max(err, _held_bf16("flash at (2,32,2048,80) bf16 causal vs plain",
+                              flash_attention_bhsd(q, k, v),
+                              flash_ref(q, k, v)))
+    lib_err = _held("  scaled_dot_product_attention vs kernel",
+                    F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                    .float(), flash_attention_bhsd(q, k, v).float(),
+                    SDPA_TOL)
+    pairs = s * (s + 1) // 2
+    flops = b * h * pairs * 2 * (hd + hd)
+    nbytes = 2 * 4 * b * h * s * hd
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_bf16 = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    t_fp32 = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    k_ms = _time_ms(lambda: flash_attention_bhsd(q, k, v), 10)
+    p_ms = _time_ms(lambda: flash_ref(q, k, v), 3)
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), 20)
+    k_ms2 = _time_ms(lambda: flash_attention_bhsd(q, k, v), 10)
+    bound = max(t_bytes, t_bf16)
+    rows["flash"] = dict(
+        ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2], plain_ms=p_ms,
+        library_ms=l_ms, bound_ms=bound,
+        bound_by="bytes" if t_bytes >= t_bf16 else "operations",
+        bytes=nbytes, flops=flops, bound_fp32_ms=t_fp32, max_abs_err=err,
+        library_err=lib_err)
+    print(f"  flash (2,32,2048,80) bf16 causal: kernel {k_ms:.4f} / "
+          f"{k_ms2:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms; "
+          f"bound {bound:.4f} ms by operations at the bf16 tensor-core "
+          f"peak ({flops / 1e9:.2f} GFLOP; {t_fp32:.4f} ms at the fp32 "
+          f"peak; bytes {nbytes / 1e6:.1f} MB, {t_bytes:.4f} ms)")
+
+    bsz, s, h, p, n, qc = 2, 2048, 80, 64, 64, 256
+    args = _ssd_inputs(bsz, s, h, p, n, gen, dev)
+    y, st = ssd_intra_chunk(*args, chunk=qc)
+    y_r, st_r = ssd_intra_chunk_ref(*args, chunk=qc)
+    err = max(_held("ssd at (2,2048,80,64) N=64 Q=256 y_intra vs plain", y,
+                    y_r, SSD_TOL),
+              _held("  states vs plain", st, st_r, SSD_TOL))
+    nc = s // qc
+    tri = qc * (qc + 1) // 2
+    flops = bsz * nc * (h * (2 * tri * p + 2 * qc * p * n) + 2 * tri * n)
+    nbytes = 4 * (2 * bsz * s * h * p + bsz * s * h + h + 2 * bsz * s * n
+                  + bsz * nc * h * p * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    k_ms = _time_ms(lambda: ssd_intra_chunk(*args, chunk=qc), 10)
+    p_ms = _time_ms(lambda: ssd_intra_chunk_ref(*args, chunk=qc), 3)
+    k_ms2 = _time_ms(lambda: ssd_intra_chunk(*args, chunk=qc), 10)
+    bound = max(t_bytes, t_ops)
+    rows["ssd"] = dict(
+        ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2], plain_ms=p_ms,
+        library_ms=None, bound_ms=bound,
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        bytes=nbytes, flops=flops, max_abs_err=err)
+    print(f"  ssd (2,2048,80,64) N=64 Q=256: kernel {k_ms:.4f} / "
+          f"{k_ms2:.4f} ms, plain {p_ms:.4f} ms; bound {bound:.4f} ms by "
+          f"{rows['ssd']['bound_by']} ({flops / 1e9:.3f} GFLOP fp32 in the "
+          f"lower-triangular products and the states, {t_ops:.4f} ms; "
+          f"{nbytes / 1e6:.1f} MB, {t_bytes:.4f} ms)")
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
               "script runs on a CUDA GPU only", file=sys.stderr)
         return 1
     import torch.distributed as dist
-    from repro_torch.kernels.spmm import spmm as spmm_mod
+    from repro_torch.kernels import build as kbuild
 
-    print("[1/5] device")
+    print("[1/11] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -392,37 +825,80 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/5] build")
+    print("[2/11] build")
     t0 = time.perf_counter()
-    spmm_mod.build()
-    print(f"  spmm_block_sparse built (sm_90a) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    kbuild.build()
+    build_s = time.perf_counter() - t0
+    print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
+          f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/5] kernel against its plain version")
-    case_err = kernel_cases(dev)
+    print("[3/11] spmm kernel against its plain version")
+    spmm_err = kernel_cases(dev)
+    print("[4/11] flash kernel against its plain version")
+    flash_err = flash_cases(dev)
+    print("[5/11] ssd kernel against its plain version")
+    ssd_err = ssd_cases(dev)
 
-    print("[4/5] main path: decoupled-pipelined TP GCN training")
+    print("[6/11] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, launches, step_ms, profile = train(dev)
-        print("[5/5] kernel timing at the main path's shapes")
+        print("[7/11] spmm timing at the GCN path's shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
+    del bundle, data
+    torch.cuda.empty_cache()
+
+    print("[8/11] LM main path, serving: Zamba2-2.7B generate")
+    cfg, params, batch, serve_info = serve(dev)
+    print("[9/11] LM main path, scoring: forward + lm_loss")
+    score_info = score(cfg, params, batch, dev)
+    print("[10/11] fp32 cross-check at full width, kernels vs plain")
+    fp32_err = cross_check_fp32(cfg, params, batch, dev)
+    del params
+    torch.cuda.empty_cache()
+    print("[11/11] flash and ssd timing at the LM path's shapes")
+    lm_rows = lm_timing(dev)
 
     fwd = rows["forward"]
-    print(json.dumps({"timing": rows, "step_ms": step_ms,
-                      "profile": profile, "card": card}))
+    fl, sd = lm_rows["flash"], lm_rows["ssd"]
+    print(json.dumps({"timing": rows, "step_ms": step_ms, "profile": profile,
+                      "build_s": build_s, "serve": serve_info,
+                      "score": score_info, "lm_timing": lm_rows,
+                      "fp32_logits_err": fp32_err,
+                      "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_block_sparse", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm_block_sparse.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:64",
         "held_against": "ref.spmm_ref", "launches": launches,
-        "max_abs_err": max(case_err, path_err),
+        "max_abs_err": max(spmm_err, path_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": fwd["library_ms"]}]}))
+        "library_ms": fwd["library_ms"]}, {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+        "held_against": "ref.flash_ref",
+        "launches": serve_info["launches"]["flash"]
+        + score_info["launches"]["flash"],
+        "max_abs_err": max(flash_err, fl["max_abs_err"]),
+        "ms": fl["ms"], "plain_ms": fl["plain_ms"],
+        "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
+        "library_ms": fl["library_ms"]}, {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:61",
+        "held_against": "ref.ssd_intra_chunk_ref",
+        "launches": serve_info["launches"]["ssd"]
+        + score_info["launches"]["ssd"],
+        "max_abs_err": max(ssd_err, sd["max_abs_err"]),
+        "ms": sd["ms"], "plain_ms": sd["plain_ms"],
+        "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
+        "library_ms": None}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

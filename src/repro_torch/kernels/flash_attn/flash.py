@@ -1,0 +1,94 @@
+"""Loader and wrapper of the Hopper flash-attention kernel.
+
+The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+``repro/kernels/flash_attn/flash.py::flash_attention_bhsd``; its source
+says how.  It is compiled for ``sm_90a`` on first use with the port's
+other kernels (:mod:`..build`) and bound with ``ctypes``.
+
+:func:`flash_attention_bhsd` takes CUDA tensors only and launches the kernel
+or raises; the plain version for CPU tensors is :func:`.ref.flash_ref`, and
+:mod:`.ops` picks between the two by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from ..build import kernel_fn
+
+MAX_HEAD_DIM = 256
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@functools.cache
+def _kernel():
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return kernel_fn("flash_attention_fwd",
+                     [p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, p])
+
+
+def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Flash attention on the card, head-major layouts.
+
+    q: (B, Hq, Sq, hd); k: (B, Hkv, Skv, hd); v: (B, Hkv, Skv, hdv), one
+    dtype (float32 or bfloat16), contiguous, on one CUDA device, with
+    Hq % Hkv == 0 and hd, hdv ≤ 256.  Any Sq and Skv: the kernel masks the
+    ragged edges itself.  Returns (B, Hq, Sq, hdv) in q.dtype (fp32 math).
+    Adds one to ``flash_attention_bhsd.launches`` per kernel launch.
+    """
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"flash_attention_bhsd: q is on {q.device}; the kernel takes "
+            f"CUDA tensors (CPU tensors go to ref.flash_ref)")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or t.dtype != q.dtype or t.dim() != 4 \
+                or not t.is_contiguous():
+            raise ValueError(
+                f"flash_attention_bhsd: {name} must be a contiguous 4-d "
+                f"tensor of q's dtype {q.dtype} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device} "
+                f"contiguous={t.is_contiguous()}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"flash_attention_bhsd: dtype {q.dtype} not in "
+                         f"{tuple(_DTYPES)}")
+    b, hq, sq, hd = q.shape
+    _, hkv, skv, hdk = k.shape
+    hdv = v.shape[-1]
+    if k.shape[0] != b or v.shape[:3] != k.shape[:3] or hdk != hd:
+        raise ValueError(f"flash_attention_bhsd: shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)} disagree")
+    if hkv < 1 or hq % hkv:
+        raise ValueError(f"flash_attention_bhsd: Hq={hq} is not a multiple "
+                         f"of Hkv={hkv}")
+    if not (1 <= hd <= MAX_HEAD_DIM and 1 <= hdv <= MAX_HEAD_DIM):
+        raise ValueError(f"flash_attention_bhsd: head dims hd={hd}, "
+                         f"hdv={hdv} must lie in [1, {MAX_HEAD_DIM}]")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention_bhsd: window={window} < 1")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"flash_attention_bhsd: softcap={softcap} <= 0")
+    out = torch.empty(b, hq, sq, hdv, dtype=q.dtype, device=q.device)
+    if out.numel() == 0 or skv == 0:
+        return out.zero_()
+    scale = scale if scale is not None else hd ** -0.5
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    _DTYPES[q.dtype], b, hq, hkv, sq, skv, hd, hdv,
+                    float(scale), int(causal), window or 0,
+                    float(softcap or 0.0), stream)
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bhsd: kernel launch failed with cudaError "
+            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, hdv={hdv}, "
+            f"{q.dtype})")
+    flash_attention_bhsd.launches += 1
+    return out
+
+
+flash_attention_bhsd.launches = 0

@@ -2,10 +2,8 @@
 
 The kernel (``csrc/spmm_block_sparse.cu``) replaces the TPU kernel
 ``repro/kernels/spmm/spmm.py::spmm_block_sparse``; its source says how.
-It is compiled with ``nvcc`` for ``sm_90a`` on first use, through
-``torch.utils.cpp_extension.load`` into ``build/torch_kernels/`` at the
-root of the checkout, and bound with ``ctypes``: the source includes no
-PyTorch header, so the build takes seconds.
+It is compiled for ``sm_90a`` on first use with the port's other kernels
+(:mod:`..build`) and bound with ``ctypes``.
 
 :func:`spmm_block_sparse` takes CUDA tensors only and launches the kernel or
 raises; the plain version for CPU tensors is :func:`..ref.spmm_ref`, and
@@ -15,34 +13,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "spmm_block_sparse.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "torch_kernels"
+from ..build import kernel_fn
+
 BLOCK_SIZES = (32, 64, 128)
 
 
 @functools.cache
-def build() -> ctypes.CDLL:
-    """Compile (once per process; ``load`` skips an unchanged build) and
-    bind the kernel library."""
-    from torch.utils.cpp_extension import load
-
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    path = load(name="repro_torch_spmm", sources=[str(_SRC)],
-                build_directory=str(BUILD_DIR),
-                extra_cuda_cflags=["-O3",
-                                   "-gencode=arch=compute_90a,code=sm_90a"],
-                is_python_module=False)
-    lib = ctypes.CDLL(path)
-    fn = lib.spmm_block_sparse_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
+def _kernel():
+    return kernel_fn("spmm_block_sparse_f32",
+                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_void_p])
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
@@ -102,10 +87,9 @@ def spmm_block_sparse(blocks: torch.Tensor, block_rows: torch.Tensor,
             f"block size bs={bs}")
     if nnzb == 0 or n_out == 0 or d == 0:
         return h.new_zeros(n_out, d)
-    lib = build()
     out = torch.empty(n_out, d, dtype=h.dtype, device=h.device)
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    err = lib.spmm_block_sparse_f32(
+    err = _kernel()(
         blocks.data_ptr(), block_rows.data_ptr(), block_cols.data_ptr(),
         nnzb, bs, h.data_ptr(), d, out.data_ptr(), n_out // bs, stream)
     if err:

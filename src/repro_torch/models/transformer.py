@@ -1,0 +1,249 @@
+"""Decoder-only LM: the port of ``repro/models/transformer.py`` for the
+configs the port runs (zamba2: mamba2 blocks and one weight-tied
+attention + MLP block).
+
+The parameter tree is the reference's value tree: ``{"embed",
+"final_norm", "head", "shared_block", "groups"}``, ``groups`` one list per
+layer group of per-unit-position entries, stacked along a leading repeats
+axis when the group repeats, with ``{}`` placeholders at the
+``shared_attn`` positions.  Python loops over the repeats replace
+``lax.scan``.  :func:`forward` (scoring) and :func:`prefill` pre-cast the
+weights to the compute dtype as the reference does; :func:`decode_step`
+does not, and relies on the in-block casts, as the reference.
+
+Decode caches mirror the group structure; :func:`decode_step` writes the
+new token's state into the cache tensors in place (see
+``nn/attention.py``) and returns caches with the advanced length.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..nn import layers as nl
+from ..params import tree_map
+from . import blocks as B
+
+_KEEP_F32 = ("router", "norm")   # routing logits + norm scales stay fp32
+
+
+def compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def init_transformer(cfg: ArchConfig, seed: int = 0,
+                     device="cuda") -> dict:
+    """fp32 parameters drawn on ``device`` from a ``torch.Generator`` seeded
+    with ``seed``, in the reference's tree layout."""
+    if cfg.modality:
+        raise NotImplementedError(
+            f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
+            f"item 22)")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    params: dict = {
+        "embed": nl.init_embedding(gen, cfg.padded_vocab, cfg.d_model),
+        "final_norm": nl.init_rms_norm(gen, cfg.d_model,
+                                       plus_one=cfg.post_norm),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = nl.param(gen, (cfg.d_model, cfg.padded_vocab))
+    if cfg.hybrid_attn_every:
+        params["shared_block"] = B.init_block(gen, cfg, "shared_attn")
+    groups = []
+    for g in B.layer_groups(cfg):
+        unit = []
+        for kind in g.unit:
+            if kind == "shared_attn":
+                unit.append({})          # weight-tied → placeholder
+                continue
+            reps = [B.init_block(gen, cfg, kind) for _ in range(g.repeats)]
+            unit.append(reps[0] if g.repeats == 1 else
+                        tree_map(lambda *ls: torch.stack(ls), *reps))
+        groups.append(unit)
+    params["groups"] = groups
+    return params
+
+
+def _cast_compute(tree, dtype: torch.dtype, key: Optional[str] = None):
+    """Pre-cast fp32 weights of ndim ≥ 2 to the compute dtype, outside the
+    layer loop, as the reference does.  Leaves whose innermost dict key
+    names a router or a norm stay fp32 (so do stacked 1-d leaves that are
+    not: the reference casts those too)."""
+    if dtype == torch.float32:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _cast_compute(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_cast_compute(v, dtype, key) for v in tree)
+    if tree.dtype != torch.float32 or tree.dim() < 2 or \
+            (key is not None and any(t in key for t in _KEEP_F32)):
+        return tree
+    return tree.to(dtype)
+
+
+def _rep(tree, r: int):
+    """Repeat ``r`` of a stacked tree (views)."""
+    return tree_map(lambda t: t[r], tree)
+
+
+def assemble_inputs(params, cfg: ArchConfig,
+                    tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) → embeddings (B, S, D)."""
+    if cfg.modality:
+        raise NotImplementedError(
+            f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
+            f"item 22)")
+    x = nl.embed(params["embed"].float(), tokens)
+    return x * math.sqrt(float(cfg.d_model))
+
+
+def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
+    """(kind, block params) for every layer in order, weights pre-cast."""
+    shared = (_cast_compute(params["shared_block"], dtype)
+              if cfg.hybrid_attn_every else None)
+    for gspec, gp in zip(B.layer_groups(cfg), params["groups"]):
+        cast = [_cast_compute(p, dtype) if p else {} for p in gp]
+        for r in range(gspec.repeats):
+            for kind, p_blk in zip(gspec.unit, cast):
+                if kind == "shared_attn":
+                    yield kind, shared
+                else:
+                    yield kind, p_blk if gspec.repeats == 1 \
+                        else _rep(p_blk, r)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
+    """Full-sequence forward (scoring).  Returns (logits (B,S,V), aux_loss);
+    aux_loss is 0 (it comes from MoE layers, ROADMAP queue 1 item 21)."""
+    dtype = compute_dtype(cfg)
+    x = assemble_inputs(params, cfg, tokens).to(dtype)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    for kind, p_blk in _layers(params, cfg, dtype):
+        x = B.apply_block(p_blk, cfg, kind, x, positions)
+    x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
+                    plus_one=cfg.post_norm)
+    return unembed(params, cfg, x), x.new_zeros((), dtype=torch.float32)
+
+
+def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["head"].to(x.dtype)
+    logits = nl.softcap(logits.float(), cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        # pad ids can never be predicted or contribute to the lse
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
+            cfg.vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    return logits
+
+
+def _stack_caches(caches: list):
+    """One cache of a repeated unit position from its per-repeat caches."""
+    first = caches[0]
+    return dataclasses.replace(first, **{
+        f.name: torch.stack([getattr(c, f.name) for c in caches])
+        for f in dataclasses.fields(first) if f.name != "length"})
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, max_len: int):
+    """Run the prompt through the stack, materializing decode caches.
+    Returns (logits (B,S,V), caches)."""
+    dtype = compute_dtype(cfg)
+    x = assemble_inputs(params, cfg, tokens).to(dtype)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    layers = _layers(params, cfg, dtype)
+    caches = []
+    for gspec in B.layer_groups(cfg):
+        per_rep = []
+        for _ in range(gspec.repeats):
+            unit_caches = []
+            for _kind in gspec.unit:
+                kind, p_blk = next(layers)
+                x, c = B.apply_block_prefill(p_blk, cfg, kind, x, positions,
+                                             max_len)
+                unit_caches.append(c)
+            per_rep.append(unit_caches)
+        caches.append(per_rep[0] if gspec.repeats == 1 else
+                      [_stack_caches([rep[u] for rep in per_rep])
+                       for u in range(len(gspec.unit))])
+    x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
+                    plus_one=cfg.post_norm)
+    return unembed(params, cfg, x), caches
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int,
+                dtype=torch.float32, device="cuda"):
+    """Empty caches mirroring the group structure."""
+    caches = []
+    for g in B.layer_groups(cfg):
+        unit_caches = []
+        for kind in g.unit:
+            one = B.init_block_cache(cfg, kind, batch, max_len, dtype, device)
+            unit_caches.append(one if g.repeats == 1 else
+                               _stack_caches([one] * g.repeats))
+        caches.append(unit_caches)
+    return caches
+
+
+def _set_rep(stacked, r: int, new) -> None:
+    """Write repeat ``r``'s new cache into the stacked cache (tensors the
+    block updated in place through a view are already there)."""
+    for f in dataclasses.fields(stacked):
+        if f.name == "length":
+            continue
+        dst, src = getattr(stacked, f.name)[r], getattr(new, f.name)
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+
+
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches):
+    """token (B, 1) → (logits (B, 1, V), caches advanced by one token).
+
+    The weights are not pre-cast (the blocks cast each use), as the
+    reference.  The cache tensors are updated in place: the caches passed
+    in are consumed."""
+    dtype = compute_dtype(cfg)
+    x = nl.embed(params["embed"].float(), token)
+    x = (x * math.sqrt(float(cfg.d_model))).to(dtype)
+    new_caches = []
+    for gspec, gp, gc in zip(B.layer_groups(cfg), params["groups"], caches):
+        new_gc = list(gc)
+        for r in range(gspec.repeats):
+            for u, (kind, p_blk) in enumerate(zip(gspec.unit, gp)):
+                if kind == "shared_attn":
+                    p_blk = params["shared_block"]
+                elif gspec.repeats > 1:
+                    p_blk = _rep(p_blk, r)
+                if gspec.repeats == 1:
+                    x, new_gc[u] = B.apply_block_decode(p_blk, cfg, kind, x,
+                                                        gc[u])
+                    continue
+                c_r = dataclasses.replace(gc[u], **{
+                    f.name: getattr(gc[u], f.name)[r]
+                    for f in dataclasses.fields(gc[u]) if f.name != "length"})
+                x, c_new = B.apply_block_decode(p_blk, cfg, kind, x, c_r)
+                _set_rep(gc[u], r, c_new)
+        if gspec.repeats > 1:
+            new_gc = [dataclasses.replace(c, length=c.length + 1)
+                      for c in gc]
+        new_caches.append(new_gc)
+    x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
+                    plus_one=cfg.post_norm)
+    return unembed(params, cfg, x), new_caches
+
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Next-token cross-entropy with vocab-dim reductions only."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    true_logit = torch.take_along_dim(logits, targets[..., None].long(),
+                                      dim=-1)[..., 0]
+    return (lse - true_logit).mean()

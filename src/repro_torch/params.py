@@ -1,9 +1,11 @@
 """Parameter trees: the weight bridge to and from numpy, and tree helpers.
 
 A parameter tree is nested dicts, lists and tuples with tensors at the
-leaves — the same structure as the JAX package's param pytrees
-(``{"layers": [{"w", "b"}, ...]}``), so weights made there (as numpy
-arrays) load here unchanged and go back the same way.
+leaves — the same structure as the JAX package's param pytrees (the GCN's
+``{"layers": [{"w", "b"}, ...]}``, and the LM's value tree with its
+per-group lists and ``{}`` placeholders for weight-tied blocks, which map
+to themselves), so weights made there (as numpy arrays) load here
+unchanged and go back the same way.
 """
 from __future__ import annotations
 

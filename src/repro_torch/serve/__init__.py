@@ -1,0 +1,1 @@
+from .engine import GenerationResult, generate, make_serve_fns  # noqa: F401

@@ -1,0 +1,67 @@
+"""Serving engine: prefill, decode steps and batched generation — the port
+of ``repro/serve/engine.py`` on one card.
+
+Greedy decoding is ``argmax`` (the first index wins ties, as in jnp).
+Temperature sampling draws from an explicit ``torch.Generator``; it is not
+held against JAX, whose PRNG the port cannot reproduce.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..configs.base import ArchConfig
+from ..models import transformer as T
+
+
+def make_serve_fns(cfg: ArchConfig):
+    """(prefill_fn, decode_fn) closures over ``cfg``."""
+
+    def prefill_fn(params, tokens, *, max_len: int):
+        return T.prefill(params, cfg, tokens, max_len=max_len)
+
+    def decode_fn(params, token, caches):
+        return T.decode_step(params, cfg, token, caches)
+
+    return prefill_fn, decode_fn
+
+
+@dataclasses.dataclass
+class GenerationResult:
+    tokens: np.ndarray              # (B, prompt + generated)
+    prefill_logits: torch.Tensor
+
+
+@torch.no_grad()
+def generate(params, cfg: ArchConfig, prompt, n_steps: int, *,
+             temperature: float = 0.0, seed: int = 0,
+             max_len: Optional[int] = None,
+             device="cuda") -> GenerationResult:
+    """Greedy / temperature sampling for a batch of prompts (B, S) on
+    ``device``, where ``params`` must lie."""
+    if cfg.modality:
+        raise NotImplementedError(
+            f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
+            f"item 22)")
+    prompt = torch.as_tensor(np.asarray(prompt), device=device)
+    b, s = prompt.shape
+    max_len = max_len or (s + n_steps)
+    prefill_fn, decode_fn = make_serve_fns(cfg)
+    logits, caches = prefill_fn(params, prompt, max_len=max_len)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    last = logits[:, -1]
+    out = [prompt.cpu().numpy()]
+    for _ in range(n_steps):
+        if temperature > 0:
+            probs = torch.softmax(last / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=gen)
+        else:
+            tok = torch.argmax(last, dim=-1)[:, None]
+        out.append(tok.cpu().numpy().astype(np.int32))
+        step_logits, caches = decode_fn(params, tok.to(torch.int32), caches)
+        last = step_logits[:, -1]
+    return GenerationResult(tokens=np.concatenate(out, axis=1),
+                            prefill_logits=logits)
