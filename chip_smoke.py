@@ -10,18 +10,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 2. build    — compiles every kernel of the port (SpMM, flash attention,
               SSD) from the checkout's sources in one build
               (``build/torch_kernels/``) and prints the seconds;
-3. spmm     — the SpMM kernel against its plain PyTorch version on the
-              card: bs ∈ {32, 64, 128} × d ∈ {8, 41, 128, 200} on
-              rectangular plans (forward and transposed tiles), a stacked
-              plan's padded instance, an empty plan, and forward + autograd
-              backward through ``aggregate_plan``; each case held to
-              max|Δ| ≤ 1e-5·(1 + max|ref|);
-4. flash    — the flash-attention kernel against its plain version: fp32
-              and bf16, GQA groups g ∈ {1, 2, 4, 8}, causal and not,
-              window, softcap, ragged Sq ≠ Skv, hd ∈ {64, 80, 128, 256},
-              hdv ≠ hd; fp32 held to 1e-5·(1 + max|ref|), bf16 per
-              element to |Δ| ≤ 2^-7·|ref| + 1e-3 (both round the same fp32
-              math to bf16 once, so they differ by at most one bf16 ulp);
+3. spmm     — the nonzero-balanced SpMM kernel, on the compressed arrays
+              ``block_sparse_plan_dev`` derives from each plan's tiles,
+              against the plain version on the dense tiles (``spmm_ref``):
+              bs ∈ {32, 64, 128} × d ∈ {8, 41, 128, 200} on rectangular
+              plans, forward and transposed; a skewed plan (one row of
+              5 000 nonzeros over 79 warp segments, 500 empty rows, rows
+              straddling segments) whose repeat launches must be bitwise
+              equal; a stacked plan's padded instance; an empty plan (no
+              launch, zeros); and forward + autograd backward through
+              ``aggregate_plan`` against the plain version on its arrays;
+              each case held to max|Δ| ≤ 1e-5·(1 + max|ref|);
+4. flash    — the flash-attention kernels against their plain version:
+              every bf16 case through the tensor-core kernel and every fp32
+              case through the FMA kernel (launch counts per variant), GQA
+              groups g ∈ {1, 2, 4, 8}, causal and not, window, softcap,
+              ragged Sq ≠ Skv, hd ∈ {36, 64, 80, 128, 256}, hdv ≠ hd; fp32
+              held to 1e-5·(1 + max|ref|), bf16 per element to |Δ| ≤
+              2^-7·|ref| + 1e-3 (both round the same fp32 math to bf16
+              once, so they differ by at most one bf16 ulp);
 5. ssd      — the SSD intra-chunk kernel against its plain version:
               Q ∈ {16, 64, 256}, P ∈ {32, 64}, N ∈ {32, 64, 128}, H > 1
               with B/C shared, held to 1e-4·(1 + max|ref|) (the kernel's
@@ -37,19 +44,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               grads recomputed with the plain version on the card and with
               the segment backend, each held within rtol 1e-4 (per tensor,
               max|Δ| ≤ 1e-4·max|ref|);
-7. spmm-t   — one forward-chunk and one backward-chunk SpMM launch at the
-              GCN path's shapes with CUDA events, beside the plain version,
-              ``torch.sparse.mm`` on the same chunk of Â as CSR (timed
-              only, never on the path) and the card's bound;
+7. spmm-t   — the forward and the backward chunk at the GCN path's
+              shapes: the kernel held against the plain version on chunk
+              0's tiles and on its arrays, a repeat launch bitwise equal,
+              and ``torch.sparse.mm`` on torch's CSR of the same tiles
+              (held to 1e-5·(1 + max|ref|); timed only, never on the path);
+              kernel and library timed as device time (``torch.profiler``,
+              min of two runs of 20 after a warm-up; the SpMM's includes
+              the memset of its flags, printed apart), beside the CUDA-event
+              time of a call, the plain version and the bound of these
+              inputs (nonzeros, row pointers, h once, output once);
 8. serve    — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random weights from seed 0 drawn on the
               card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
               ``generate`` of 2 prompts × 2048 tokens from
               ``SyntheticLM(32000, seed=0)`` + 32 greedy steps, 9 flash
-              launches in prefill and none in decode; then prefill and
+              launches in prefill (all of the tensor-core kernel) and none
+              in decode; then prefill and
               decode timed (medians) and one prefill profiled;
 9. score    — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
-              under ``torch.no_grad()``: 9 flash and 45 SSD launches, a
+              under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
+              launches, a
               finite loss; timed and profiled;
 10. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
               path against the same path with both plain versions patched
@@ -67,7 +82,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               N=64, Q=256 beside its plain version and its bound.
 
 The last lines are a JSON summary of the kernels, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.
+power limit, and ``{"ok": true, "device": {...}}``.  In the summary's
+``kernels`` line, ``ms_by`` says how each row's ``ms`` and ``library_ms``
+were timed: ``"profiler"`` (device time from ``torch.profiler``) or
+``"events"`` (CUDA events over back-to-back calls); ``plain_ms`` and the
+SpMM's ``event_ms`` are always CUDA events.
 """
 from __future__ import annotations
 
@@ -97,6 +116,8 @@ BF16_ATOL = 1e-3       # per-element floor for outputs near 0
 SDPA_TOL = 1e-2        # SDPA rounds the softmax weights to bf16
 SSD_TOL = 1e-4         # prefix sums in another order, exp(cs) at |cs| ~ 1e2
 PATH_RTOL = 1e-4
+# the port's kernels, as their names appear in a profile
+PORT_KERNELS = ("spmm_csr_kernel", "flash_fwd", "ssd_intra_chunk_kernel")
 
 
 def _held(name: str, got: torch.Tensor, want: torch.Tensor,
@@ -129,11 +150,6 @@ def _held_bf16(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def _ref_on_card(blocks, rows, cols, h, *, n_out=None):
-    from repro_torch.kernels.spmm.ref import spmm_ref
-    return spmm_ref(blocks, rows, cols, h, n_out=n_out)
-
-
 def _rect_plan(n_rows, n_cols, e, bs, seed):
     from repro_torch.graph.format import rect_block_sparse
     rng = np.random.default_rng(seed)
@@ -143,59 +159,89 @@ def _rect_plan(n_rows, n_cols, e, bs, seed):
                              n_rows, n_cols, bs)
 
 
+def _skewed_plan(seed=11):
+    """3 000 × 20 000 at bs=128: destination row 11 has 5 000 sources (it
+    spans 79 kernel segments), rows 1 000–1 499 are empty, the other rows
+    get ≈ 6 random sources each, so many rows straddle two segments."""
+    from repro_torch.graph.format import rect_block_sparse
+    rng = np.random.default_rng(seed)
+    hub = rng.choice(20000, 5000, replace=False).astype(np.int32)
+    dst = rng.integers(0, 3000, 20000).astype(np.int32)
+    dst = dst[(dst < 1000) | (dst >= 1500)]
+    src = rng.integers(0, 20000, dst.size).astype(np.int32)
+    w = rng.random(5000 + dst.size).astype(np.float32)
+    w[:5000] *= 0.015      # GCN-sized weights on the hub
+    return rect_block_sparse(np.concatenate([np.full(5000, 11, np.int32), dst]),
+                             np.concatenate([hub, src]), w, 3000, 20000, 128)
+
+
+def _tiles(plan, t, dev, c=None):
+    """A host plan's forward (t="") or transposed (t="_t") tiles on the
+    card, instance c of a stack."""
+    out = []
+    for f in ("blocks", "block_rows", "block_cols"):
+        a = getattr(plan, f + t)
+        out.append(torch.from_numpy(np.ascontiguousarray(
+            a if c is None else a[c])).to(dev))
+    return out
+
+
+def _arrays(plan_dev, t):
+    return [getattr(plan_dev, f + t) for f in ("row_ptr", "col_idx", "vals")]
+
+
 def kernel_cases(dev) -> float:
     """Phase 3; returns the largest max|Δ| over the cases."""
     from repro_torch.graph.format import stack_plans
     from repro_torch.kernels.spmm import ops
     from repro_torch.kernels.spmm import (aggregate_plan,
-                                          block_sparse_plan_dev,
-                                          spmm_block_sparse, spmm_ref)
+                                          block_sparse_plan_dev, spmm_csr,
+                                          spmm_csr_ref, spmm_ref)
     errs = []
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def both_ways(name, host, c=None, ds=(8, 41, 128, 200), repeat=False):
+        plan = block_sparse_plan_dev(host, dev)
+        plan = plan if c is None else plan.instance(c)
+        for t, n_in, n_out in (("", plan.cols_padded, plan.rows_padded),
+                               ("_t", plan.rows_padded, plan.cols_padded)):
+            for d in ds:
+                h = torch.randn(n_in, d, generator=gen, device=dev)
+                got = spmm_csr(*_arrays(plan, t), h)
+                errs.append(_held(
+                    f"{name} d={d} {'transposed' if t else 'forward'}", got,
+                    spmm_ref(*_tiles(host, t, dev, c), h, n_out=n_out)))
+                if repeat and not torch.equal(got,
+                                              spmm_csr(*_arrays(plan, t), h)):
+                    raise AssertionError(f"{name} d={d}: a second launch "
+                                         f"differs bitwise")
+        return plan
+
     for bs in (32, 64, 128):
-        plan = block_sparse_plan_dev(
-            _rect_plan(3 * bs + 5, 7 * bs + 3, 40 * bs, bs, seed=bs), dev)
-        for d in (8, 41, 128, 200):
-            h = torch.randn(plan.cols_padded, d, generator=gen, device=dev)
-            errs.append(_held(
-                f"bs={bs} d={d} rect {plan.rows_padded}x{plan.cols_padded}",
-                spmm_block_sparse(plan.blocks, plan.block_rows,
-                                  plan.block_cols, h, n_out=plan.rows_padded),
-                spmm_ref(plan.blocks, plan.block_rows, plan.block_cols, h,
-                         n_out=plan.rows_padded)))
-            g = torch.randn(plan.rows_padded, d, generator=gen, device=dev)
-            errs.append(_held(
-                f"bs={bs} d={d} transposed tiles",
-                spmm_block_sparse(plan.blocks_t, plan.block_rows_t,
-                                  plan.block_cols_t, g,
-                                  n_out=plan.cols_padded),
-                spmm_ref(plan.blocks_t, plan.block_rows_t, plan.block_cols_t,
-                         g, n_out=plan.cols_padded)))
+        both_ways(f"bs={bs} rect {3 * bs + 5}x{7 * bs + 3}",
+                  _rect_plan(3 * bs + 5, 7 * bs + 3, 40 * bs, bs, seed=bs))
+    skew = both_ways("skewed 3000x20000 (hub 5000, empty band)",
+                     _skewed_plan(), ds=(41, 200), repeat=True)
+    nnz = int(skew.row_ptr[-1])
+    rows = skew.row_ptr.diff()
+    print(f"  {'skewed case':<44} nnz {nnz}, longest row {int(rows.max())}"
+          f", {int((rows == 0).sum())} empty rows; repeat launches "
+          f"bitwise equal  ok")
 
     sparse = _rect_plan(100, 300, 30, 64, seed=1)
     dense = _rect_plan(100, 300, 5000, 64, seed=2)
-    padded = block_sparse_plan_dev(stack_plans([sparse, dense]),
-                                   dev).instance(0)
-    if sparse.nnzb >= dense.nnzb or padded.blocks[-1].any():
+    stacked = stack_plans([sparse, dense])
+    if sparse.nnzb >= dense.nnzb or stacked.blocks[0, -1].any():
         raise AssertionError("stacked case has no padding tiles")
-    h = torch.randn(padded.cols_padded, 41, generator=gen, device=dev)
-    errs.append(_held("bs=64 d=41 stack_plans instance with padding",
-                      spmm_block_sparse(padded.blocks, padded.block_rows,
-                                        padded.block_cols, h,
-                                        n_out=padded.rows_padded),
-                      spmm_ref(padded.blocks, padded.block_rows,
-                               padded.block_cols, h,
-                               n_out=padded.rows_padded)))
+    both_ways("bs=64 stack_plans instance with padding", stacked, c=0,
+              ds=(41,))
 
-    before = spmm_block_sparse.launches
-    empty = torch.zeros(0, 32, 32, device=dev)
-    idx = torch.zeros(0, dtype=torch.int32, device=dev)
-    out = spmm_block_sparse(empty, idx, idx, torch.randn(64, 41, device=dev),
-                            n_out=96)
-    if out.shape != (96, 41) or out.any() or \
-            spmm_block_sparse.launches != before:
+    before = spmm_csr.launches
+    empty = block_sparse_plan_dev(_rect_plan(90, 60, 0, 32, seed=3), dev)
+    out = spmm_csr(*_arrays(empty, ""), torch.randn(64, 41, device=dev))
+    if out.shape != (96, 41) or out.any() or spmm_csr.launches != before:
         raise AssertionError("empty plan must launch nothing, give zeros")
-    print(f"  {'empty plan (nnzb=0)':<44} zeros, no launch  ok")
+    print(f"  {'empty plan (no nonzero)':<44} zeros, no launch  ok")
 
     for bs, d in ((64, 41), (128, 200)):
         plan = block_sparse_plan_dev(
@@ -206,7 +252,7 @@ def kernel_cases(dev) -> float:
         cot = torch.randn(plan.rows_padded, d, generator=gen, device=dev)
         got = aggregate_plan(plan, h)
         (got_g,) = torch.autograd.grad(got, h, cot)
-        with mock.patch.object(ops, "spmm_block_sparse", _ref_on_card):
+        with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
             want = aggregate_plan(plan, h)
             (want_g,) = torch.autograd.grad(want, h, cot)
         errs.append(_held(f"bs={bs} d={d} aggregate_plan forward",
@@ -228,7 +274,7 @@ def train(dev):
     from repro_torch.core import decouple as D
     from repro_torch.gnn import models as M
     from repro_torch.graph.synthetic import reddit_like
-    from repro_torch.kernels.spmm import ops, spmm_block_sparse
+    from repro_torch.kernels.spmm import ops, spmm_csr, spmm_csr_ref
     from repro_torch.params import tree_leaves
     from repro_torch.runtime import TPMesh
 
@@ -239,12 +285,11 @@ def train(dev):
                               device=dev)
     torch.cuda.synchronize()
     plan = bundle.graph.bsp
-    dens = plan.nnzb / ((plan.rows_padded // plan.bs)
-                        * (plan.cols_padded // plan.bs))
+    nnz = plan.row_ptr[:, -1].tolist()
     print(f"  graph n={data.graph.n} E={data.graph.e} "
           f"features={data.features.shape[1]} classes={data.num_classes}; "
-          f"plan {plan.nnzb} tiles/chunk of bs={plan.bs} (density "
-          f"{dens:.4f}, {data.graph.e / (4 * plan.nnzb):.1f} edges/tile); "
+          f"plans of bs={plan.bs} tiles, compressed to {nnz} nonzeros per "
+          f"chunk ({plan.rows_padded} rows over {plan.cols_padded} sources); "
           f"prepared in {time.perf_counter() - t0:.1f} s")
 
     mesh = TPMesh()
@@ -255,7 +300,7 @@ def train(dev):
                                          mode="decoupled_pipelined")
     params, state = params0, opt.init(params0)
     losses, ms = [], []
-    spmm_block_sparse.launches = 0
+    spmm_csr.launches = 0
     for i in range(13):
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -265,10 +310,10 @@ def train(dev):
         ms.append((time.perf_counter() - t) * 1e3)
         print(f"  step {i:2d} {'warm-up' if i < 3 else 'timed  '} "
               f"loss {losses[-1]:.6f}  {ms[-1]:.2f} ms")
-    launches = spmm_block_sparse.launches
+    launches = spmm_csr.launches
     median_ms = statistics.median(ms[3:])
     print(f"  median step {median_ms:.2f} ms over 10 timed steps; "
-          f"spmm_block_sparse launches {launches} "
+          f"spmm_csr launches {launches} "
           f"({launches / 13:.0f} per step)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
@@ -286,7 +331,7 @@ def train(dev):
     vg = D.make_tp_value_and_grad(cfg, bundle, mesh,
                                   mode="decoupled_pipelined")
     loss_k, grads_k = vg(params0, bundle.train_mask)
-    with mock.patch.object(ops, "spmm_block_sparse", _ref_on_card):
+    with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
         loss_p, grads_p = vg(params0, bundle.train_mask)
     loss_s, grads_s = D.make_tp_value_and_grad(
         cfg, bundle, mesh, mode="decoupled_pipelined", agg="segment")(
@@ -327,8 +372,12 @@ def _profile(fn, label: str) -> dict:
           f"{wall_ms:.2f} ms wall (idle share {1 - busy_ms / wall_ms:.3f})")
     for name, ms, count in kernels[:8]:
         print(f"    {ms:9.3f} ms  {count:5d}×  {name[:70]}")
+    port = [k for k in kernels if any(n in k[0] for n in PORT_KERNELS)]
+    for name, ms, count in port:
+        print(f"    port kernel: {ms:9.3f} ms  {count:5d}×  {name[:60]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "top": [[n[:70], ms, c] for n, ms, c in kernels[:8]]}
+            "top": [[n[:70], ms, c] for n, ms, c in kernels[:8]],
+            "port": [[n[:70], ms, c] for n, ms, c in port]}
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -344,88 +393,119 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound(blocks, n_in, n_out, d):
-    """Least time the card could take: every input byte read once and the
-    output written once, and the fp32 operations the tiles' nonzero
-    entries need (2 per nonzero per output column)."""
-    nnzb = blocks.shape[0]
-    nbytes = 4 * (blocks.numel() + 2 * nnzb + n_in * d + n_out * d)
-    flops = 2 * int(torch.count_nonzero(blocks).item()) * d
+def _device_ms(fn, iters: int) -> tuple[float, float]:
+    """Device time of one call of ``fn``: the sum over the kernels and
+    memsets it launches, and the memsets' part of it, from
+    ``torch.profiler``, averaged over ``iters`` calls after one warm-up
+    call.  For launches of a few microseconds, where CUDA events over
+    back-to-back calls time the host's Python and launch cost instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / iters,
+            sum(e.self_device_time_total for e in events
+                if "memset" in e.key.lower()) / 1e3 / iters)
+
+
+def _spmm_bound(nnz, n_in, n_out, d):
+    """Least time the card could take for a sparse product with these
+    inputs: the nonzeros (value and source index, 8 B each), the row
+    pointers, h read once and the output written once, against the fp32
+    operations the nonzeros need (2 per nonzero per column)."""
+    nbytes = 8 * nnz + 4 * (n_out + 1) + 4 * n_in * d + 4 * n_out * d
+    flops = 2 * nnz * d
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
             else "operations", nbytes, flops)
 
 
+def _csr_of_tiles(blocks, rows, cols, n_out, n_in):
+    """torch's CSR of a plan instance's tiles (its nonzero entries, padded
+    rows included): the library yardstick's input, built independently of
+    the port's derivation."""
+    bs = blocks.shape[-1]
+    k, i, j = torch.nonzero(blocks, as_tuple=True)
+    idx = torch.stack([rows.long()[k] * bs + i, cols.long()[k] * bs + j])
+    return torch.sparse_coo_tensor(idx, blocks[k, i, j], (n_out, n_in),
+                                   check_invariants=True).coalesce() \
+        .to_sparse_csr()
+
+
 def timing(bundle, data, dev):
-    """Phase 5: returns the forward-chunk numbers and the max|Δ| there."""
-    from repro_torch.kernels.spmm import spmm_block_sparse, spmm_ref
+    """Phase 7: returns the forward/backward-chunk numbers and the max|Δ|
+    there."""
+    from repro_torch.core.decouple import _pad_graph
+    from repro_torch.graph.format import rect_block_sparse
+    from repro_torch.kernels.spmm import spmm_csr, spmm_csr_ref, spmm_ref
     plan = bundle.graph.bsp.instance(0)
     cs = bundle.graph.chunked.chunk_size
     d = bundle.graph.c_padded
+    # chunk 0's tiles as chunk_block_sparse builds them (its stack padding
+    # is all-zero tiles, which hold no entry)
+    gp = _pad_graph(data.graph, bundle.graph.n_padded)
+    e_hi = int(gp.indptr[cs])
+    host = rect_block_sparse(gp.dst[:e_hi], gp.src[:e_hi], gp.weight[:e_hi],
+                             n_rows=cs, n_cols=gp.n, bs=plan.bs)
     gen = torch.Generator(device=dev).manual_seed(1)
-    h = torch.randn(plan.cols_padded, d, generator=gen, device=dev)
-    g = torch.randn(plan.rows_padded, d, generator=gen, device=dev)
+    rows, err = {}, 0.0
+    for name, t, n_in, n_out in (
+            ("forward", "", plan.cols_padded, plan.rows_padded),
+            ("backward", "_t", plan.rows_padded, plan.cols_padded)):
+        arrays = _arrays(plan, t)
+        nnz = int(arrays[0][-1])
+        h = torch.randn(n_in, d, generator=gen, device=dev)
+        tiles = _tiles(host, t, dev)
 
-    def fwd():
-        return spmm_block_sparse(plan.blocks, plan.block_rows,
-                                 plan.block_cols, h, n_out=plan.rows_padded)
+        def kern():
+            return spmm_csr(*arrays, h)
 
-    def fwd_plain():
-        return spmm_ref(plan.blocks, plan.block_rows, plan.block_cols, h,
-                        n_out=plan.rows_padded)
+        def plain():
+            return spmm_csr_ref(*arrays, h)
 
-    def bwd():
-        return spmm_block_sparse(plan.blocks_t, plan.block_rows_t,
-                                 plan.block_cols_t, g,
-                                 n_out=plan.cols_padded)
+        got = kern()
+        err = max(err, _held(f"main-path {name} chunk (d={d}) vs tiles",
+                             got, spmm_ref(*tiles, h, n_out=n_out)))
+        err = max(err, _held(f"  vs the plain version on its arrays", got,
+                             plain()))
+        if not torch.equal(got, kern()):
+            raise AssertionError(f"{name} chunk: a second launch differs "
+                                 f"bitwise")
+        a_csr = _csr_of_tiles(*tiles, n_out, n_in)
+        del tiles
 
-    def bwd_plain():
-        return spmm_ref(plan.blocks_t, plan.block_rows_t, plan.block_cols_t,
-                        g, n_out=plan.cols_padded)
+        def lib():
+            return torch.sparse.mm(a_csr, h)
 
-    err = _held(f"main-path forward chunk (d={d})", fwd(), fwd_plain())
-    err = max(err, _held(f"main-path backward chunk (d={d})", bwd(),
-                         bwd_plain()))
-
-    # chunk 0 of Â as CSR (rows [0, cs), all source columns) — the library
-    # yardstick, never on the port's path
-    gr = data.graph
-    e_hi = int(gr.indptr[cs])
-    coo = torch.sparse_coo_tensor(
-        torch.from_numpy(np.stack([gr.dst[:e_hi], gr.src[:e_hi]]).astype(
-            np.int64)), torch.from_numpy(gr.weight[:e_hi]),
-        (plan.rows_padded, plan.cols_padded)).coalesce()
-    a_csr = coo.to_sparse_csr().to(dev)
-
-    def lib():
-        return torch.sparse.mm(a_csr, h)
-
-    lib_err = (lib() - fwd()).abs().max().item()
-    print(f"  torch.sparse.mm vs kernel on chunk 0: max|Δ|={lib_err:.3e}")
-
-    rows = {}
-    for name, k, p, n_in, n_out, blocks in (
-            ("forward", fwd, fwd_plain, plan.cols_padded, plan.rows_padded,
-             plan.blocks),
-            ("backward", bwd, bwd_plain, plan.rows_padded, plan.cols_padded,
-             plan.blocks_t)):
-        nnzb = blocks.shape[0]
-        k_ms, p_ms = _time_ms(k, 20), _time_ms(p, 5)
-        k_ms2 = _time_ms(k, 20)
-        bound_ms, by, nbytes, flops = _bound(blocks, n_in, n_out, d)
-        rows[name] = dict(ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2],
-                          plain_ms=p_ms, bound_ms=bound_ms, bound_by=by,
-                          nnzb=nnzb, n_in=n_in, n_out=n_out, bytes=nbytes,
-                          flops=flops)
-        print(f"  {name} chunk: {nnzb} tiles, {n_in}→{n_out} rows, d={d}: "
-              f"kernel {k_ms:.4f} / {k_ms2:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {bound_ms:.4f} ms by {by} ({nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.4f} GFLOP on the nonzeros)")
-    lib_ms = _time_ms(lib, 20)
-    print(f"  torch.sparse.mm (CSR, {e_hi} nonzeros) forward chunk: "
-          f"{lib_ms:.4f} ms")
-    rows["forward"]["library_ms"] = lib_ms
+        lib_err = _held(f"  torch.sparse.mm (CSR of the tiles) vs kernel",
+                        lib(), got)
+        k_runs = [_device_ms(kern, 20), _device_ms(kern, 20)]
+        k_ms = [t for t, _ in k_runs]
+        memset_ms = min(m for _, m in k_runs)
+        l_ms = [_device_ms(lib, 20)[0], _device_ms(lib, 20)[0]]
+        ev_ms = _time_ms(kern, 20)
+        p_ms = _time_ms(plain, 5)
+        bound_ms, by, nbytes, flops = _spmm_bound(nnz, n_in, n_out, d)
+        rows[name] = dict(
+            ms=min(k_ms), ms_runs=k_ms, memset_ms=memset_ms,
+            event_ms=ev_ms, plain_ms=p_ms,
+            library_ms=min(l_ms), library_ms_runs=l_ms,
+            library_err=lib_err, bound_ms=bound_ms, bound_by=by, nnz=nnz,
+            n_in=n_in, n_out=n_out, bytes=nbytes, flops=flops)
+        print(f"  {name} chunk: {nnz} nonzeros, {n_in}→{n_out} rows, d={d}:"
+              f" kernel {k_ms[0]:.4f} / {k_ms[1]:.4f} ms device time, "
+              f"the flags' memset {memset_ms:.4f} ms of it "
+              f"({ev_ms:.4f} ms a call by CUDA events, host included), "
+              f"plain {p_ms:.4f} ms, torch.sparse.mm {l_ms[0]:.4f} / "
+              f"{l_ms[1]:.4f} ms device time; bound {bound_ms:.4f} ms by {by}"
+              f" ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
     return rows, err
 
 
@@ -447,6 +527,12 @@ FLASH_CASES = (
     (1, 16, 2, 300, 300, 128, 128, torch.bfloat16, True, None, None),
     (1, 8, 4, 256, 400, 256, 256, torch.bfloat16, False, None, None),
     (1, 8, 2, 256, 256, 64, 32, torch.bfloat16, True, 64, 30.0),
+    (2, 4, 2, 384, 384, 64, 64, torch.bfloat16, True, 100, None),
+    (2, 4, 4, 256, 256, 80, 80, torch.bfloat16, True, None, 20.0),
+    (1, 4, 2, 192, 192, 128, 64, torch.bfloat16, True, None, None),
+    (1, 4, 4, 130, 70, 64, 64, torch.bfloat16, True, None, None),
+    (1, 4, 2, 100, 100, 36, 20, torch.bfloat16, True, None, None),
+    (1, 8, 1, 257, 257, 256, 256, torch.bfloat16, True, None, None),
 )
 
 SSD_CASES = (
@@ -465,13 +551,20 @@ def flash_cases(dev) -> float:
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
     gen = torch.Generator(device=dev).manual_seed(2)
     errs = []
+    from repro_torch.kernels.flash_attn.flash import VARIANTS
     for b, hq, hkv, sq, skv, hd, hdv, dt, causal, win, cap in FLASH_CASES:
         q = torch.randn(b, hq, sq, hd, generator=gen, device=dev).to(dt)
         k = torch.randn(b, hkv, skv, hd, generator=gen, device=dev).to(dt)
         v = torch.randn(b, hkv, skv, hdv, generator=gen, device=dev).to(dt)
         kw = dict(causal=causal, window=win, softcap=cap)
+        before = dict(flash_attention_bhsd.launches_by_variant)
         got = flash_attention_bhsd(q, k, v, **kw)
         torch.cuda.synchronize()
+        ran = {key: n - before[key] for key, n in
+               flash_attention_bhsd.launches_by_variant.items()}
+        if ran != {key: int(key == VARIANTS[dt]) for key in ran}:
+            raise AssertionError(f"{dt} case launched {ran}, expected the "
+                                 f"{VARIANTS[dt]} kernel once")
         name = (f"{str(dt)[6:]} g={hq // hkv} {sq}x{skv} hd={hd}/{hdv} "
                 f"{'causal' if causal else 'full'}"
                 f"{f' win={win}' if win else ''}"
@@ -519,19 +612,22 @@ def ssd_cases(dev) -> float:
     return max(errs)
 
 
-def _lm_counts():
-    from repro_torch.kernels.flash_attn import flash_attention_bhsd
-    from repro_torch.kernels.ssd import ssd_intra_chunk
-    return flash_attention_bhsd, ssd_intra_chunk
-
-
 def _zero_lm_counts():
-    for fn in _lm_counts():
-        fn.launches = 0
+    from repro_torch.kernels.flash_attn import flash
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    flash.reset_launches()
+    ssd_intra_chunk.launches = 0
 
 
 def _read_lm_counts():
-    return tuple(fn.launches for fn in _lm_counts())
+    """(flash launches, SSD launches) since the last zeroing; every flash
+    launch of the bf16 model paths must be the tensor-core kernel's."""
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd as fl
+    from repro_torch.kernels.ssd import ssd_intra_chunk
+    if fl.launches != fl.launches_by_variant["mma_bf16"]:
+        raise AssertionError(f"flash launches {fl.launches_by_variant} are "
+                             f"not all the tensor-core kernel's")
+    return fl.launches, ssd_intra_chunk.launches
 
 
 def _plain_lm_kernels():
@@ -862,7 +958,7 @@ def main() -> int:
     print("[11/11] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
 
-    fwd = rows["forward"]
+    fwd, bwd = rows["forward"], rows["backward"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
     print(json.dumps({"timing": rows, "step_ms": step_ms, "profile": profile,
                       "build_s": build_s, "serve": serve_info,
@@ -870,17 +966,19 @@ def main() -> int:
                       "fp32_logits_err": fp32_err,
                       "card": card}))
     print(json.dumps({"kernels": [{
-        "name": "spmm_block_sparse", "route": "cuda",
-        "source": "src/repro_torch/kernels/spmm/csrc/spmm_block_sparse.cu",
+        "name": "spmm_csr", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:64",
-        "held_against": "ref.spmm_ref", "launches": launches,
-        "max_abs_err": max(spmm_err, path_err),
+        "held_against": "ref.spmm_ref (tiles), ref.spmm_csr_ref",
+        "launches": launches, "max_abs_err": max(spmm_err, path_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": fwd["library_ms"]}, {
+        "library_ms": fwd["library_ms"], "ms_by": "profiler",
+        "event_ms": fwd["event_ms"], "backward_ms": bwd["ms"],
+        "backward_library_ms": bwd["library_ms"]}, {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/"
-                  "flash_attention.cu",
+                  "flash_attention_mma.cu",
         "replaces": "src/repro/kernels/flash_attn/flash.py:105",
         "held_against": "ref.flash_ref",
         "launches": serve_info["launches"]["flash"]
@@ -888,7 +986,7 @@ def main() -> int:
         "max_abs_err": max(flash_err, fl["max_abs_err"]),
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-        "library_ms": fl["library_ms"]}, {
+        "library_ms": fl["library_ms"], "ms_by": "events"}, {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:61",
@@ -898,7 +996,7 @@ def main() -> int:
         "max_abs_err": max(ssd_err, sd["max_abs_err"]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None, "ms_by": "events"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,10 +7,10 @@ pure local compute.
 
 * ``"segment"``     — ``index_select`` + ``index_add`` over the chunked edge
                       lists.
-* ``"blocksparse"`` — the block-sparse SpMM kernel
-                      (:mod:`repro_torch.kernels.spmm`) on precomputed
-                      (bs × bs) tiles, with an exact backward through the
-                      Âᵀ tiles.
+* ``"blocksparse"`` — the SpMM kernel (:mod:`repro_torch.kernels.spmm`)
+                      on precomputed (bs × bs) tile plans, read as the
+                      compressed rows of their nonzeros, with an exact
+                      backward through the Âᵀ tiles.
 
 Static edge weights (GCN's normalized Â) are baked into the tiles at
 prepare time; the decoupled propagation's γ is applied as a scalar

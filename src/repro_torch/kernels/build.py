@@ -15,8 +15,9 @@ import functools
 from pathlib import Path
 
 _KERNELS = Path(__file__).resolve().parent
-SOURCES = (_KERNELS / "spmm" / "csrc" / "spmm_block_sparse.cu",
+SOURCES = (_KERNELS / "spmm" / "csrc" / "spmm_csr.cu",
            _KERNELS / "flash_attn" / "csrc" / "flash_attention.cu",
+           _KERNELS / "flash_attn" / "csrc" / "flash_attention_mma.cu",
            _KERNELS / "ssd" / "csrc" / "ssd_intra_chunk.cu")
 BUILD_DIR = _KERNELS.parents[2] / "build" / "torch_kernels"
 

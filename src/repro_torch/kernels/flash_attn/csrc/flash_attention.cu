@@ -1,9 +1,12 @@
-// Flash attention forward for Hopper (sm_90a): fp32 or bf16 inputs, fp32
-// math, output in the input type.
+// Flash attention forward for Hopper (sm_90a): fp32 inputs, fp32 FMA on the
+// CUDA cores, fp32 output.
 //
 // Replaces the TPU kernel repro/kernels/flash_attn/flash.py::
-// flash_attention_bhsd (Pallas body `_kernel`).  It computes the same
-// function on head-major layouts:
+// flash_attention_bhsd (Pallas body `_kernel`) for fp32 inputs; bf16 inputs,
+// which are every launch of the model paths, go to the tensor-core kernel
+// in flash_attention_mma.cu.  Neither bf16 nor TF32 products give fp32's
+// 1e-5, so fp32 stays on the CUDA cores.  It computes the same function on
+// head-major layouts:
 //
 //     q (B, Hq, Sq, hd), k (B, Hkv, Skv, hd), v (B, Hkv, Skv, hdv)
 //     s = (scale * q) · kᵀ, then tanh softcap, then the mask
@@ -30,14 +33,11 @@
 // __syncwarp, not a block barrier), and the output accumulator stays in
 // registers.  Any hd, hdv <= 256 and any group size work.
 //
-// Bound on this card: at the main path's shape (B=2, H=32, S=2048,
-// hd=hdv=80, bf16, causal) the operations (2·(hd+hdv) per visible
-// (query, key) pair, 4.3e10) bound it: 0.043 ms at the bf16 tensor-core
-// peak, 0.64 ms at the fp32 CUDA-core peak; the bytes (q, k, v, o once)
-// take 0.025 ms.  This first version does fp32 FMA on the CUDA cores (no
-// tensor cores, no TMA), fed from shared memory, so it can at best reach
-// the fp32 figure.
-#include <cuda_bf16.h>
+// Bound on this card: at (B=2, H=32, S=2048, hd=hdv=80, causal) in fp32
+// the operations (2·(hd+hdv) per visible (query, key) pair, 4.3e10) bound
+// it at 0.64 ms at the fp32 CUDA-core peak; the bytes (q, k, v, o once)
+// take 0.025 ms.  It does fp32 FMA fed from shared memory (no tensor
+// cores, no TMA), so it can at best reach that figure.
 #include <cuda_runtime.h>
 
 namespace {
@@ -50,15 +50,6 @@ constexpr int kPStride = kBKV + 1;
 constexpr int kMaxHeadDim = 256;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ void store_as(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 size_t smem_bytes(int hd, int hdv) {
   return sizeof(float) * (static_cast<size_t>(kBQ) * (hd + 1) +
                           static_cast<size_t>(hd) * kKtStride +
@@ -67,10 +58,11 @@ size_t smem_bytes(int hd, int hdv) {
 }
 
 // NC = output columns per thread (columns lane, lane + 16, ...): hdv <= 16·NC.
-template <typename T, int NC>
+template <int NC>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int hq, int hkv,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int hq,
+                 int hkv,
                  int sq, int skv, int hd, int hdv, float scale, int causal,
                  int window, float softcap) {
   extern __shared__ float smem[];
@@ -85,10 +77,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int bh = blockIdx.y;
   const int b = bh / hq;
   const int hk = (bh % hq) / (hq / hkv);
-  const T* qp = q + static_cast<long long>(bh) * sq * hd;
-  const T* kp = k + static_cast<long long>(b * hkv + hk) * skv * hd;
-  const T* vp = v + static_cast<long long>(b * hkv + hk) * skv * hdv;
-  T* op = o + static_cast<long long>(bh) * sq * hdv;
+  const float* qp = q + static_cast<long long>(bh) * sq * hd;
+  const float* kp = k + static_cast<long long>(b * hkv + hk) * skv * hd;
+  const float* vp = v + static_cast<long long>(b * hkv + hk) * skv * hdv;
+  float* op = o + static_cast<long long>(bh) * sq * hdv;
 
   const int tid = threadIdx.x;
   const int r0 = (tid / 16) * 4;  // this thread's rows r0 .. r0 + 3
@@ -97,8 +89,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int e = tid; e < kBQ * hd; e += kThreads) {
     const int r = e / hd, c = e % hd;
     qs[r * qstride + c] =
-        (q0 + r < sq) ? to_f32(qp[static_cast<long long>(q0 + r) * hd + c]) *
-                            scale
+        (q0 + r < sq) ? qp[static_cast<long long>(q0 + r) * hd + c] * scale
                       : 0.f;
   }
 
@@ -124,13 +115,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = tid; e < kBKV * hd; e += kThreads) {
       const int r = e / hd, c = e % hd;
       kt[c * kKtStride + r] =
-          (k0 + r < skv) ? to_f32(kp[static_cast<long long>(k0 + r) * hd + c])
-                         : 0.f;
+          (k0 + r < skv) ? kp[static_cast<long long>(k0 + r) * hd + c] : 0.f;
     }
     for (int e = tid; e < kBKV * hdv; e += kThreads) {
       const int r = e / hdv, c = e % hdv;
       vs[e] = (k0 + r < skv)
-                  ? to_f32(vp[static_cast<long long>(k0 + r) * hdv + c])
+                  ? vp[static_cast<long long>(k0 + r) * hdv + c]
                   : 0.f;
     }
     __syncthreads();
@@ -214,18 +204,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) {
       const int col = cl + 16 * c;
       if (col < hdv)
-        store_as(op + static_cast<long long>(qi) * hdv + col,
-                 acc[i][c] / denom);
+        op[static_cast<long long>(qi) * hdv + col] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int NC>
+template <int NC>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int hq, int hkv, int sq, int skv, int hd, int hdv, float scale,
            int causal, int window, float softcap, cudaStream_t stream) {
   const size_t smem = smem_bytes(hd, hdv);
-  auto kernel = flash_fwd_kernel<T, NC>;
+  auto kernel = flash_fwd_kernel<NC>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,13 +223,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   }
   const dim3 grid((sq + kBQ - 1) / kBQ, b * hq);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, skv, hd, hdv,
-      scale, causal, window, softcap);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), hq, hkv, sq, skv,
+      hd, hdv, scale, causal, window, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int dispatch_hdv(const void* q, const void* k, const void* v, void* o, int b,
                  int hq, int hkv, int sq, int skv, int hd, int hdv,
                  float scale, int causal, int window, float softcap,
@@ -248,8 +236,8 @@ int dispatch_hdv(const void* q, const void* k, const void* v, void* o, int b,
   const int nc = (hdv + 15) / 16;
 #define REPRO_FLASH_CASE(NC)                                                 \
   if (nc <= NC)                                                              \
-    return launch<T, NC>(q, k, v, o, b, hq, hkv, sq, skv, hd, hdv, scale,    \
-                         causal, window, softcap, stream);
+    return launch<NC>(q, k, v, o, b, hq, hkv, sq, skv, hd, hdv, scale,       \
+                      causal, window, softcap, stream);
   REPRO_FLASH_CASE(1)
   REPRO_FLASH_CASE(2)
   REPRO_FLASH_CASE(4)
@@ -263,25 +251,20 @@ int dispatch_hdv(const void* q, const void* k, const void* v, void* o, int b,
 }  // namespace
 
 // C interface, bound from Python with ctypes.  Pointers are device pointers
-// of contiguous tensors of one type (dtype 0: float32, 1: bfloat16); the
-// caller has checked shapes and devices and launches only for non-empty
-// tensors.  window <= 0 means no window, softcap <= 0 no softcap.
-// Returns the cudaError_t of the launch (0 on success).
-extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype, int b,
-                                   int hq, int hkv, int sq, int skv, int hd,
-                                   int hdv, float scale, int causal,
-                                   int window, float softcap, void* stream) {
+// of contiguous float32 tensors; the caller has checked shapes and devices
+// and launches only for non-empty tensors.  window <= 0 means no window,
+// softcap <= 0 no softcap.  Returns the cudaError_t of the launch (0 on
+// success).
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* o, int b, int hq,
+                                       int hkv, int sq, int skv, int hd,
+                                       int hdv, float scale, int causal,
+                                       int window, float softcap,
+                                       void* stream) {
   if (hd < 1 || hd > kMaxHeadDim || hdv < 1 || hdv > kMaxHeadDim ||
       hkv < 1 || hq % hkv)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch_hdv<float>(q, k, v, o, b, hq, hkv, sq, skv, hd, hdv,
-                               scale, causal, window, softcap, s);
-  if (dtype == 1)
-    return dispatch_hdv<__nv_bfloat16>(q, k, v, o, b, hq, hkv, sq, skv, hd,
-                                       hdv, scale, causal, window, softcap,
-                                       s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_hdv(q, k, v, o, b, hq, hkv, sq, skv, hd, hdv, scale,
+                      causal, window, softcap,
+                      static_cast<cudaStream_t>(stream));
 }

@@ -1,13 +1,18 @@
-"""Loader and wrapper of the Hopper flash-attention kernel.
+"""Loader and wrapper of the Hopper flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
-``repro/kernels/flash_attn/flash.py::flash_attention_bhsd``; its source
-says how.  It is compiled for ``sm_90a`` on first use with the port's
-other kernels (:mod:`..build`) and bound with ``ctypes``.
+Two kernels replace the TPU kernel
+``repro/kernels/flash_attn/flash.py::flash_attention_bhsd``, one per input
+type: bf16 (every launch of the model paths) runs on the tensor cores
+(``csrc/flash_attention_mma.cu``, variant ``"mma_bf16"``), fp32 on the CUDA
+cores (``csrc/flash_attention.cu``, variant ``"fma_fp32"``), since neither
+bf16 nor TF32 products hold fp32's 1e-5.  Their sources say how.  Both are
+compiled for ``sm_90a`` on first use with the port's other kernels
+(:mod:`..build`) and bound with ``ctypes``.
 
-:func:`flash_attention_bhsd` takes CUDA tensors only and launches the kernel
-or raises; the plain version for CPU tensors is :func:`.ref.flash_ref`, and
-:mod:`.ops` picks between the two by the tensors' device.
+:func:`flash_attention_bhsd` takes CUDA tensors only and launches the
+kernel of their type or raises; the plain version for CPU tensors is
+:func:`.ref.flash_ref`, and :mod:`.ops` picks between the two by the
+tensors' device.
 """
 from __future__ import annotations
 
@@ -20,14 +25,41 @@ import torch
 from ..build import kernel_fn
 
 MAX_HEAD_DIM = 256
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "fma_fp32"}
+_ENTRIES = {"mma_bf16": "flash_attention_fwd_bf16_mma",
+            "fma_fp32": "flash_attention_fwd_f32"}
 
 
 @functools.cache
-def _kernel():
+def _kernel(variant: str):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return kernel_fn("flash_attention_fwd",
-                     [p, p, p, p, i, i, i, i, i, i, i, i, f, i, i, f, p])
+    return kernel_fn(_ENTRIES[variant],
+                     [p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, p])
+
+
+def reset_launches() -> None:
+    """Set the launch counts (total and per variant) to 0."""
+    flash_attention_bhsd.launches = 0
+    flash_attention_bhsd.launches_by_variant = dict.fromkeys(_ENTRIES, 0)
+
+
+def _launch(q, k, v, out, *, causal, window, softcap, scale,
+            stream) -> None:
+    """Launch the kernel of q's dtype on checked tensors and count it."""
+    variant = VARIANTS[q.dtype]
+    b, hq, sq, hd = q.shape
+    _, hkv, skv, hdv = v.shape
+    err = _kernel(variant)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+        hkv, sq, skv, hd, hdv, float(scale), int(causal), window or 0,
+        float(softcap or 0.0), stream)
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bhsd: {variant} kernel launch failed with "
+            f"cudaError {err} (q {tuple(q.shape)}, k {tuple(k.shape)}, "
+            f"hdv={hdv}, {q.dtype})")
+    flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.launches_by_variant[variant] += 1
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -37,10 +69,12 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention on the card, head-major layouts.
 
     q: (B, Hq, Sq, hd); k: (B, Hkv, Skv, hd); v: (B, Hkv, Skv, hdv), one
-    dtype (float32 or bfloat16), contiguous, on one CUDA device, with
-    Hq % Hkv == 0 and hd, hdv ≤ 256.  Any Sq and Skv: the kernel masks the
-    ragged edges itself.  Returns (B, Hq, Sq, hdv) in q.dtype (fp32 math).
-    Adds one to ``flash_attention_bhsd.launches`` per kernel launch.
+    dtype (bfloat16: the tensor-core kernel; float32: the FMA kernel),
+    contiguous, on one CUDA device, with Hq % Hkv == 0 and hd, hdv ≤ 256.
+    Any Sq and Skv: the kernels mask the ragged edges themselves.  Returns
+    (B, Hq, Sq, hdv) in q.dtype (fp32 accumulation and softmax).  Adds one
+    to ``flash_attention_bhsd.launches`` and to its variant's entry of
+    ``flash_attention_bhsd.launches_by_variant`` per kernel launch.
     """
     if q.device.type != "cuda":
         raise ValueError(
@@ -54,9 +88,9 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"tensor of q's dtype {q.dtype} on {q.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device} "
                 f"contiguous={t.is_contiguous()}")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in VARIANTS:
         raise ValueError(f"flash_attention_bhsd: dtype {q.dtype} not in "
-                         f"{tuple(_DTYPES)}")
+                         f"{tuple(VARIANTS)}")
     b, hq, sq, hd = q.shape
     _, hkv, skv, hdk = k.shape
     hdv = v.shape[-1]
@@ -76,19 +110,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty(b, hq, sq, hdv, dtype=q.dtype, device=q.device)
     if out.numel() == 0 or skv == 0:
         return out.zero_()
-    scale = scale if scale is not None else hd ** -0.5
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    _DTYPES[q.dtype], b, hq, hkv, sq, skv, hd, hdv,
-                    float(scale), int(causal), window or 0,
-                    float(softcap or 0.0), stream)
-    if err:
-        raise RuntimeError(
-            f"flash_attention_bhsd: kernel launch failed with cudaError "
-            f"{err} (q {tuple(q.shape)}, k {tuple(k.shape)}, hdv={hdv}, "
-            f"{q.dtype})")
-    flash_attention_bhsd.launches += 1
+    _launch(q, k, v, out, causal=causal, window=window, softcap=softcap,
+            scale=scale if scale is not None else hd ** -0.5,
+            stream=torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 
-flash_attention_bhsd.launches = 0
+reset_launches()

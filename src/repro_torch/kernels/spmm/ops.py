@@ -1,17 +1,22 @@
-"""Plan-based block-sparse aggregation with an exact backward.
+"""Plan-based SpMM aggregation with an exact backward.
 
-:class:`BlockSparsePlanDev` holds a :class:`~repro_torch.graph.format
-.BlockSparsePlan` on a device: forward tiles and the transposed tiles.
-:func:`aggregate_plan` multiplies through the forward tiles, and its
-backward multiplies the cotangent through the Âᵀ tiles with the same
+:func:`block_sparse_plan_dev` takes a :class:`~repro_torch.graph.format
+.BlockSparsePlan` (dense (bs × bs) tiles of Â and of Âᵀ, as the TPU kernel
+reads them) and derives, once, on the plan's device, the compressed form
+the CUDA kernel reads: per destination row the range of (global source
+index, value) pairs of the tiles' nonzero entries (:func:`compress_tiles`).
+The form is derived from the tiles themselves, so whatever they hold
+(all-zero padding tiles of ``stack_plans`` included) is multiplied by
+exactly that; skipping a zero entry is exact.
+
+:func:`aggregate_plan` multiplies through the forward arrays, and its
+backward multiplies the cotangent through the Âᵀ arrays with the same
 kernel, so the gradient is exact (Â is constant data) and one kernel covers
-both directions.
+both directions.  On CUDA tensors the kernel (:func:`.spmm.spmm_csr`)
+runs, and a failure to build or launch raises; on CPU tensors the plain
+version (:func:`.ref.spmm_csr_ref`) runs.  There is no other path.
 
-On CUDA tensors the kernel (:func:`.spmm.spmm_block_sparse`) runs, and a
-failure to build or launch raises; on CPU tensors the plain version
-(:func:`.ref.spmm_ref`) runs.  There is no other path.
-
-Only static-weight aggregation (GCN's fixed Â) can use these tiles; GAT's
+Only static-weight aggregation (GCN's fixed Â) can use these arrays; GAT's
 runtime attention weights cannot be baked in.
 """
 from __future__ import annotations
@@ -23,48 +28,46 @@ import torch
 import torch.nn.functional as F
 
 from ...graph.format import BlockSparsePlan
-from .ref import spmm_ref
-from .spmm import spmm_block_sparse
+from .ref import spmm_csr_ref
+from .spmm import spmm_csr
 
 
 @dataclasses.dataclass(frozen=True)
 class BlockSparsePlanDev:
-    """Device mirror of :class:`BlockSparsePlan`.
+    """A :class:`BlockSparsePlan` in the kernel's compressed form, on a
+    device: ``row_ptr`` (rows_padded + 1), ``col_idx`` (int32 source row)
+    and ``vals`` (float32) for Â, and the ``*_t`` arrays for Âᵀ (rows
+    cols_padded + 1).
 
-    Tensors may carry one leading stack axis (chunks); :meth:`instance`
-    takes one plan out of the stack.  ``row_first`` is not carried: the
-    kernel and the plain version both sum over each destination row's
-    tile range, which needs only the sorted ``block_rows``."""
+    Arrays may carry one leading stack axis (chunks); ``col_idx``/``vals``
+    are then padded to the largest instance, and the padding lies past
+    each instance's ``row_ptr[-1]``.  :meth:`instance` takes one plan out
+    of the stack."""
 
-    blocks: torch.Tensor
-    block_rows: torch.Tensor
-    block_cols: torch.Tensor
-    blocks_t: torch.Tensor
-    block_rows_t: torch.Tensor
-    block_cols_t: torch.Tensor
+    row_ptr: torch.Tensor
+    col_idx: torch.Tensor
+    vals: torch.Tensor
+    row_ptr_t: torch.Tensor
+    col_idx_t: torch.Tensor
+    vals_t: torch.Tensor
     n_rows: int
     n_cols: int
     rows_padded: int
     cols_padded: int
     bs: int
 
-    @property
-    def nnzb(self) -> int:
-        return int(self.block_rows.shape[-1])
-
     def instance(self, c: int) -> "BlockSparsePlanDev":
         """Plan ``c`` of a stacked plan."""
         return dataclasses.replace(
-            self, blocks=self.blocks[c], block_rows=self.block_rows[c],
-            block_cols=self.block_cols[c], blocks_t=self.blocks_t[c],
-            block_rows_t=self.block_rows_t[c],
-            block_cols_t=self.block_cols_t[c])
+            self, row_ptr=self.row_ptr[c], col_idx=self.col_idx[c],
+            vals=self.vals[c], row_ptr_t=self.row_ptr_t[c],
+            col_idx_t=self.col_idx_t[c], vals_t=self.vals_t[c])
 
 
 def _check_tiles(rows: np.ndarray, cols: np.ndarray, n_row_blocks: int,
                  n_col_blocks: int, what: str) -> None:
-    """Host-side bounds of a tile table: the kernel reads source blocks
-    and walks row ranges by these indices without checking them."""
+    """Host-side bounds of a tile table: the derived indices address rows
+    of h and of the output, which the kernel does not check."""
     if rows.size == 0:
         return
     if rows.min() < 0 or rows.max() >= n_row_blocks or \
@@ -76,6 +79,57 @@ def _check_tiles(rows: np.ndarray, cols: np.ndarray, n_row_blocks: int,
                          f"[0, {n_col_blocks})")
 
 
+def compress_tiles(blocks: torch.Tensor, block_rows: torch.Tensor,
+                   block_cols: torch.Tensor, n_out: int):
+    """The nonzero entries of one plan instance's tiles as compressed rows.
+
+    blocks (nnzb, bs, bs), block_rows/block_cols (nnzb,) → ``row_ptr``
+    (n_out + 1,) int32, ``col_idx`` (nnz,) int32 global source rows and
+    ``vals`` (nnz,) float32, the entries of each row in tile order (source
+    block, then column).  Runs on the tiles' device."""
+    bs = blocks.shape[-1]
+    k, i, j = torch.nonzero(blocks, as_tuple=True)
+    rows = block_rows.long()[k] * bs + i
+    order = torch.argsort(rows, stable=True)
+    k, i, j, rows = k[order], i[order], j[order], rows[order]
+    if rows.numel() >= np.iinfo(np.int32).max:
+        raise ValueError(f"block_sparse_plan_dev: {rows.numel()} nonzeros "
+                         f"do not fit int32 row pointers")
+    row_ptr = torch.zeros(n_out + 1, dtype=torch.int32, device=blocks.device)
+    row_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=n_out), 0)
+    col_idx = (block_cols.long()[k] * bs + j).to(torch.int32)
+    return row_ptr, col_idx, blocks[k, i, j]
+
+
+def _compress_stack(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                    n_out: int, n_src: int, device, what: str):
+    """:func:`compress_tiles` for each instance of a (possibly stacked)
+    tile table, one instance's tiles on the device at a time; the stack's
+    ``col_idx``/``vals`` are padded with zeros to the largest instance."""
+    stacked = blocks.ndim == 4
+    if not stacked:
+        blocks, rows, cols = blocks[None], rows[None], cols[None]
+    parts = []
+    for c in range(blocks.shape[0]):
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        parts.append(compress_tiles(dev(blocks[c]), dev(rows[c]),
+                                    dev(cols[c]), n_out))
+    cap = max(p[1].shape[0] for p in parts)
+    hi = max((int(p[1].max()) for p in parts if p[1].numel()), default=-1)
+    if hi >= n_src:
+        raise ValueError(f"block_sparse_plan_dev: {what} tiles hold an "
+                         f"entry in source row {hi} ≥ {n_src}")
+    row_ptr = torch.stack([p[0] for p in parts])
+    col_idx = torch.stack([F.pad(p[1], (0, cap - p[1].shape[0]))
+                           for p in parts])
+    vals = torch.stack([F.pad(p[2], (0, cap - p[2].shape[0]))
+                        for p in parts])
+    if not stacked:
+        row_ptr, col_idx, vals = row_ptr[0], col_idx[0], vals[0]
+    return row_ptr, col_idx, vals
+
+
 def block_sparse_plan_dev(plan: BlockSparsePlan,
                           device: str | torch.device = "cuda"
                           ) -> BlockSparsePlanDev:
@@ -85,31 +139,27 @@ def block_sparse_plan_dev(plan: BlockSparsePlan,
                  "forward")
     _check_tiles(plan.block_rows_t, plan.block_cols_t, c_blocks, r_blocks,
                  "transposed")
-
-    def dev(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
+    fwd = _compress_stack(plan.blocks, plan.block_rows, plan.block_cols,
+                          plan.rows_padded, plan.n_cols, device, "forward")
+    bwd = _compress_stack(plan.blocks_t, plan.block_rows_t,
+                          plan.block_cols_t, plan.cols_padded, plan.n_rows,
+                          device, "transposed")
     return BlockSparsePlanDev(
-        blocks=dev(plan.blocks), block_rows=dev(plan.block_rows),
-        block_cols=dev(plan.block_cols), blocks_t=dev(plan.blocks_t),
-        block_rows_t=dev(plan.block_rows_t),
-        block_cols_t=dev(plan.block_cols_t),
+        row_ptr=fwd[0], col_idx=fwd[1], vals=fwd[2],
+        row_ptr_t=bwd[0], col_idx_t=bwd[1], vals_t=bwd[2],
         n_rows=plan.n_rows, n_cols=plan.n_cols,
         rows_padded=plan.rows_padded, cols_padded=plan.cols_padded,
         bs=plan.bs)
 
 
-def _run_tiles(blocks, rows, cols, h, n_in_padded: int,
-               n_out: int) -> torch.Tensor:
-    """Pad h's rows to ``n_in_padded`` and run: (n_out, d) out.
-
-    The kernel takes any d, so the feature dim is not padded."""
+def _run(row_ptr, col_idx, vals, h, n_src: int) -> torch.Tensor:
+    """Zero-pad h to the ``n_src`` source rows the entries may address,
+    then run the kernel (CUDA) or the plain version (CPU)."""
     n = h.shape[0]
-    hp = h if n == n_in_padded else F.pad(h, (0, 0, 0, n_in_padded - n))
+    hp = h if n >= n_src else F.pad(h, (0, 0, 0, n_src - n))
     if hp.is_cuda:
-        return spmm_block_sparse(blocks, rows, cols, hp.contiguous(),
-                                 n_out=n_out)
-    return spmm_ref(blocks, rows, cols, hp, n_out=n_out)
+        return spmm_csr(row_ptr, col_idx, vals, hp.contiguous())
+    return spmm_csr_ref(row_ptr, col_idx, vals, hp)
 
 
 class _PlanSpmm(torch.autograd.Function):
@@ -117,23 +167,21 @@ class _PlanSpmm(torch.autograd.Function):
     def forward(ctx, h, plan: BlockSparsePlanDev):
         ctx.plan = plan
         ctx.n_in = h.shape[0]
-        return _run_tiles(plan.blocks, plan.block_rows, plan.block_cols, h,
-                          plan.cols_padded, plan.rows_padded)
+        return _run(plan.row_ptr, plan.col_idx, plan.vals, h, plan.n_cols)
 
     @staticmethod
     def backward(ctx, gy):
-        # grad_h = Âᵀ @ gy through the same kernel on the transposed tiles;
+        # grad_h = Âᵀ @ gy through the same kernel on the transposed arrays;
         # the caller sliced away the padded output rows, so their cotangent
         # rows are exact zeros.
         p = ctx.plan
-        gh = _run_tiles(p.blocks_t, p.block_rows_t, p.block_cols_t, gy,
-                        p.rows_padded, p.cols_padded)
+        gh = _run(p.row_ptr_t, p.col_idx_t, p.vals_t, gy, p.n_rows)
         return gh[: ctx.n_in], None
 
 
 def aggregate_plan(plan: BlockSparsePlanDev, h: torch.Tensor) -> torch.Tensor:
     """One plan instance: ``(rows_padded, d) = Â_plan @ h`` with the exact
-    backward through the transposed tiles.  ``h`` is (n_in, d) with
-    n_in ≤ cols_padded (rows are zero-padded internally); the caller
-    slices the real output rows (``[:plan.n_rows]``)."""
+    backward through the transposed arrays.  ``h`` is (n_in, d) with
+    n_in ≤ cols_padded (missing source rows are zeros); the caller slices
+    the real output rows (``[:plan.n_rows]``)."""
     return _PlanSpmm.apply(h, plan)

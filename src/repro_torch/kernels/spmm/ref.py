@@ -1,7 +1,11 @@
-"""Plain PyTorch version of the block-sparse SpMM kernel.
+"""Plain PyTorch versions of the SpMM.
 
-The CPU path of :func:`repro_torch.kernels.spmm.ops.aggregate_plan`, and
-the version ``chip_smoke.py`` holds the CUDA kernel against on the card.
+:func:`spmm_ref` multiplies through the dense block tiles, as the TPU
+kernel does; :func:`spmm_csr_ref` through the compressed form that
+:func:`repro_torch.kernels.spmm.ops.block_sparse_plan_dev` derives from the
+same tiles, as the CUDA kernel does.  ``spmm_csr_ref`` is the CPU path of
+:func:`repro_torch.kernels.spmm.ops.aggregate_plan`; ``chip_smoke.py``
+holds the CUDA kernel against both on the card.
 """
 from __future__ import annotations
 
@@ -25,3 +29,19 @@ def spmm_ref(blocks: torch.Tensor, block_rows: torch.Tensor,
     contribs = torch.bmm(blocks, h_blocked.index_select(0, block_cols))
     out = h.new_zeros(n_out // bs, bs, d).index_add(0, block_rows, contribs)
     return out.reshape(n_out, d)
+
+
+def spmm_csr_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+                 vals: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """out[r] = Σ_{e ∈ [row_ptr[r], row_ptr[r+1])} vals[e] · h[col_idx[e]].
+
+    ``row_ptr`` is (n_out + 1,); ``col_idx``/``vals`` may run past
+    ``row_ptr[-1]`` (a stacked plan's padding), which is ignored.  A gather
+    and one ``index_add_``.  Returns (n_out, d)."""
+    n_out = row_ptr.shape[0] - 1
+    nnz = int(row_ptr[-1])
+    rows = torch.repeat_interleave(
+        torch.arange(n_out, device=h.device), row_ptr.diff().long(),
+        output_size=nnz)
+    contrib = vals[:nnz, None] * h.index_select(0, col_idx[:nnz].long())
+    return h.new_zeros(n_out, h.shape[1]).index_add_(0, rows, contrib)

@@ -1,13 +1,16 @@
-"""Loader and wrapper of the Hopper block-sparse SpMM kernel.
+"""Loader and wrapper of the Hopper nonzero-balanced SpMM kernel.
 
-The kernel (``csrc/spmm_block_sparse.cu``) replaces the TPU kernel
-``repro/kernels/spmm/spmm.py::spmm_block_sparse``; its source says how.
-It is compiled for ``sm_90a`` on first use with the port's other kernels
-(:mod:`..build`) and bound with ``ctypes``.
+The kernel (``csrc/spmm_csr.cu``) replaces the TPU kernel
+``repro/kernels/spmm/spmm.py::spmm_block_sparse``; it reads the compressed
+form (row pointers, source indices, values) that :mod:`.ops` derives from
+the block tiles, splits the work by nonzeros across warps, and the warp
+in which a row that straddles several warps' segments ends adds their
+parts in a fixed order; its source says how.  It is compiled for ``sm_90a`` on first use with the
+port's other kernels (:mod:`..build`) and bound with ``ctypes``.
 
-:func:`spmm_block_sparse` takes CUDA tensors only and launches the kernel or
-raises; the plain version for CPU tensors is :func:`..ref.spmm_ref`, and
-:mod:`.ops` picks between the two by the tensors' device.
+:func:`spmm_csr` takes CUDA tensors only and launches the kernel or
+raises; the plain version for CPU tensors is :func:`..ref.spmm_csr_ref`,
+and :mod:`.ops` picks between the two by the tensors' device.
 """
 from __future__ import annotations
 
@@ -18,86 +21,87 @@ import torch
 
 from ..build import kernel_fn
 
-BLOCK_SIZES = (32, 64, 128)
-
 
 @functools.cache
 def _kernel():
-    return kernel_fn("spmm_block_sparse_f32",
-                     [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_void_p])
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return kernel_fn("spmm_csr_f32", [p, p, p, i, p, i, p, p, p, i, p])
+
+
+@functools.cache
+def _segment() -> int:
+    """Nonzeros per warp segment, as the kernel was compiled."""
+    return kernel_fn("spmm_csr_segment", [])()
+
+
+@functools.cache
+def _tile_cols(d: int) -> int:
+    """Columns per y-tile of the launch at width d."""
+    return kernel_fn("spmm_csr_tile_cols", [ctypes.c_int])(d)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,
            device: torch.device) -> None:
     if t.device != device:
         raise ValueError(
-            f"spmm_block_sparse: {name} is on {t.device}, expected {device} "
-            f"(the kernel takes CUDA tensors; CPU tensors go to "
-            f"ref.spmm_ref)")
+            f"spmm_csr: {name} is on {t.device}, expected {device} (the "
+            f"kernel takes CUDA tensors; CPU tensors go to ref.spmm_csr_ref)")
     if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
         raise ValueError(
-            f"spmm_block_sparse: {name} must be a contiguous {ndim}-d "
-            f"{dtype} tensor, got {t.dtype} {tuple(t.shape)} "
-            f"contiguous={t.is_contiguous()}")
+            f"spmm_csr: {name} must be a contiguous {ndim}-d {dtype} tensor, "
+            f"got {t.dtype} {tuple(t.shape)} contiguous={t.is_contiguous()}")
 
 
-def spmm_block_sparse(blocks: torch.Tensor, block_rows: torch.Tensor,
-                      block_cols: torch.Tensor, h: torch.Tensor, *,
-                      n_out: int | None = None) -> torch.Tensor:
-    """out = A @ h with A given as sorted block tiles, on the card.
+def spmm_csr(row_ptr: torch.Tensor, col_idx: torch.Tensor,
+             vals: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """out = A @ h on the card, A in compressed rows.
 
-    blocks     : (nnzb, bs, bs) float32, bs ∈ {32, 64, 128}
-    block_rows : (nnzb,) int32 non-decreasing destination block ids
-    block_cols : (nnzb,) int32 source block ids, < n_padded // bs
-    h          : (n_padded, d) float32 with n_padded % bs == 0, any d
-    n_out      : output rows (multiple of bs); defaults to n_padded.
+    row_ptr : (n_out + 1,) int32, row_ptr[0] = 0, non-decreasing
+    col_idx : (cap,) int32 source rows < h.shape[0]; entries past
+              row_ptr[-1] ≤ cap are ignored (a stacked plan's padding)
+    vals    : (cap,) float32
+    h       : (n_in, d) float32, any d
 
-    Every argument must lie on the same CUDA device.  Adds one to
-    ``spmm_block_sparse.launches`` per kernel launch; ``nnzb == 0``
-    launches nothing and returns zeros.
+    Every argument must lie on the same CUDA device; the indices are not
+    checked on the card (``ops.block_sparse_plan_dev`` checks them once at
+    upload).  Returns (n_out, d), bitwise the same from run to run.  Adds
+    one to ``spmm_csr.launches`` per launch; ``cap == 0`` launches nothing
+    and returns zeros.
     """
     if h.device.type != "cuda":
         raise ValueError(
-            f"spmm_block_sparse: h is on {h.device}; the kernel takes CUDA "
-            f"tensors (CPU tensors go to ref.spmm_ref)")
-    _check("blocks", blocks, torch.float32, 3, h.device)
-    _check("block_rows", block_rows, torch.int32, 1, h.device)
-    _check("block_cols", block_cols, torch.int32, 1, h.device)
+            f"spmm_csr: h is on {h.device}; the kernel takes CUDA tensors "
+            f"(CPU tensors go to ref.spmm_csr_ref)")
+    _check("row_ptr", row_ptr, torch.int32, 1, h.device)
+    _check("col_idx", col_idx, torch.int32, 1, h.device)
+    _check("vals", vals, torch.float32, 1, h.device)
     _check("h", h, torch.float32, 2, h.device)
-    nnzb, bs, bs2 = blocks.shape
-    n_padded, d = h.shape
-    n_out = n_padded if n_out is None else n_out
-    if bs != bs2 or bs not in BLOCK_SIZES:
-        raise ValueError(f"spmm_block_sparse: tiles are {bs}x{bs2}; the "
-                         f"kernel takes square tiles of bs in {BLOCK_SIZES}")
-    if block_rows.shape[0] != nnzb or block_cols.shape[0] != nnzb:
+    n_out, cap, d = row_ptr.shape[0] - 1, col_idx.shape[0], h.shape[1]
+    if n_out < 0 or vals.shape[0] != cap:
         raise ValueError(
-            f"spmm_block_sparse: {nnzb} tiles but {block_rows.shape[0]} "
-            f"rows and {block_cols.shape[0]} cols")
-    if n_padded % bs:
-        raise ValueError(
-            f"spmm_block_sparse: h has {n_padded} rows, not a multiple of "
-            f"the block size bs={bs} — pad the source rows first")
-    if n_out % bs:
-        raise ValueError(
-            f"spmm_block_sparse: n_out={n_out} is not a multiple of the "
-            f"block size bs={bs}")
-    if nnzb == 0 or n_out == 0 or d == 0:
+            f"spmm_csr: row_ptr has {row_ptr.shape[0]} entries (need ≥ 1), "
+            f"col_idx {cap} and vals {vals.shape[0]}")
+    if h.numel() >= 2 ** 31:
+        raise ValueError(f"spmm_csr: h {tuple(h.shape)} has 2^31 or more "
+                         f"entries; the kernel indexes it with int32")
+    if cap == 0 or n_out == 0 or d == 0:
         return h.new_zeros(n_out, d)
+    n_seg = max(-(-cap // _segment()), 1)
+    ny = -(-d // _tile_cols(d))
     out = torch.empty(n_out, d, dtype=h.dtype, device=h.device)
-    stream = torch.cuda.current_stream(h.device).cuda_stream
+    carry = torch.empty(ny * n_seg * d, dtype=torch.float32, device=h.device)
+    # zeroed by the C entry point on the same stream before the kernel
+    flags = torch.empty(1 + ny * n_seg, dtype=torch.int32, device=h.device)
     err = _kernel()(
-        blocks.data_ptr(), block_rows.data_ptr(), block_cols.data_ptr(),
-        nnzb, bs, h.data_ptr(), d, out.data_ptr(), n_out // bs, stream)
+        row_ptr.data_ptr(), col_idx.data_ptr(), vals.data_ptr(), n_out,
+        h.data_ptr(), d, out.data_ptr(), carry.data_ptr(), flags.data_ptr(),
+        n_seg, torch.cuda.current_stream(h.device).cuda_stream)
     if err:
         raise RuntimeError(
-            f"spmm_block_sparse: kernel launch failed with cudaError {err} "
-            f"(nnzb={nnzb}, bs={bs}, d={d}, n_out={n_out})")
-    spmm_block_sparse.launches += 1
+            f"spmm_csr: kernel launch failed with cudaError {err} "
+            f"(n_out={n_out}, cap={cap}, d={d})")
+    spmm_csr.launches += 1
     return out
 
 
-spmm_block_sparse.launches = 0
+spmm_csr.launches = 0

@@ -91,3 +91,31 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     q = torch.zeros(1, 2, 8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         tflash.flash_attention_bhsd(q, q, q)
+
+
+@pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "mma_bf16"),
+                                           (torch.float32, "fma_fp32")])
+def test_kernel_wrapper_routes_by_dtype(monkeypatch, dtype, variant):
+    """bf16 goes to the tensor-core entry and fp32 to the FMA entry, each
+    counted under its variant; checked by the variant the launch asks
+    ``_kernel`` for (a stand-in, since there is no card here)."""
+    from repro_torch.kernels.flash_attn import flash as tf
+    asked = []
+
+    def fake_kernel(v):
+        asked.append(v)
+        return lambda *args: 0
+
+    monkeypatch.setattr(tf, "_kernel", fake_kernel)
+    monkeypatch.setattr(tf.flash_attention_bhsd, "launches", 0)
+    monkeypatch.setattr(tf.flash_attention_bhsd, "launches_by_variant",
+                        {"mma_bf16": 0, "fma_fp32": 0})
+    q = torch.zeros(1, 4, 8, 80, dtype=dtype)
+    kv = torch.zeros(1, 2, 8, 80, dtype=dtype)
+    tf._launch(q, kv, kv, torch.empty_like(q), causal=True, window=None,
+               softcap=None, scale=0.1, stream=0)
+    assert asked == [variant]
+    assert tf.flash_attention_bhsd.launches == 1
+    assert tf.flash_attention_bhsd.launches_by_variant == {
+        "mma_bf16": int(variant == "mma_bf16"),
+        "fma_fp32": int(variant == "fma_fp32")}
