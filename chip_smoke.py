@@ -30,11 +30,13 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               2^-7·|ref| + 1e-3 (both round the same fp32 math to bf16
               once, so they differ by at most one bf16 ulp);
 5. ssd      — the SSD intra-chunk kernel against its plain version:
-              Q ∈ {16, 64, 256}, P ∈ {32, 64}, N ∈ {32, 64, 128}, H > 1
-              with B/C shared, held to 1e-4·(1 + max|ref|) (the kernel's
-              prefix sum adds in another order; exp(cs) at |cs| ~ 1e2);
-              and the full ``ssd_chunked_fused`` against ``ssd_chunked``
-              and ``ssd_dense_ref`` with S not a multiple of Q;
+              Q ∈ {16, 64, 96, 256, 1024}, P ∈ {20, 32, 64}, N ∈ {32, 40,
+              64, 128}, H > 1 with B/C shared, the path's widths (H=80,
+              P=N=64, Q=256) and H=13, not a multiple of the kernel's head
+              group; held to 1e-4·(1 + max|ref|) (the kernel's prefix sum
+              adds in another order; exp(cs) at |cs| ~ 1e2); and the full
+              ``ssd_chunked_fused`` against ``ssd_chunked`` and
+              ``ssd_dense_ref`` with S not a multiple of Q;
 6. gcn      — the GCN main path: decoupled-pipelined TP GCN training on
               reddit_like(scale=1.0, seed=0) (n=23 000, 602 features, 41
               classes; hidden 128, 2 layers, 4 chunks, blocksparse at
@@ -79,7 +81,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               same tensors (held for agreement to 1e-2·(1 + max|ref|): it
               rounds the softmax weights to bf16; timed only, never on the
               path) and its bound; one SSD launch at (2, 2048, 80, 64),
-              N=64, Q=256 beside its plain version and its bound.
+              N=64, Q=256, device time (``torch.profiler``) with its
+              CUDA-event time beside, its plain version and its bound:
+              bytes against three TF32 passes of the needed operations
+              at the tensor-core peak (the fp32 FMA figure printed
+              beside).
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  In the summary's
@@ -110,6 +116,7 @@ sys.path.insert(0, str(ROOT / "src"))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 KERNEL_TOL = 1e-5
 BF16_ULP = 2.0 ** -7   # bf16 spacing relative to the value
 BF16_ATOL = 1e-3       # per-element floor for outputs near 0
@@ -543,6 +550,10 @@ SSD_CASES = (
     (2, 256, 2, 32, 128, 64),
     (1, 768, 4, 64, 64, 256),
     (2, 128, 8, 32, 64, 16),
+    (1, 512, 80, 64, 64, 256),     # the scoring path's widths
+    (2, 512, 13, 64, 64, 256),     # H not a multiple of the head group
+    (1, 2048, 3, 64, 128, 1024),   # the largest chunk and state
+    (2, 192, 5, 20, 40, 96),       # ragged P, N and Q
 )
 
 
@@ -573,6 +584,27 @@ def flash_cases(dev) -> float:
         errs.append(_held(name, got, want) if dt == torch.float32
                     else _held_bf16(name, got, want))
     return max(errs)
+
+
+def _ssd_bound(b, s, h, p, n, q) -> dict:
+    """Least time for one SSD intra-chunk call with these shapes: x, dt, a,
+    B, C read once and y_intra, the states written once, against the
+    operations the function needs (the lower-triangular M·x and the states
+    per head, the scores C·Bᵀ once per chunk) as three TF32 passes at the
+    tensor-core peak, the kernel's arithmetic; the fp32 FMA time of the
+    same operations is returned beside it."""
+    nc = s // q
+    tri = q * (q + 1) // 2
+    flops = b * nc * (h * (2 * tri * p + 2 * q * p * n) + 2 * tri * n)
+    nbytes = 4 * (2 * b * s * h * p + b * s * h + h + 2 * b * s * n
+                  + b * nc * h * p * n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tf32 = 3 * flops / PEAK_TF32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_tf32),
+            "bound_by": "bytes" if t_bytes >= t_tf32 else "operations",
+            "bytes": nbytes, "flops": flops, "t_bytes_ms": t_bytes,
+            "t_tf32x3_ms": t_tf32,
+            "bound_fp32_ms": flops / PEAK_FP32_FLOP_PER_S * 1e3}
 
 
 def _ssd_inputs(b, s, h, p, n, gen, dev):
@@ -875,27 +907,25 @@ def lm_timing(dev):
     err = max(_held("ssd at (2,2048,80,64) N=64 Q=256 y_intra vs plain", y,
                     y_r, SSD_TOL),
               _held("  states vs plain", st, st_r, SSD_TOL))
-    nc = s // qc
-    tri = qc * (qc + 1) // 2
-    flops = bsz * nc * (h * (2 * tri * p + 2 * qc * p * n) + 2 * tri * n)
-    nbytes = 4 * (2 * bsz * s * h * p + bsz * s * h + h + 2 * bsz * s * n
-                  + bsz * nc * h * p * n)
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    k_ms = _time_ms(lambda: ssd_intra_chunk(*args, chunk=qc), 10)
+    del y, st, y_r, st_r
+
+    def kern():
+        return ssd_intra_chunk(*args, chunk=qc)
+
+    k_ms = [_device_ms(kern, 10)[0], _device_ms(kern, 10)[0]]
+    ev_ms = _time_ms(kern, 10)
     p_ms = _time_ms(lambda: ssd_intra_chunk_ref(*args, chunk=qc), 3)
-    k_ms2 = _time_ms(lambda: ssd_intra_chunk(*args, chunk=qc), 10)
-    bound = max(t_bytes, t_ops)
-    rows["ssd"] = dict(
-        ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2], plain_ms=p_ms,
-        library_ms=None, bound_ms=bound,
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        bytes=nbytes, flops=flops, max_abs_err=err)
-    print(f"  ssd (2,2048,80,64) N=64 Q=256: kernel {k_ms:.4f} / "
-          f"{k_ms2:.4f} ms, plain {p_ms:.4f} ms; bound {bound:.4f} ms by "
-          f"{rows['ssd']['bound_by']} ({flops / 1e9:.3f} GFLOP fp32 in the "
-          f"lower-triangular products and the states, {t_ops:.4f} ms; "
-          f"{nbytes / 1e6:.1f} MB, {t_bytes:.4f} ms)")
+    bd = _ssd_bound(bsz, s, h, p, n, qc)
+    rows["ssd"] = dict(ms=min(k_ms), ms_runs=k_ms, event_ms=ev_ms,
+                       plain_ms=p_ms, library_ms=None, max_abs_err=err, **bd)
+    print(f"  ssd (2,2048,80,64) N=64 Q=256: kernel {k_ms[0]:.4f} / "
+          f"{k_ms[1]:.4f} ms device time ({ev_ms:.4f} ms a call by CUDA "
+          f"events), plain {p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({bd['bytes'] / 1e6:.1f} MB, "
+          f"{bd['t_bytes_ms']:.4f} ms; {bd['flops'] / 1e9:.3f} GFLOP in the "
+          f"lower-triangular products, the states and the scores, as three "
+          f"TF32 passes {bd['t_tf32x3_ms']:.4f} ms, in fp32 FMA "
+          f"{bd['bound_fp32_ms']:.4f} ms)")
     return rows
 
 
@@ -996,7 +1026,8 @@ def main() -> int:
         "max_abs_err": max(ssd_err, sd["max_abs_err"]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
-        "library_ms": None, "ms_by": "events"}]}))
+        "library_ms": None, "ms_by": "profiler", "event_ms": sd["event_ms"],
+        "bound_fp32_ms": sd["bound_fp32_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -131,7 +131,7 @@ def mamba2_forward(p: dict, cfg: ArchConfig, x: torch.Tensor):
     """Full-sequence mamba2 block (scoring).  x: (B, S, D)."""
     z, _, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x)
     if cfg.ssm_impl == "fused":
-        y, _ =ssd_chunked_fused(xh.float(), dt_sp, a, b_mat.float(),
+        y, _ = ssd_chunked_fused(xh.float(), dt_sp, a, b_mat.float(),
                                  c_mat.float(), cfg.ssm_chunk)
     else:
         y, _ = ssd_chunked(xh.float(), dt_sp, a, b_mat.float(),

@@ -132,3 +132,67 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     args = _t(_mk(1, 16, 2, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tssd.ssd_intra_chunk(*args, chunk=8)
+
+
+def _tf32(t):
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero: cvt.rna.tf32.f32, as the CUDA kernel rounds its operands."""
+    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000) \
+        .view(torch.float32)
+
+
+def _one_pass(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _three_pass(a, b):
+    """The kernel's split: hi = tf32(v), lo = tf32(v − hi), and lo·hi +
+    hi·lo + hi·hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
+
+
+def _intra_chunk_with(mm, x, dt, a, b_mat, c_mat, chunk):
+    """``ref.ssd_intra_chunk_ref`` with its three products (the scores, M·x
+    and the states) through ``mm``."""
+    bsz, s, h, p = x.shape
+    n = b_mat.shape[-1]
+    q = chunk
+    nc = s // q
+    xh = x.float().reshape(bsz, nc, q, h, p).permute(0, 1, 3, 2, 4)
+    dth = dt.float().reshape(bsz, nc, q, h).permute(0, 1, 3, 2)
+    bc = b_mat.float().reshape(bsz, nc, 1, q, n)
+    cc = c_mat.float().reshape(bsz, nc, 1, q, n)
+    da = dth * a.float()[:, None]
+    cs = torch.cumsum(da, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    causal = torch.ones(q, q, dtype=torch.bool, device=x.device).tril()
+    l_mat = torch.where(causal, torch.exp(seg), 0.0)
+    scores = mm(cc, bc.transpose(-1, -2))
+    m = scores * l_mat * dth[..., None, :]
+    y = mm(m, xh).permute(0, 1, 3, 2, 4).reshape(bsz, s, h, p)
+    w = torch.exp(cs[..., -1:] - cs) * dth
+    st = mm(xh.transpose(-1, -2), bc * w[..., None])
+    return y, st
+
+
+@pytest.mark.parametrize("q", [64, 256])
+def test_tf32_three_pass_split_keeps_the_kernel_hold(q):
+    """Why the CUDA kernel runs its products as three TF32 passes: with
+    TF32 rounding emulated on the plain version's products, one pass misses
+    the hold ``chip_smoke.py`` puts on the kernel (max|Δ| ≤ 1e-4·(1 +
+    max|ref|), on y_intra and on the states), and the hi/lo split meets it
+    with at least 10× to spare."""
+    args = _t(_mk(2, 2 * q, 4, 64, 64, seed=q))
+    want = tssd.ssd_intra_chunk_ref(*args, chunk=q)
+    exact = _intra_chunk_with(torch.matmul, *args, q)
+    assert all(torch.equal(g, w) for g, w in zip(exact, want))
+
+    def worst(mm):
+        """max over (y_intra, states) of max|Δ| / (1e-4·(1 + max|ref|))"""
+        got = _intra_chunk_with(mm, *args, q)
+        return max(((g - w).abs().max() / (1e-4 * (1 + w.abs().max())))
+                   .item() for g, w in zip(got, want))
+
+    assert worst(_one_pass) > 1.0
+    assert worst(_three_pass) <= 0.1
