@@ -30,11 +30,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               2^-7·|ref| + 1e-3 (both round the same fp32 math to bf16
               once, so they differ by at most one bf16 ulp);
 5. ssd      — the SSD intra-chunk kernel against its plain version:
-              Q ∈ {16, 64, 96, 256, 1024}, P ∈ {20, 32, 64}, N ∈ {32, 40,
-              64, 128}, H > 1 with B/C shared, the path's widths (H=80,
-              P=N=64, Q=256) and H=13, not a multiple of the kernel's head
-              group; held to 1e-4·(1 + max|ref|) (the kernel's prefix sum
-              adds in another order; exp(cs) at |cs| ~ 1e2); and the full
+              Q ∈ {16, 64, 96, 256, 1024}, P ∈ {20, 30, 32, 64}, N ∈ {32,
+              38, 40, 64, 128}, H > 1 with B/C shared, the path's widths
+              (H=80, P=N=64, Q=256) and H=13, not a multiple of the
+              kernel's head group, and x, B, C off 16-byte alignment (the
+              kernel's 4-byte copies); held to 1e-4·(1 + max|ref|) (the
+              kernel's prefix sum adds in another order; exp(cs) at |cs|
+              ~ 1e2); a NaN (the card's canonical bits) planted in x and
+              in dt reaches every output that depends on it, and no
+              output the plain version keeps finite; and the full
               ``ssd_chunked_fused`` against ``ssd_chunked`` and
               ``ssd_dense_ref`` with S not a multiple of Q;
 6. gcn      — the GCN main path: decoupled-pipelined TP GCN training on
@@ -554,6 +558,7 @@ SSD_CASES = (
     (2, 512, 13, 64, 64, 256),     # H not a multiple of the head group
     (1, 2048, 3, 64, 128, 1024),   # the largest chunk and state
     (2, 192, 5, 20, 40, 96),       # ragged P, N and Q
+    (2, 192, 5, 30, 38, 96),       # P, N not multiples of 4: 4-byte copies
 )
 
 
@@ -617,6 +622,52 @@ def _ssd_inputs(b, s, h, p, n, gen, dev):
     return x, dt, a, bm, cm
 
 
+def _off_by_one_float(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _ssd_nan_case(where: str, gen, dev) -> float:
+    """A NaN with the card's canonical bits (0x7fffffff) in one element of
+    x or dt, at row k of a chunk: the kernel must give NaN in y_intra at
+    every row from k to the chunk's end and in the head's chunk state,
+    where the element feeds them (column p of y and row p of the state for
+    x[k, p], the head's whole rows and state for dt), and NaN nowhere the
+    plain version is finite; elsewhere
+    it is held as the other cases.  (The plain version also spreads the NaN
+    to rows before k, through 0·NaN in its masked products; the kernel need
+    not.)  Returns max|Δ| over the finite outputs."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk, ssd_intra_chunk_ref
+    b, s, h, p, n, q = 2, 512, 6, 64, 64, 256
+    args = list(_ssd_inputs(b, s, h, p, n, gen, dev))
+    bi, k, hi, pc = 1, 256 + 150, 5, 7
+    nan = torch.tensor([0x7fffffff], dtype=torch.int32,
+                       device=dev).view(torch.float32)
+    if where == "x":
+        args[0][bi, k, hi, pc] = nan[0]
+        must_y, must_st = (bi, slice(k, 512), hi, pc), (bi, 1, hi, pc)
+    else:
+        args[1][bi, k, hi] = nan[0]
+        must_y, must_st = (bi, slice(k, 512), hi), (bi, 1, hi)
+    y, st = ssd_intra_chunk(*args, chunk=q)
+    y_r, st_r = ssd_intra_chunk_ref(*args, chunk=q)
+    name = f"NaN in {where} at row {k}, head {hi}"
+    for label, got, want, must in (("y_intra", y, y_r, must_y),
+                                   ("states", st, st_r, must_st)):
+        if not got[must].isnan().all():
+            raise AssertionError(f"{name}: {label} lost the NaN")
+        if (got.isnan() & ~want.isnan()).any():
+            raise AssertionError(f"{name}: {label} NaN where the plain "
+                                 f"version is finite")
+    fin_y, fin_st = ~y_r.isnan(), ~st_r.isnan()
+    return max(_held(f"{name}: y_intra", y[fin_y], y_r[fin_y], SSD_TOL),
+               _held("  states", st[fin_st], st_r[fin_st], SSD_TOL))
+
+
 def ssd_cases(dev) -> float:
     """Phase 5; returns the largest max|Δ| over the cases."""
     from repro_torch.kernels.ssd import (ssd_chunked_fused, ssd_dense_ref,
@@ -632,6 +683,15 @@ def ssd_cases(dev) -> float:
         name = f"B={b} S={s} H={h} P={p} N={n} Q={q}"
         errs.append(_held(f"{name} y_intra", y, y_r, SSD_TOL))
         errs.append(_held(f"{name} states", st, st_r, SSD_TOL))
+    # x, B and C one float past a 16-byte boundary, P and N multiples of 4
+    args = [_off_by_one_float(t) if i in (0, 3, 4) else t
+            for i, t in enumerate(_ssd_inputs(2, 256, 5, 64, 64, gen, dev))]
+    y, st = ssd_intra_chunk(*args, chunk=128)
+    y_r, st_r = ssd_intra_chunk_ref(*args, chunk=128)
+    errs.append(_held("unaligned x, B, C: y_intra", y, y_r, SSD_TOL))
+    errs.append(_held("  states", st, st_r, SSD_TOL))
+    for where in ("x", "dt"):
+        errs.append(_ssd_nan_case(where, gen, dev))
     args = _ssd_inputs(2, 600, 4, 64, 64, gen, dev)
     y, final = ssd_chunked_fused(*args, 256)
     y_c, final_c = ssd_chunked(*args, 256)
@@ -1026,8 +1086,8 @@ def main() -> int:
         "max_abs_err": max(ssd_err, sd["max_abs_err"]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
-        "library_ms": None, "ms_by": "profiler", "event_ms": sd["event_ms"],
-        "bound_fp32_ms": sd["bound_fp32_ms"]}]}))
+        "library_ms": None, "ms_by": "profiler",
+        "event_ms": sd["event_ms"]}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,15 @@
 """The SSD intra-chunk kernel on its own: build it, hold it, time it.
 
-    python3 scripts/torch_ssd_kernel.py [--phases] [--baseline OTHER.cu ...]
+    python3 scripts/torch_ssd_kernel.py
 
 Run on a CUDA card from the root of the checkout.  It builds the port's
 kernels (``repro_torch/kernels/build.py``), prints what ``ptxas`` reports
 for ``kernels/ssd/csrc/ssd_intra_chunk.cu`` (registers, spills, shared
 memory), holds ``ssd_intra_chunk`` against ``ssd_intra_chunk_ref`` on
-``chip_smoke.py`` phase 5's cases and at the scoring path's shape
+``chip_smoke.py`` phase 5 (``ssd_cases``) and at the scoring path's shape
 (2, 2048, 80, 64), N=64, Q=256, at ``SSD_TOL``, and times one launch at
 that shape: device time from ``torch.profiler`` and CUDA events over
 back-to-back launches, beside the bound of those inputs.
-
-``--baseline`` (repeatable) names another source with the same C entry
-(``ssd_intra_chunk_f32``), for example an older version of the kernel
-unpacked under ``build/``; it is named after its directory.  Each is built
-alone into ``build/ssd_baseline/<name>/``, held on the same cases and timed
-in turns with the kernel (kernel, baselines, baselines reversed, kernel).
 
 It also measures the ceiling of the kernel's instruction: a loop of
 independent ``mma.sync.m16n8k8`` TF32 products with no loads, at 8 and 16
@@ -23,20 +17,21 @@ warps per SM, reported as TFLOP/s and cycles per ``mma`` per scheduler
 (``clock64`` over the loop), the rate the SSD kernel's three passes run at
 when nothing else holds them.
 
-``--phases`` builds the kernel's source again with ``-DREPRO_SSD_PHASES=1``
+Last, it builds the kernel's source again with ``-DREPRO_SSD_PHASES=1``
 (into ``build/ssd_phases/``), runs it once at the path shape and prints, for
 the row-tile blocks and the state blocks, the mean ``clock64`` cycles a
 block spends in each phase (thread 0's view; a phase ends at the barrier
-that closes it).
+that closes it).  The kernel's next step (ROADMAP queue 3: blocks that
+stay resident and prefetch their next work item) is to hide the block
+start and the waits these counters measure.
 
-A baseline's holds are printed and kept but do not stop the run (a
-baseline may be a design that misses them); the kernel's do.
+To compare two versions of the kernel, run this script from each
+checkout in one call (parent, change, change, parent).
 
 The last line is a JSON object with every number printed.
 """
 from __future__ import annotations
 
-import argparse
 import ctypes
 import json
 import subprocess
@@ -209,17 +204,11 @@ def _run(fn, x, dt, a, bm, cm, q):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--baseline", type=Path, action="append", default=[],
-                    help="another ssd_intra_chunk.cu to build and compare")
-    ap.add_argument("--phases", action="store_true",
-                    help="also count the cycles of each phase of a block")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_ssd_kernel: no CUDA card", file=sys.stderr)
         return 1
-    from chip_smoke import (SSD_CASES, SSD_TOL, _device_ms, _held,
-                            _ssd_bound, _ssd_inputs, _time_ms)
+    from chip_smoke import (SSD_TOL, _device_ms, _held, _ssd_bound,
+                            _ssd_inputs, _time_ms, ssd_cases)
     from repro_torch.kernels import build as kbuild
     from repro_torch.kernels.ssd import ssd_intra_chunk_ref
     from repro_torch.kernels.ssd.ssd import _kernel
@@ -233,72 +222,50 @@ def main() -> int:
     print(card)
     t0 = time.perf_counter()
     kbuild.build()
-    fns = {"kernel": _kernel()}
+    fn = _kernel()
     source = kbuild.SOURCES[-1]
-    ptxas = {"kernel": _ptxas(source, "kernel")}
-    for path in args.baseline:
-        fns[path.parent.name] = _load(
-            path.resolve(),
-            f"ssd_baseline/{path.parent.name}").ssd_intra_chunk_f32
-        ptxas[path.parent.name] = _ptxas(path.resolve(), path.parent.name)
+    ptxas = _ptxas(source, "kernel")
     print(f"  built in {time.perf_counter() - t0:.1f} s")
-    for name, lines in ptxas.items():
-        for line in lines:
-            print(f"  ptxas {name}: {line}")
+    for line in ptxas:
+        print(f"  ptxas: {line}")
 
-    result = {"card": card, "ptxas": ptxas, "cases": {}, "path": {}}
-    gen = torch.Generator(device=dev).manual_seed(3)   # as phase 5
-    for case in SSD_CASES + (PATH_SHAPE,):
-        b, s, h, p, n, q = case
-        inputs = _ssd_inputs(b, s, h, p, n, gen, dev)
-        y_r, st_r = ssd_intra_chunk_ref(*inputs, chunk=q)
-        label = f"B={b} S={s} H={h} P={p} N={n} Q={q}"
-        errs = {}
-        for name, fn in fns.items():
-            y, st = _run(fn, *inputs, q)
-            torch.cuda.synchronize()
-            try:
-                errs[name] = max(_held(f"{name} {label} y_intra", y, y_r,
-                                       SSD_TOL),
-                                 _held(f"{name} {label} states", st, st_r,
-                                       SSD_TOL))
-            except AssertionError:
-                if name == "kernel":
-                    raise
-                errs[name] = max((y - y_r).abs().max().item(),
-                                 (st - st_r).abs().max().item())
-        result["cases"][label] = errs
-    del y_r, st_r
+    result = {"card": card, "ptxas": ptxas, "phase5_max_abs_err":
+              ssd_cases(dev)}
 
-    # the path shape, timed; inputs as chip_smoke.py phase 11 draws them
+    # the path shape, held and timed; inputs as chip_smoke.py phase 11
+    # draws them
     b, s, h, p, n, q = PATH_SHAPE
     gen = torch.Generator(device=dev).manual_seed(4)
     _ = [torch.randn(2, 32, 2048, 80, generator=gen, device=dev)
          for _ in range(3)]   # phase 11 draws the flash inputs first
     del _
     inputs = _ssd_inputs(b, s, h, p, n, gen, dev)
-    others = [path.parent.name for path in args.baseline]
-    order = ["kernel", *others, *others[::-1], "kernel"]
-    runs = {name: {"device_ms": [], "event_ms": []} for name in fns}
-    for name in order:
-        def call(fn=fns[name]):
-            return _run(fn, *inputs, q)
-        runs[name]["device_ms"].append(_device_ms(call, 10)[0])
-        runs[name]["event_ms"].append(_time_ms(call, 10))
+    y, st = _run(fn, *inputs, q)
+    y_r, st_r = ssd_intra_chunk_ref(*inputs, chunk=q)
+    result["path_max_abs_err"] = max(
+        _held(f"{PATH_SHAPE} y_intra", y, y_r, SSD_TOL),
+        _held(f"{PATH_SHAPE} states", st, st_r, SSD_TOL))
+    del y, st, y_r, st_r
+
+    def call():
+        return _run(fn, *inputs, q)
+
+    runs = {"device_ms": [], "event_ms": []}
+    for _ in range(2):
+        runs["device_ms"].append(_device_ms(call, 10)[0])
+        runs["event_ms"].append(_time_ms(call, 10))
     plain_ms = _time_ms(lambda: ssd_intra_chunk_ref(*inputs, chunk=q), 3)
     bound = _ssd_bound(b, s, h, p, n, q)
-    result["path"] = {"runs": runs, "plain_ms": plain_ms, **bound}
-    for name, r in runs.items():
-        print(f"  {name} at {PATH_SHAPE}: device {r['device_ms']} ms, "
-              f"events {r['event_ms']} ms")
+    result["path"] = {**runs, "plain_ms": plain_ms, **bound}
+    print(f"  kernel at {PATH_SHAPE}: device {runs['device_ms']} ms, "
+          f"events {runs['event_ms']} ms")
     print(f"  plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms by "
           f"{bound['bound_by']} ({bound['bytes'] / 1e6:.1f} MB, "
           f"{bound['t_bytes_ms']:.4f} ms; {bound['flops'] / 1e9:.3f} GFLOP, "
           f"3 TF32 passes {bound['t_tf32x3_ms']:.4f} ms, fp32 FMA "
           f"{bound['bound_fp32_ms']:.4f} ms)")
-    if args.phases:
-        result["phases"] = _phases(source, inputs, q)
     result["mma_peak"] = _mma_peak(dev)
+    result["phases"] = _phases(source, inputs, q)
     print(json.dumps(result))
     return 0
 

@@ -74,10 +74,13 @@
 
 #include <cstdint>
 
-// Built with -DREPRO_SSD_PHASES=1 (scripts/torch_ssd_kernel.py --phases),
+// Built with -DREPRO_SSD_PHASES=1 (as scripts/torch_ssd_kernel.py does),
 // thread 0 of every block adds the clock64() cycles of its phases to
 // ssd_phase_cycles[row blocks | state blocks][phase], which
 // ssd_intra_chunk_phases reads back; by default the probes are empty.
+// They are there for this kernel's next step, blocks that stay resident
+// and prefetch their next work item (ROADMAP queue 3), which is to hide
+// the block start and the tile waits these counters measure.
 #ifndef REPRO_SSD_PHASES
 #define REPRO_SSD_PHASES 0
 #endif
@@ -134,15 +137,20 @@ struct Dims {
 
 // v rounded to TF32 (10 mantissa bits), to nearest with ties away from
 // zero: what cvt.rna.tf32.f32 gives for every finite v, in two integer
-// instructions (cvt.rna compiles to a longer sequence that also handles NaN)
-__device__ __forceinline__ uint32_t tf32(float v) {
+// instructions.  Not for NaN: the add carries a NaN's mantissa into the
+// sign bit when its top 11 mantissa bits are set (the card's canonical NaN
+// 0x7fffffff among them), and the NaN comes out as ±0.
+__device__ __forceinline__ uint32_t tf32_finite(float v) {
   return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 
-// v = hi + lo + O(2^-22 |v|), hi and lo TF32 values
+// v = hi + lo + O(2^-22 |v|), hi and lo TF32 values.  A NaN keeps its
+// place in hi, so it reaches the products as it would in fp32.  lo needs
+// no such care: v − hi is NaN only where hi is NaN or inf (inf − inf),
+// and then lo = 0 leaves the product to hi.
 __device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
+  hi = isnan(v) ? 0x7fffffffu : tf32_finite(v);
+  lo = tf32_finite(v - __uint_as_float(hi));
 }
 
 // c += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate

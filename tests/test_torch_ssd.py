@@ -136,9 +136,12 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
 
 def _tf32(t):
     """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero: cvt.rna.tf32.f32, as the CUDA kernel rounds its operands."""
-    return ((t.contiguous().view(torch.int32) + 0x1000) & -0x2000) \
-        .view(torch.float32)
+    from zero: cvt.rna.tf32.f32, as the CUDA kernel rounds its operands.
+    A NaN stays NaN, as in the kernel's hi part (the add alone would carry
+    the mantissa of a NaN such as 0x7fffffff into the sign bit)."""
+    t = t.contiguous()
+    rounded = ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(t.isnan(), t, rounded)
 
 
 def _one_pass(a, b):
@@ -196,3 +199,28 @@ def test_tf32_three_pass_split_keeps_the_kernel_hold(q):
 
     assert worst(_one_pass) > 1.0
     assert worst(_three_pass) <= 0.1
+
+
+@pytest.mark.parametrize("where", ["x", "dt"])
+def test_tf32_three_pass_split_keeps_nan(where):
+    """A NaN in x or dt reaches y_intra and the states through the hi/lo
+    split exactly where it reaches them in the plain version, for a NaN
+    with the card's canonical bits 0x7fffffff (which the add-and-mask
+    rounding alone turns into -0)."""
+    x, dt, a, b_mat, c_mat = _t(_mk(1, 128, 3, 16, 16, seed=7))
+    nan = torch.tensor([0x7fffffff], dtype=torch.int32).view(torch.float32)
+    assert ((nan.view(torch.int32) + 0x1000) & -0x2000).item() \
+        == -0x80000000
+    assert _tf32(nan).isnan().all()
+    if where == "x":
+        x[0, 70, 1, 5] = nan[0]
+    else:
+        dt[0, 70, 1] = nan[0]
+    args = (x, dt, a, b_mat, c_mat)
+    want = tssd.ssd_intra_chunk_ref(*args, chunk=64)
+    got = _intra_chunk_with(_three_pass, *args, 64)
+    for g, w in zip(got, want):
+        assert w.isnan().any()
+        assert torch.equal(g.isnan(), w.isnan())
+        fin = ~w.isnan()
+        assert (g[fin] - w[fin]).abs().max() <= 1e-4 * (1 + w[fin].abs().max())
