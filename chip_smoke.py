@@ -17,7 +17,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               plans, forward and transposed; a skewed plan (one row of
               5 000 nonzeros over 79 warp segments, 500 empty rows, rows
               straddling segments) whose repeat launches must be bitwise
-              equal; a stacked plan's padded instance; an empty plan (no
+              equal; the naive path's layer-0 width (d=602) and a plan of
+              the DP path's shape (local rows × local rows + a halo row);
+              a stacked plan's padded instance; an empty plan (no
               launch, zeros); and forward + autograd backward through
               ``aggregate_plan`` against the plain version on its arrays;
               each case held to max|Δ| ≤ 1e-5·(1 + max|ref|);
@@ -45,13 +47,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               reddit_like(scale=1.0, seed=0) (n=23 000, 602 features, 41
               classes; hidden 128, 2 layers, 4 chunks, blocksparse at
               bs=128, AdamW lr 1e-2 wd 5e-4) over a 1-rank NCCL group:
-              3 warm-up + 10 timed steps with finite, falling loss, the
-              SpMM kernel launched on every step; then the step-0 loss and
-              grads recomputed with the plain version on the card and with
-              the segment backend, each held within rtol 1e-4 (per tensor,
-              max|Δ| ≤ 1e-4·max|ref|);
-7. spmm-t   — the forward and the backward chunk at the GCN path's
-              shapes: the kernel held against the plain version on chunk
+              3 warm-up + 10 timed steps with finite, falling loss and 16
+              SpMM launches a step; one step profiled (device busy, idle
+              share); one more step's collective ledger held to the
+              schedule (16 all-to-alls, 8 forward and 8 backward, payload
+              from the shapes, one loss psum of 12 bytes, one gradient
+              all-reduce of the parameters' bytes, 0 wire bytes at N=1);
+              then the step-0 loss and grads recomputed with the plain
+              version on the card and with the segment backend, each held
+              within rtol 1e-4 (per tensor, max|Δ| ≤ 1e-4·max|ref|);
+7. naive    — the same, with ``mode="naive"`` on phase 6's bundle: a
+              split, one aggregation round and a gather per layer; 12 SpMM
+              launches a step (layer 0 forward only, its input features
+              carry no gradient; layer 1 forward and backward) and
+              4L−2 = 6 all-to-alls;
+8. dp       — the same for the DP halo-exchange baseline,
+              ``prepare_dp_bundle(k=1, agg="blocksparse")`` and
+              ``make_dp_train_fns`` on the same graph: 3 SpMM launches a
+              step on the rectangular per-worker plan and L+(L−1) = 3 halo
+              all-to-alls; the kernel held against the plain version on
+              that plan at both layers' widths;
+9. spmm-t   — the forward and the backward chunk at the decoupled path's
+              shapes and the naive path's layer-0 forward chunk (d=602):
+              the kernel held against the plain version on chunk
               0's tiles and on its arrays, a repeat launch bitwise equal,
               and ``torch.sparse.mm`` on torch's CSR of the same tiles
               (held to 1e-5·(1 + max|ref|); timed only, never on the path);
@@ -60,7 +78,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the memset of its flags, printed apart), beside the CUDA-event
               time of a call, the plain version and the bound of these
               inputs (nonzeros, row pointers, h once, output once);
-8. serve    — the LM main path: Zamba2-2.7B at full width and depth
+10. serve   — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random weights from seed 0 drawn on the
               card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
               ``generate`` of 2 prompts × 2048 tokens from
@@ -68,17 +86,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               launches in prefill (all of the tensor-core kernel) and none
               in decode; then prefill and
               decode timed (medians) and one prefill profiled;
-9. score    — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
+11. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
               under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
               launches, a
               finite loss; timed and profiled;
-10. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
+12. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
               path against the same path with both plain versions patched
               in on the card — prefill logits within 1e-4·max|ref|,
               identical greedy tokens over 8 steps, scoring loss within
-              1e-5 relative; and the bf16 scoring loss of phase 9 beside
+              1e-5 relative; and the bf16 scoring loss of phase 11 beside
               its plain-version twin (printed, not gated);
-11. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
+13. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
               its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
               (per element, as phase 4); one bf16 launch there timed beside
               its plain version, ``scaled_dot_product_attention`` on the
@@ -239,6 +257,14 @@ def kernel_cases(dev) -> float:
           f", {int((rows == 0).sum())} empty rows; repeat launches "
           f"bitwise equal  ok")
 
+    # the naive path's layer-0 width (602 input features: four full
+    # 128-column y-tiles and a partial fifth), and the DP path's shape
+    # (local rows × local rows + one halo row, neither a multiple of bs)
+    both_ways("bs=128 rect 1000x4000, naive layer-0 width",
+              _rect_plan(1000, 4000, 30000, 128, seed=13), ds=(602,))
+    both_ways("bs=128 DP-shaped 2300x2301 (local + halo row)",
+              _rect_plan(2300, 2301, 40000, 128, seed=17), ds=(128, 602))
+
     sparse = _rect_plan(100, 300, 30, 64, seed=1)
     dense = _rect_plan(100, 300, 5000, 64, seed=2)
     stacked = stack_plans([sparse, dense])
@@ -279,14 +305,116 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _drive(name, step, evaluate, params0, opt, per_step: int, why: str):
+    """3 warm-up + 10 timed steps of ``step`` from ``params0``: finite and
+    falling loss, ``per_step`` SpMM launches on every step (``why`` says
+    whence).  The launch count is zeroed just before the steps and read
+    just after.  Returns (params, opt state, losses, launches, median
+    step ms)."""
+    from repro_torch.kernels.spmm import spmm_csr
+    params, state = params0, opt.init(params0)
+    losses, ms = [], []
+    spmm_csr.launches = 0
+    for i in range(13):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, loss = step(params, state)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        print(f"  step {i:2d} {'warm-up' if i < 3 else 'timed  '} "
+              f"loss {losses[-1]:.6f}  {ms[-1]:.2f} ms")
+    launches = spmm_csr.launches
+    median_ms = statistics.median(ms[3:])
+    print(f"  {name}: median step {median_ms:.2f} ms over 10 timed steps; "
+          f"spmm_csr launches {launches} ({launches / 13:.0f} per step)")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{name}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{name}: loss did not fall: {losses[0]} → "
+                             f"{losses[-1]}")
+    if launches != 13 * per_step:
+        raise AssertionError(f"{name}: expected {per_step} kernel launches "
+                             f"per step ({why}), got {launches} in 13 steps")
+    _, val_acc = evaluate(params, "val")
+    print(f"  val accuracy after 13 steps {val_acc.item():.4f}")
+    return params, state, losses, launches, median_ms
+
+
+def _param_bytes(params) -> float:
+    from repro_torch.params import tree_leaves
+    return float(sum(p.numel() * p.element_size()
+                     for p in tree_leaves(params)))
+
+
+def _hold_ledger(name, step, params, state, a2a_calls: int,
+                 a2a_mirrored: int, a2a_payload: float,
+                 param_bytes: float) -> dict:
+    """Collect the ledger of one more step and hold it to the schedule's
+    contract at N=1: the all-to-alls' forward and backward calls and
+    their payload from the shapes, one stacked loss psum of 12 bytes, one
+    gradient all-reduce of the parameters' bytes, and no wire bytes (the
+    ring factor is 0 at N=1)."""
+    from repro_torch.runtime.telemetry import collect_comm
+    with collect_comm() as ledger:
+        step(params, state)
+    torch.cuda.synchronize()
+
+    def entry(calls, payload, mirrored=0):
+        return {"calls": float(calls), "payload_bytes": float(payload),
+                "wire_bytes": 0.0, "mirrored_calls": float(mirrored),
+                "mirrored_wire_bytes": 0.0}
+
+    want = {"all_to_all|model|float32": entry(a2a_calls, a2a_payload,
+                                              a2a_mirrored),
+            "grad_psum|model|float32": entry(1, param_bytes),
+            "psum|model|float32": entry(1, 12)}
+    got = ledger.as_dict()
+    print(f"  ledger of one {name} step: {json.dumps(got)}")
+    if got != want:
+        raise AssertionError(f"{name}: ledger {got} is not the schedule's "
+                             f"{want}")
+    print(f"  {name} ledger: {a2a_calls} all-to-alls forward + "
+          f"{a2a_mirrored} backward = {a2a_calls + a2a_mirrored} per step, "
+          f"{a2a_payload:.0f} payload bytes, 0 wire bytes at N=1  ok")
+    return got
+
+
+def _hold_step0(name, vg, vg_segment, params0, mask, first_loss) -> None:
+    """The step-0 loss and grads of the kernel path against the same path
+    with the plain version patched in on the card, and against the
+    segment backend, each within ``PATH_RTOL``."""
+    from repro_torch.kernels.spmm import ops, spmm_csr_ref
+    from repro_torch.params import tree_leaves
+    loss_k, grads_k = vg(params0, mask)
+    with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
+        loss_p, grads_p = vg(params0, mask)
+    loss_s, grads_s = vg_segment(params0, mask)
+    if abs(loss_k.item() - first_loss) > PATH_RTOL * abs(first_loss):
+        raise AssertionError(f"{name}: step-0 loss differs from the first "
+                             f"step's")
+    for other, lo, go in (("plain", loss_p, grads_p),
+                          ("segment", loss_s, grads_s)):
+        _held(f"{name} step-0 loss, kernel vs {other}", loss_k, lo,
+              PATH_RTOL, 0.0)
+        for i, (a, b) in enumerate(zip(tree_leaves(grads_k),
+                                       tree_leaves(go))):
+            _held(f"{name} step-0 grad {i} {tuple(a.shape)}, kernel vs "
+                  f"{other}", a, b, PATH_RTOL, 0.0)
+
+
+def _path_info(launches, median_ms, profile, ledger, losses) -> dict:
+    return {"launches": launches, "step_ms": median_ms, "profile": profile,
+            "ledger": ledger, "loss_first": losses[0],
+            "loss_last": losses[-1]}
+
+
 def train(dev):
-    """Phase 4; returns (bundle, data, launches, median step ms)."""
+    """Phase 6; returns (bundle, data, cfg, path info)."""
     from repro_torch import optim
     from repro_torch.core import decouple as D
     from repro_torch.gnn import models as M
     from repro_torch.graph.synthetic import reddit_like
-    from repro_torch.kernels.spmm import ops, spmm_csr, spmm_csr_ref
-    from repro_torch.params import tree_leaves
     from repro_torch.runtime import TPMesh
 
     t0 = time.perf_counter()
@@ -309,55 +437,116 @@ def train(dev):
     opt = optim.adamw(1e-2, weight_decay=5e-4)
     step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt,
                                          mode="decoupled_pipelined")
-    params, state = params0, opt.init(params0)
-    losses, ms = [], []
-    spmm_csr.launches = 0
-    for i in range(13):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        params, state, loss = step(params, state)
-        losses.append(loss.item())
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t) * 1e3)
-        print(f"  step {i:2d} {'warm-up' if i < 3 else 'timed  '} "
-              f"loss {losses[-1]:.6f}  {ms[-1]:.2f} ms")
-    launches = spmm_csr.launches
-    median_ms = statistics.median(ms[3:])
-    print(f"  median step {median_ms:.2f} ms over 10 timed steps; "
-          f"spmm_csr launches {launches} "
-          f"({launches / 13:.0f} per step)")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
-        raise AssertionError(f"loss did not fall: {losses[0]} → "
-                             f"{losses[-1]}")
-    if launches != 13 * 16:
-        raise AssertionError(f"expected 16 kernel launches per step "
-                             f"(2 rounds × 4 chunks × fwd+bwd), got "
-                             f"{launches} in 13 steps")
-    _, val_acc = evaluate(params, "val")
-    print(f"  val accuracy after 13 steps {val_acc.item():.4f}")
+    params, state, losses, launches, median_ms = _drive(
+        "decoupled_pipelined", step, evaluate, params0, opt, 16,
+        "2 rounds × 4 chunks × forward and backward")
     profile = _profile(lambda: step(params, state), "step")
+    # per chunk one split send (N, m_split, D/N) and one gather send
+    # (N, m_gather, D/N) of the D padded classes, each with its backward
+    cp, chunks = bundle.graph.comm_plan, bundle.graph.chunked.n_chunks
+    ledger = _hold_ledger(
+        "decoupled_pipelined", step, params, state, 2 * chunks, 2 * chunks,
+        4 * cfg.num_classes * chunks * (cp.m_split + cp.m_gather),
+        _param_bytes(params0))
+    _hold_step0("decoupled_pipelined",
+                D.make_tp_value_and_grad(cfg, bundle, mesh,
+                                         mode="decoupled_pipelined"),
+                D.make_tp_value_and_grad(cfg, bundle, mesh,
+                                         mode="decoupled_pipelined",
+                                         agg="segment"),
+                params0, bundle.train_mask, losses[0])
+    return bundle, data, cfg, _path_info(launches, median_ms, profile,
+                                         ledger, losses)
 
-    vg = D.make_tp_value_and_grad(cfg, bundle, mesh,
-                                  mode="decoupled_pipelined")
-    loss_k, grads_k = vg(params0, bundle.train_mask)
-    with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
-        loss_p, grads_p = vg(params0, bundle.train_mask)
-    loss_s, grads_s = D.make_tp_value_and_grad(
-        cfg, bundle, mesh, mode="decoupled_pipelined", agg="segment")(
-            params0, bundle.train_mask)
-    if abs(loss_k.item() - losses[0]) > PATH_RTOL * abs(losses[0]):
-        raise AssertionError("step-0 loss differs from the first step's")
-    for other, lo, go in (("plain", loss_p, grads_p),
-                          ("segment", loss_s, grads_s)):
-        _held(f"step-0 loss, kernel vs {other}", loss_k, lo, PATH_RTOL,
-              0.0)
-        for i, (a, b) in enumerate(zip(tree_leaves(grads_k),
-                                       tree_leaves(go))):
-            _held(f"step-0 grad {i} {tuple(a.shape)}, kernel vs {other}",
-                  a, b, PATH_RTOL, 0.0)
-    return bundle, data, launches, median_ms, profile
+
+def _widths(cfg) -> list:
+    """The width each coupled layer aggregates: the input features, then
+    the hidden width."""
+    return [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1)
+
+
+def naive(bundle, data, cfg, dev) -> dict:
+    """Phase 7: naive TP on phase 6's bundle and config."""
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh
+
+    mesh = TPMesh()
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opt = optim.adamw(1e-2, weight_decay=5e-4)
+    step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt,
+                                         mode="naive", agg="blocksparse")
+    params, state, losses, launches, median_ms = _drive(
+        "naive", step, evaluate, params0, opt, 12,
+        "layer 0 forward only, 4 chunks: its input features carry no "
+        "gradient; layer 1 forward and backward, 4 + 4")
+    profile = _profile(lambda: step(params, state), "naive step")
+    # per layer a split send (V/N, D) and a gather send (V, D/N) of the
+    # layer's width; layer 0's have no backward (4L − 2 in all)
+    n, layers = bundle.n_padded, cfg.num_layers
+    ledger = _hold_ledger("naive", step, params, state, 2 * layers,
+                          2 * layers - 2, 2 * 4 * n * sum(_widths(cfg)),
+                          _param_bytes(params0))
+    _hold_step0("naive",
+                D.make_tp_value_and_grad(cfg, bundle, mesh, mode="naive"),
+                D.make_tp_value_and_grad(cfg, bundle, mesh, mode="naive",
+                                         agg="segment"),
+                params0, bundle.train_mask, losses[0])
+    return _path_info(launches, median_ms, profile, ledger, losses)
+
+
+def dp(data, dev) -> tuple[dict, float]:
+    """Phase 8: the DP halo-exchange baseline at k=1 on the same graph;
+    returns (path info, max|Δ| of the kernel on its plan)."""
+    from repro_torch import optim
+    from repro_torch.gnn import dp_baseline as DP
+    from repro_torch.gnn import models as M
+    from repro_torch.kernels.spmm import spmm_csr, spmm_csr_ref
+    from repro_torch.runtime import TPMesh
+
+    t0 = time.perf_counter()
+    bundle = DP.prepare_dp_bundle(data, k=1, agg="blocksparse",
+                                  agg_block_size=128, device=dev)
+    torch.cuda.synchronize()
+    g, plan = bundle.graph, bundle.graph.bsp.instance(0)
+    print(f"  k={g.k}: {g.n_local_max} local rows, halo {g.halo_size} "
+          f"(m={g.m}); rectangular plan {plan.n_rows}x{plan.n_cols} "
+          f"({plan.rows_padded}x{plan.cols_padded} padded), "
+          f"{int(plan.row_ptr[-1])} nonzeros; prepared in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mesh = TPMesh()
+    cfg = M.GNNConfig(in_dim=data.features.shape[1], hidden_dim=128,
+                      num_classes=data.num_classes, num_layers=2)
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opt = optim.adamw(1e-2, weight_decay=5e-4)
+    step, evaluate = DP.make_dp_train_fns(cfg, bundle, mesh, opt)
+    params, state, losses, launches, median_ms = _drive(
+        "dp", step, evaluate, params0, opt, 3,
+        "one per layer forward, and layer 1's backward: layer 0's input "
+        "features carry no gradient")
+    profile = _profile(lambda: step(params, state), "dp step")
+    # per layer one halo send (k, m, D) of the layer's width; layer 0's
+    # has no backward (L + (L − 1) in all)
+    layers = cfg.num_layers
+    ledger = _hold_ledger("dp", step, params, state, layers, layers - 1,
+                          4 * g.k * g.m * sum(_widths(cfg)),
+                          _param_bytes(params0))
+    _hold_step0("dp", DP.make_dp_value_and_grad(cfg, bundle, mesh),
+                DP.make_dp_value_and_grad(cfg, bundle, mesh, agg="segment"),
+                params0, bundle.train_mask, losses[0])
+    # the kernel on this plan at both layers' widths, both directions
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = []
+    for t, n_in in (("", plan.cols_padded), ("_t", plan.rows_padded)):
+        for d in _widths(cfg):
+            h = torch.randn(n_in, d, generator=gen, device=dev)
+            arrays = _arrays(plan, t)
+            errs.append(_held(
+                f"dp plan d={d} {'transposed' if t else 'forward'} vs plain",
+                spmm_csr(*arrays, h), spmm_csr_ref(*arrays, h)))
+    return _path_info(launches, median_ms, profile, ledger, losses), \
+        max(errs)
 
 
 def _profile(fn, label: str) -> dict:
@@ -405,24 +594,45 @@ def _time_ms(fn, iters: int) -> float:
 
 
 def _device_ms(fn, iters: int) -> tuple[float, float]:
-    """Device time of one call of ``fn``: the sum over the kernels and
-    memsets it launches, and the memsets' part of it, from
-    ``torch.profiler``, averaged over ``iters`` calls after one warm-up
-    call.  For launches of a few microseconds, where CUDA events over
-    back-to-back calls time the host's Python and launch cost instead."""
+    """Device time of one call of ``fn`` and the memsets' part of it, from
+    ``torch.profiler`` over ``iters`` calls after one warm-up call: for
+    each kernel or memset, the mean time of its records times its records
+    per call.  For launches of a few microseconds, where CUDA events over
+    back-to-back calls time the host's Python and launch cost instead.
+
+    The profiler can lose records (a profile of 10 SSD launches has held
+    8): the sum of the records over ``iters`` would then read low, the
+    mean of a record does not.  Records per call are the records caught
+    over ``iters``, rounded, at least 1.  A profile that caught no device
+    time is taken again, three times at most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in events) / 1e3 / iters,
-            sum(e.self_device_time_total for e in events
-                if "memset" in e.key.lower()) / 1e3 / iters)
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count]
+        if not sum(e.self_device_time_total for e in events):
+            print(f"    a profile of {iters} calls caught no device time; "
+                  f"taken again")
+            continue
+        per_call, lost = {}, 0
+        for e in events:
+            k = max(1, round(e.count / iters))
+            per_call[e.key] = e.self_device_time_total / e.count * k
+            lost += max(0, k * iters - e.count)
+        if lost:
+            print(f"    the profile of {iters} calls lost {lost} records; "
+                  f"timed by the mean of a record")
+        return (sum(per_call.values()) / 1e3,
+                sum(v for key, v in per_call.items()
+                    if "memset" in key.lower()) / 1e3)
+    raise RuntimeError("torch.profiler caught no device time in three "
+                       "profiles")
 
 
 def _spmm_bound(nnz, n_in, n_out, d):
@@ -451,14 +661,14 @@ def _csr_of_tiles(blocks, rows, cols, n_out, n_in):
 
 
 def timing(bundle, data, dev):
-    """Phase 7: returns the forward/backward-chunk numbers and the max|Δ|
-    there."""
+    """Phase 9: returns the numbers of the forward and backward chunk of
+    the decoupled path (d = padded classes) and of the naive path's layer-0
+    forward chunk (d = padded input features), and the max|Δ| there."""
     from repro_torch.core.decouple import _pad_graph
     from repro_torch.graph.format import rect_block_sparse
     from repro_torch.kernels.spmm import spmm_csr, spmm_csr_ref, spmm_ref
     plan = bundle.graph.bsp.instance(0)
     cs = bundle.graph.chunked.chunk_size
-    d = bundle.graph.c_padded
     # chunk 0's tiles as chunk_block_sparse builds them (its stack padding
     # is all-zero tiles, which hold no entry)
     gp = _pad_graph(data.graph, bundle.graph.n_padded)
@@ -467,9 +677,13 @@ def timing(bundle, data, dev):
                              n_rows=cs, n_cols=gp.n, bs=plan.bs)
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, err = {}, 0.0
-    for name, t, n_in, n_out in (
-            ("forward", "", plan.cols_padded, plan.rows_padded),
-            ("backward", "_t", plan.rows_padded, plan.cols_padded)):
+    for name, t, n_in, n_out, d in (
+            ("forward", "", plan.cols_padded, plan.rows_padded,
+             bundle.graph.c_padded),
+            ("backward", "_t", plan.rows_padded, plan.cols_padded,
+             bundle.graph.c_padded),
+            ("naive_l0", "", plan.cols_padded, plan.rows_padded,
+             bundle.in_dim_padded)):
         arrays = _arrays(plan, t)
         nnz = int(arrays[0][-1])
         h = torch.randn(n_in, d, generator=gen, device=dev)
@@ -745,7 +959,7 @@ def _expect(what: str, got, want) -> None:
 
 
 def serve(dev):
-    """Phase 8: Zamba2-2.7B full width, bf16, generate + timing."""
+    """Phase 10: Zamba2-2.7B full width, bf16, generate + timing."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -833,7 +1047,7 @@ def serve(dev):
 
 
 def score(cfg, params, batch, dev):
-    """Phase 9: forward + lm_loss on 2 × 2048, under no_grad."""
+    """Phase 11: forward + lm_loss on 2 × 2048, under no_grad."""
     from repro_torch.models import transformer as T
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
@@ -876,7 +1090,7 @@ def score(cfg, params, batch, dev):
 
 
 def cross_check_fp32(cfg, params, batch, dev) -> float:
-    """Phase 10: the kernel path against the plain versions, fp32."""
+    """Phase 12: the kernel path against the plain versions, fp32."""
     import dataclasses
 
     from repro_torch.models import transformer as T
@@ -914,7 +1128,7 @@ def cross_check_fp32(cfg, params, batch, dev) -> float:
 
 
 def lm_timing(dev):
-    """Phase 11: one flash and one SSD launch at the LM path's shapes."""
+    """Phase 13: one flash and one SSD launch at the LM path's shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
@@ -997,7 +1211,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/11] device")
+    print("[1/13] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1011,47 +1225,52 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/11] build")
+    print("[2/13] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/11] spmm kernel against its plain version")
+    print("[3/13] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/11] flash kernel against its plain version")
+    print("[4/13] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/11] ssd kernel against its plain version")
+    print("[5/13] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/11] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/13] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
-        bundle, data, launches, step_ms, profile = train(dev)
-        print("[7/11] spmm timing at the GCN path's shapes")
+        bundle, data, gcn_cfg, gcn = train(dev)
+        print("[7/13] naive TP GCN training (a split and a gather per "
+              "layer)")
+        naive_info = naive(bundle, data, gcn_cfg, dev)
+        print("[8/13] DP halo-exchange GCN training (k=1)")
+        dp_info, dp_err = dp(data, dev)
+        print("[9/13] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[8/11] LM main path, serving: Zamba2-2.7B generate")
+    print("[10/13] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[9/11] LM main path, scoring: forward + lm_loss")
+    print("[11/13] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[10/11] fp32 cross-check at full width, kernels vs plain")
+    print("[12/13] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[11/11] flash and ssd timing at the LM path's shapes")
+    print("[13/13] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
 
-    fwd, bwd = rows["forward"], rows["backward"]
+    fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
-    print(json.dumps({"timing": rows, "step_ms": step_ms, "profile": profile,
-                      "build_s": build_s, "serve": serve_info,
+    print(json.dumps({"timing": rows, "gcn": gcn, "naive": naive_info,
+                      "dp": dp_info, "build_s": build_s, "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
                       "card": card}))
@@ -1060,12 +1279,20 @@ def main() -> int:
         "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
         "replaces": "src/repro/kernels/spmm/spmm.py:64",
         "held_against": "ref.spmm_ref (tiles), ref.spmm_csr_ref",
-        "launches": launches, "max_abs_err": max(spmm_err, path_err),
+        "launches": gcn["launches"] + naive_info["launches"]
+        + dp_info["launches"],
+        "launches_by_path": {"decoupled_pipelined": gcn["launches"],
+                             "naive": naive_info["launches"],
+                             "dp": dp_info["launches"]},
+        "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"], "ms_by": "profiler",
         "event_ms": fwd["event_ms"], "backward_ms": bwd["ms"],
-        "backward_library_ms": bwd["library_ms"]}, {
+        "backward_library_ms": bwd["library_ms"],
+        "naive_l0_ms": nl0["ms"], "naive_l0_plain_ms": nl0["plain_ms"],
+        "naive_l0_bound_ms": nl0["bound_ms"],
+        "naive_l0_library_ms": nl0["library_ms"]}, {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/"
                   "flash_attention_mma.cu",

@@ -21,9 +21,9 @@ Last, it builds the kernel's source again with ``-DREPRO_SSD_PHASES=1``
 (into ``build/ssd_phases/``), runs it once at the path shape and prints, for
 the row-tile blocks and the state blocks, the mean ``clock64`` cycles a
 block spends in each phase (thread 0's view; a phase ends at the barrier
-that closes it).  The kernel's next step (ROADMAP queue 3: blocks that
-stay resident and prefetch their next work item) is to hide the block
-start and the waits these counters measure.
+that closes it).  The kernel's next step (resident prefetching blocks,
+ROADMAP queue 2b: blocks that stay resident and prefetch their next work
+item) is to hide the block start and the waits these counters measure.
 
 To compare two versions of the kernel, run this script from each
 checkout in one call (parent, change, change, parent).
@@ -232,12 +232,12 @@ def main() -> int:
     result = {"card": card, "ptxas": ptxas, "phase5_max_abs_err":
               ssd_cases(dev)}
 
-    # the path shape, held and timed; inputs as chip_smoke.py phase 11
+    # the path shape, held and timed; inputs as chip_smoke.py phase 13
     # draws them
     b, s, h, p, n, q = PATH_SHAPE
     gen = torch.Generator(device=dev).manual_seed(4)
     _ = [torch.randn(2, 32, 2048, 80, generator=gen, device=dev)
-         for _ in range(3)]   # phase 11 draws the flash inputs first
+         for _ in range(3)]   # phase 13 draws the flash inputs first
     del _
     inputs = _ssd_inputs(b, s, h, p, n, gen, dev)
     y, st = _run(fn, *inputs, q)

@@ -4,4 +4,4 @@
 from . import tp, chunks, agg, decouple  # noqa: F401
 from .decouple import (TPBundle, TPGraph, prepare_bundle, padded_gnn_config,
                        make_tp_train_fns, make_tp_value_and_grad,
-                       tp_decoupled_forward)  # noqa: F401
+                       tp_decoupled_forward, tp_naive_forward)  # noqa: F401

@@ -102,7 +102,8 @@ def chunk_split_step(h_local: torch.Tensor, rows_c: torch.Tensor,
     rows = h_local.index_select(0, local)
     rows = torch.where(valid[:, None], rows, 0.0)          # (M, D)
     send = rows.reshape(rows.shape[0], n, ds).transpose(0, 1)  # (N, M, Ds)
-    recv = C.all_to_all(send, mesh.group, split_axis=0, concat_axis=0)
+    recv = C.all_to_all(send, mesh.group, split_axis=0, concat_axis=0,
+                        axis=mesh.axis)
     # recv[j] = slices (this worker's dims) of rows owned by worker j
     ids = rows_c.reshape(-1)
     ids = torch.where(ids >= 0, ids, n_padded)            # pad → dump row
@@ -126,7 +127,8 @@ def chunk_gather_step(z_chunk: torch.Tensor, rows_c: torch.Tensor,
     in_chunk = torch.where(rows_c >= 0, rows_c - chunk_start, 0)
     send = z_chunk.index_select(0, in_chunk.reshape(-1))
     send = torch.where(valid, send, 0.0).reshape(n, rows_c.shape[1], ds)
-    recv = C.all_to_all(send, mesh.group, split_axis=0, concat_axis=0)
+    recv = C.all_to_all(send, mesh.group, split_axis=0, concat_axis=0,
+                        axis=mesh.axis)
     # recv[j] = worker j's dim-slice of MY rows → concat along features
     full = recv.transpose(0, 1).reshape(rows_c.shape[1], n * ds)  # (M, D)
     mine = rows_c[i]

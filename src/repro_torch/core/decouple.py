@@ -8,10 +8,12 @@ The execution engine behind Algorithm 1, one process per TP rank:
     → gather (all-to-all)                     ┘
     → masked softmax loss on local vertices (+ psum)
 
-Two execution modes:
+Three execution modes:
   * ``decoupled``            — one split + one gather per epoch (paper's DT)
   * ``decoupled_pipelined``  — split/gather partitioned into per-chunk tasks
                                interleaved with aggregation (paper's DT+IP)
+  * ``naive``                — coupled layers with a split and a gather per
+                               layer (the paper's "TP" baseline, Fig. 8)
 
 Every rank builds the same host-side bundle (:func:`prepare_bundle`) and
 takes its own vertex rows of it.  Parameters are replicated: the backward
@@ -21,6 +23,7 @@ parameter gradients across ranks (``runtime.collectives`` says why).
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Any
 
 import numpy as np
@@ -57,9 +60,11 @@ class TPGraph:
     c_padded: int                 # class dim padded to multiple of workers
     in_dim_padded: int
     # aggregation backend (core.agg): "segment" needs no extra data;
-    # "blocksparse" carries the per-chunk tile plans
+    # "blocksparse" carries the per-chunk tile plans, "dense" the
+    # per-chunk dense adjacency rows
     agg: str = "segment"
     bsp: Any = None               # SP.BlockSparsePlanDev | None
+    dense_adj: Any = None         # (C, chunk_size, n_padded) f32 | None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -108,14 +113,15 @@ def prepare_bundle(data: GraphData, n_workers: int, n_chunks: int = 4,
     ``agg`` selects the default aggregation backend
     (:data:`repro_torch.core.agg.AGG_BACKENDS`) and builds its per-chunk
     data: tile plans of block size ``agg_block_size`` for
-    ``"blocksparse"``.  The chunked segment view is always built."""
+    ``"blocksparse"``, dense adjacency rows (O(V²) memory — small graphs)
+    for ``"dense"``.  The chunked segment view is always built."""
     g = data.graph
     n_padded = padded_size(g.n, n_workers * n_chunks)
     gp = _pad_graph(g, n_padded)
     cg = gf.chunk_graph(gp, n_chunks)
     plan = CH.build_chunk_comm_plan(cg, n_workers, n_padded, device)
-    bsp = AGG.build_chunk_plans(gp, n_chunks, agg, bs=agg_block_size,
-                                device=device)
+    bsp, dense_adj = AGG.build_chunk_plans(gp, n_chunks, agg,
+                                           bs=agg_block_size, device=device)
 
     in_dim = data.features.shape[1]
     in_dim_padded = padded_size(in_dim, n_workers)
@@ -136,7 +142,7 @@ def prepare_bundle(data: GraphData, n_workers: int, n_chunks: int = 4,
         comm_plan=plan,
         n=g.n, n_padded=n_padded, n_workers=n_workers,
         num_classes=data.num_classes, c_padded=c_padded,
-        in_dim_padded=in_dim_padded, agg=agg, bsp=bsp)
+        in_dim_padded=in_dim_padded, agg=agg, bsp=bsp, dense_adj=dense_adj)
     return TPBundle(
         graph=graph,
         features=torch.from_numpy(feats).to(device),
@@ -258,30 +264,62 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
                                    scale)
 
 
+def tp_naive_forward(params, cfg: M.GNNConfig, graph: TPGraph, x_local,
+                     mesh: TPMesh, agg: str = "segment"):
+    """Coupled ("naive") TP: a split, one aggregation round and a gather
+    per layer, then the dense update on this rank's rows — 2L all-to-alls
+    forward (Fig. 8's baseline).  The naive mode applies no γ
+    (``scale=1``).  Layer 0 moves the input features, which carry no
+    gradient, so its all-to-alls have no backward: 4L−2 per step."""
+    M._require_gcn(cfg)
+    h = x_local
+    n_layers = cfg.num_layers
+    for i, p in enumerate(params["layers"]):
+        z = tp.split(h, mesh)                          # dim-sharded
+        z = _aggregate_once(graph, z, agg, None, 1.0)
+        h = L.dense(p, tp.gather(z, mesh))             # vertex-sharded
+        if i < n_layers - 1:
+            h = torch.relu(h)
+    return h
+
+
 # ---------------------------------------------------------------------------
 # Loss / train-step factories
 # ---------------------------------------------------------------------------
 
-_PIPELINED = {"decoupled": False, "decoupled_pipelined": True}
+_FORWARDS = {
+    "decoupled": partial(tp_decoupled_forward, pipelined=False),
+    "decoupled_pipelined": partial(tp_decoupled_forward, pipelined=True),
+    "naive": tp_naive_forward,
+}
+
+
+def global_loss_and_acc(logits, labels, mask, num_classes: int,
+                        mesh: TPMesh):
+    """(loss, acc) over every rank's vertices from this rank's logits.
+
+    The three sums travel in one stacked psum of 12 bytes; the reference
+    makes three scalar psums of the same bytes."""
+    sums = torch.stack(M.masked_loss_and_acc(logits, labels, mask,
+                                             num_classes))
+    loss_sum, correct, cnt = C.psum(sums, mesh.group, axis=mesh.axis)
+    cnt = torch.clamp(cnt, min=1.0)
+    return loss_sum / cnt, correct / cnt
 
 
 def _make_tp_loss_and_acc(cfg: M.GNNConfig, mesh: TPMesh, mode: str,
                           agg: str):
     """(params, graph, x_local, labels_local, mask_local) → (loss, acc),
     the loss and accuracy over every rank's vertices."""
-    if mode not in _PIPELINED:
-        raise ValueError(f"mode {mode!r} is not ported yet; expected one "
-                         f"of {tuple(_PIPELINED)}")
-    pipelined = _PIPELINED[mode]
+    if mode not in _FORWARDS:
+        raise ValueError(f"unknown mode {mode!r}; expected one of "
+                         f"{tuple(_FORWARDS)}")
+    fwd = _FORWARDS[mode]
 
     def shard_loss(params, graph, x_local, labels_local, mask_local):
-        logits = tp_decoupled_forward(params, cfg, graph, x_local, mesh,
-                                      pipelined=pipelined, agg=agg)
-        sums = torch.stack(M.masked_loss_and_acc(
-            logits, labels_local, mask_local, graph.num_classes))
-        loss_sum, correct, cnt = C.psum(sums, mesh.group)
-        cnt = torch.clamp(cnt, min=1.0)
-        return loss_sum / cnt, correct / cnt
+        logits = fwd(params, cfg, graph, x_local, mesh, agg=agg)
+        return global_loss_and_acc(logits, labels_local, mask_local,
+                                   graph.num_classes, mesh)
 
     return shard_loss
 
@@ -317,13 +355,17 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
     return loss_and_acc
 
 
-def _value_and_grad(loss_and_acc, mesh: TPMesh):
+def value_and_grad(loss_and_acc, mesh: TPMesh):
+    """(params, mask) → (loss, grads) over a per-rank
+    ``loss_and_acc(params, mask) → (loss, acc)``, with the replicated
+    parameters' gradients summed across ranks in one all-reduce (ledger op
+    ``grad_psum``)."""
     def value_and_grad_fn(params, mask):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, _ = loss_and_acc(p, mask)
         grads = torch.autograd.grad(loss, tree_leaves(p))
-        # one all-reduce for every replicated parameter's gradient
-        flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group)
+        flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group,
+                      axis=mesh.axis, op="grad_psum")
         grads = [f.view_as(g) for f, g in
                  zip(flat.split([g.numel() for g in grads]), grads)]
         return loss.detach(), tree_unflatten(params, grads)
@@ -331,27 +373,11 @@ def _value_and_grad(loss_and_acc, mesh: TPMesh):
     return value_and_grad_fn
 
 
-def make_tp_value_and_grad(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
-                           mode: str = "decoupled_pipelined", agg=None):
-    """(params, mask) → (loss, grads), with ``mask`` over all vertices and
-    the grads summed across ranks (the same on every rank).  ``agg=None``
-    uses the bundle's prepared aggregation backend."""
-    return _value_and_grad(_make_local_loss(cfg, bundle, mesh, mode, agg),
-                           mesh)
-
-
-def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
-                      optimizer, mode: str = "decoupled_pipelined",
-                      agg=None):
-    """(train_step, evaluate) for TP training.
-
-    ``train_step(params, opt_state) → (params, opt_state, loss)``;
-    ``evaluate(params, split) → (loss, acc)`` over the ``"train"``,
-    ``"val"`` or ``"test"`` mask.  ``mode`` ∈ {decoupled,
-    decoupled_pipelined}; ``agg=None`` uses the bundle's backend."""
-    loss_and_acc = _make_local_loss(cfg, bundle, mesh, mode, agg)
-    vg = _value_and_grad(loss_and_acc, mesh)
-    masks = bundle.masks()
+def train_fns(loss_and_acc, mesh: TPMesh, optimizer, masks: dict):
+    """(train_step, evaluate) over a per-rank ``loss_and_acc(params,
+    mask)``; ``masks`` maps ``"train"``/``"val"``/``"test"`` to the mask
+    ``loss_and_acc`` takes."""
+    vg = value_and_grad(loss_and_acc, mesh)
 
     def train_step(params, opt_state):
         loss, grads = vg(params, masks["train"])
@@ -363,3 +389,25 @@ def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
         return loss_and_acc(params, masks[split])
 
     return train_step, evaluate
+
+
+def make_tp_value_and_grad(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
+                           mode: str = "decoupled_pipelined", agg=None):
+    """(params, mask) → (loss, grads), with ``mask`` over all vertices and
+    the grads summed across ranks (the same on every rank).  ``agg=None``
+    uses the bundle's prepared aggregation backend."""
+    return value_and_grad(_make_local_loss(cfg, bundle, mesh, mode, agg),
+                          mesh)
+
+
+def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
+                      optimizer, mode: str = "decoupled_pipelined",
+                      agg=None):
+    """(train_step, evaluate) for TP training.
+
+    ``train_step(params, opt_state) → (params, opt_state, loss)``;
+    ``evaluate(params, split) → (loss, acc)`` over the ``"train"``,
+    ``"val"`` or ``"test"`` mask.  ``mode`` ∈ {decoupled,
+    decoupled_pipelined, naive}; ``agg=None`` uses the bundle's backend."""
+    return train_fns(_make_local_loss(cfg, bundle, mesh, mode, agg), mesh,
+                     optimizer, bundle.masks())

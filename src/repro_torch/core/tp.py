@@ -22,9 +22,11 @@ from ..runtime.mesh import TPMesh
 
 def split(h: torch.Tensor, mesh: TPMesh) -> torch.Tensor:
     """vertex-sharded (V/N, D) → dim-sharded (V, D/N)."""
-    return C.all_to_all(h, mesh.group, split_axis=1, concat_axis=0)
+    return C.all_to_all(h, mesh.group, split_axis=1, concat_axis=0,
+                        axis=mesh.axis)
 
 
 def gather(z: torch.Tensor, mesh: TPMesh) -> torch.Tensor:
     """dim-sharded (V, D/N) → vertex-sharded (V/N, D)."""
-    return C.all_to_all(z, mesh.group, split_axis=0, concat_axis=1)
+    return C.all_to_all(z, mesh.group, split_axis=0, concat_axis=1,
+                        axis=mesh.axis)

@@ -1,0 +1,264 @@
+"""GNN data parallelism baseline (DepComm, NeutronStar-style).
+
+The comparison system for the paper's ablation (§5.4 "baseline+CS"): the
+graph is partitioned into contiguous destination chunks, one per worker;
+every aggregation needs the embeddings of *remote* in-neighbors, fetched by
+an explicit halo exchange (dependency communication).  This is exactly the
+workload whose imbalance (skewed edge counts, skewed halo sizes) motivates
+tensor parallelism.
+
+The halo exchange is a static, rectangular all-to-all built from
+:func:`repro_torch.graph.partition.halo_plan`; per-worker arrays are padded
+to the max across workers and stacked on a leading worker axis.  Every rank
+builds the same bundle and takes its own partition (index ``mesh.index``):
+one process per worker, L halo all-to-alls forward and L−1 backward (layer
+0's input features carry no gradient).
+
+Pure data parallelism only: hybrid DP×TP meshes, the constraint backend
+and streamed placement are ROADMAP queue 1 items 12–14.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..core import agg as AGG
+from ..core import decouple as D
+from ..graph import format as gf
+from ..graph import partition as gp
+from ..graph.synthetic import GraphData
+from ..kernels import spmm as SP
+from ..runtime import collectives as C
+from ..runtime.mesh import TPMesh
+from . import layers as L
+from . import models as M
+
+
+@dataclasses.dataclass(frozen=True)
+class DPGraph:
+    """Per-worker partitioned graph, stacked+padded on the worker axis."""
+
+    send_idx_local: torch.Tensor  # (k, k, m) int32 LOCAL row ids to send (pad -1)
+    recv_pos: torch.Tensor        # (k, k, m) int32 halo slot (pad = halo_size)
+    src: torch.Tensor             # (k, e_max) int32 local-coord srcs (pad 0)
+    dst: torch.Tensor             # (k, e_max) int32 local dst (pad = n_local_max)
+    weight: torch.Tensor          # (k, e_max) f32 (pad 0)
+    valid_rows: torch.Tensor      # (k, n_local_max) f32 1 for real local vertices
+    k: int
+    m: int
+    halo_size: int
+    n_local_max: int
+    e_max: int
+    # aggregation backend (core.agg): per-worker tile plans ("blocksparse",
+    # stacked on the worker axis) or per-worker dense rows ("dense",
+    # (k, n_local_max, n_local_max + halo_size))
+    agg: str = "segment"
+    bsp: Any = None               # SP.BlockSparsePlanDev | None
+    dense_adj: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DPBundle:
+    graph: DPGraph
+    features: torch.Tensor     # (k, n_local_max, d)
+    labels: torch.Tensor       # (k, n_local_max) int64
+    train_mask: torch.Tensor   # (k, n_local_max) f32
+    val_mask: torch.Tensor
+    test_mask: torch.Tensor
+    num_classes: int
+    comm_rows_per_worker: np.ndarray  # analysis: rows each worker receives
+
+    def masks(self) -> dict:
+        return {"train": self.train_mask, "val": self.val_mask,
+                "test": self.test_mask}
+
+
+def prepare_dp_bundle(data: GraphData, k: int, balance: str = "vertex",
+                      n_replicas: int = 1, agg: str = "segment",
+                      agg_block_size: int = 128,
+                      device="cuda") -> DPBundle:
+    """``k`` graph partitions, placed on ``device``.
+
+    ``agg`` selects the default aggregation backend
+    (:data:`repro_torch.core.agg.AGG_BACKENDS`): ``"blocksparse"`` builds
+    one rectangular tile plan per worker (local dst rows × extended
+    local+halo source rows, block size ``agg_block_size``), ``"dense"``
+    the per-worker dense rows.  The segment edge lists are always built."""
+    AGG.validate_backend(agg)
+    if n_replicas != 1:
+        raise ValueError("hybrid DP×TP (n_replicas > 1) is not ported "
+                         "(ROADMAP queue 1 item 12)")
+    g = data.graph
+    part = gp.chunk_partition(g, k, balance=balance)
+    plan = gp.halo_plan(g, part)
+    n_local_max = int(plan.n_local.max())
+    e_max = max(1, max(len(s) for s in plan.local_src))
+
+    send_local = np.full((k, k, plan.m), -1, dtype=np.int32)
+    for i in range(k):
+        lo = part.bounds[i]
+        sel = plan.send_idx[i] >= 0
+        send_local[i][sel] = plan.send_idx[i][sel] - lo
+
+    ext = n_local_max + plan.halo_size
+    src = np.zeros((k, e_max), np.int32)
+    dst = np.full((k, e_max), n_local_max, np.int32)
+    wgt = np.zeros((k, e_max), np.float32)
+    valid = np.zeros((k, n_local_max), np.float32)
+    worker_plans = [] if agg == "blocksparse" else None
+    dense_rows = (np.zeros((k, n_local_max, ext), np.float32)
+                  if agg == "dense" else None)
+    feats = np.zeros((k, n_local_max, data.features.shape[1]), np.float32)
+    labels = np.zeros((k, n_local_max), np.int64)
+    masks = {name: np.zeros((k, n_local_max), np.float32)
+             for name in ("train", "val", "test")}
+    for i in range(k):
+        e_i = len(plan.local_src[i])
+        n_i = int(plan.n_local[i])
+        src[i, :e_i] = plan.local_src[i]
+        # clamp halo coords into the padded layout: local rows sit in
+        # [0, n_local_max), halo rows in [n_local_max, n_local_max+halo)
+        halo_sel = plan.local_src[i] >= n_i
+        src[i, :e_i][halo_sel] += n_local_max - n_i
+        dst[i, :e_i] = plan.local_dst[i]
+        wgt[i, :e_i] = plan.local_w[i]
+        valid[i, :n_i] = 1.0
+        # per-worker aggregation plans use the same clamped coordinates
+        # the segment path indexes with: dst over the padded local rows,
+        # src over the extended [local | halo] rows
+        if worker_plans is not None:
+            worker_plans.append(gf.rect_block_sparse(
+                dst[i, :e_i], src[i, :e_i], wgt[i, :e_i],
+                n_rows=n_local_max, n_cols=ext, bs=agg_block_size))
+        if dense_rows is not None:
+            np.add.at(dense_rows[i], (dst[i, :e_i], src[i, :e_i]),
+                      wgt[i, :e_i])
+        lo, hi = part.bounds[i], part.bounds[i + 1]
+        feats[i, :n_i] = data.features[lo:hi]
+        labels[i, :n_i] = data.labels[lo:hi]
+        masks["train"][i, :n_i] = data.train_mask[lo:hi]
+        masks["val"][i, :n_i] = data.val_mask[lo:hi]
+        masks["test"][i, :n_i] = data.test_mask[lo:hi]
+
+    def dev(a):
+        return torch.from_numpy(a).to(device)
+
+    graph = DPGraph(
+        send_idx_local=dev(send_local), recv_pos=dev(plan.recv_pos),
+        src=dev(src), dst=dev(dst), weight=dev(wgt), valid_rows=dev(valid),
+        k=k, m=plan.m, halo_size=plan.halo_size,
+        n_local_max=n_local_max, e_max=e_max, agg=agg,
+        bsp=(SP.block_sparse_plan_dev(gf.stack_plans(worker_plans), device)
+             if worker_plans is not None else None),
+        dense_adj=dev(dense_rows) if dense_rows is not None else None)
+    return DPBundle(graph=graph, features=dev(feats), labels=dev(labels),
+                    train_mask=dev(masks["train"]),
+                    val_mask=dev(masks["val"]),
+                    test_mask=dev(masks["test"]),
+                    num_classes=data.num_classes,
+                    comm_rows_per_worker=(plan.send_idx >= 0).sum(
+                        axis=(0, 2)))
+
+
+# ---------------------------------------------------------------------------
+# Halo exchange + aggregation (per rank)
+# ---------------------------------------------------------------------------
+
+def halo_exchange(h_local: torch.Tensor, g: DPGraph,
+                  mesh: TPMesh) -> torch.Tensor:
+    """DepComm: fetch remote in-neighbor rows.  Returns (halo_size+1, D),
+    the last row a dump row for the pads.  When ``h_local`` carries no
+    gradient (layer 0's input features) autograd runs no backward
+    all-to-all for it, and the ledger counts none."""
+    i = mesh.index
+    d = h_local.shape[1]
+    send_rows = g.send_idx_local[i]                      # (k, m) local ids
+    valid = (send_rows >= 0).reshape(-1, 1)
+    send = h_local.index_select(0, torch.where(send_rows >= 0, send_rows,
+                                               0).reshape(-1))
+    send = torch.where(valid, send, 0.0).reshape(g.k, g.m, d)
+    recv = C.all_to_all(send, mesh.group, split_axis=0, concat_axis=0,
+                        axis=mesh.axis)
+    # recv[j] = rows worker j sent me; land them in my halo buffer
+    pos = g.recv_pos[i].reshape(-1).long()               # (k*m,)
+    halo = h_local.new_zeros(g.halo_size + 1, d)
+    return halo.index_copy(0, pos, recv.reshape(-1, d))
+
+
+def dp_aggregate(h_local: torch.Tensor, g: DPGraph, mesh: TPMesh,
+                 agg: str = "segment") -> torch.Tensor:
+    """One full aggregation round: halo exchange + local weighted SpMM on
+    this worker's (n_local_max, n_local_max + halo_size) slice of Â.  The
+    halo exchange — the only communication — is the same for every
+    backend."""
+    i = mesh.index
+    halo = halo_exchange(h_local, g, mesh)[:-1]          # drop the dump row
+    h_ext = torch.cat([h_local, halo])
+    if agg == "blocksparse":
+        return SP.aggregate_plan(g.bsp.instance(i), h_ext)[: g.n_local_max]
+    if agg == "dense":
+        return g.dense_adj[i] @ h_ext
+    return L.aggregate_chunk(h_ext, g.src[i], g.dst[i], g.weight[i],
+                             g.n_local_max)
+
+
+def dp_coupled_forward(params, cfg: M.GNNConfig, g: DPGraph, x_local,
+                       mesh: TPMesh, agg: str = "segment"):
+    """Classic coupled data-parallel GCN: per layer a halo exchange, the
+    local aggregation and the dense update on this worker's rows."""
+    M._require_gcn(cfg)
+    h = x_local
+    for i, p in enumerate(params["layers"]):
+        h = L.dense(p, dp_aggregate(h, g, mesh, agg))
+        if i < cfg.num_layers - 1:
+            h = torch.relu(h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Loss / train-step factories
+# ---------------------------------------------------------------------------
+
+def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
+                     agg, data_axes):
+    """(params, mask) → (loss, acc) on this rank's partition, with ``mask``
+    over every partition, (k, n_local_max)."""
+    if data_axes:
+        raise ValueError("hybrid DP×TP (data_axes) is not ported (ROADMAP "
+                         "queue 1 item 12)")
+    g = bundle.graph
+    if g.k != mesh.size:
+        raise ValueError(
+            f"DP bundle partitioned for k={g.k} workers but the mesh has "
+            f"{mesh.size} ranks — re-run prepare_dp_bundle with "
+            f"k={mesh.size}")
+    agg = AGG.resolve_choice(g, agg)
+    i = mesh.index
+    x, labels, valid = bundle.features[i], bundle.labels[i], g.valid_rows[i]
+
+    def loss_and_acc(params, mask):
+        logits = dp_coupled_forward(params, cfg, g, x, mesh, agg)
+        return D.global_loss_and_acc(logits, labels, mask[i] * valid,
+                                     bundle.num_classes, mesh)
+
+    return loss_and_acc
+
+
+def make_dp_value_and_grad(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
+                           agg: str | None = None, data_axes=()):
+    """(params, mask) → (loss, grads), the grads summed across ranks.
+    ``agg=None`` keeps the bundle's prepared aggregation backend."""
+    return D.value_and_grad(
+        _make_local_loss(cfg, bundle, mesh, agg, data_axes), mesh)
+
+
+def make_dp_train_fns(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
+                      optimizer, agg: str | None = None, data_axes=()):
+    """(train_step, evaluate) for the DP baseline (GCN), with the
+    signatures of :func:`repro_torch.core.decouple.make_tp_train_fns`.
+    ``agg=None`` keeps the bundle's prepared aggregation backend."""
+    return D.train_fns(_make_local_loss(cfg, bundle, mesh, agg, data_axes),
+                       mesh, optimizer, bundle.masks())

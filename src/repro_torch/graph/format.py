@@ -37,6 +37,16 @@ class Graph:
     def e(self) -> int:
         return int(self.src.shape[0])
 
+    def dense_adjacency(self) -> np.ndarray:
+        """Dense normalized adjacency (the ``dense`` backend's rows).
+
+        ``np.add.at``, not fancy-index ``+=``: the buffered form drops
+        duplicate (dst, src) contributions, and graphs built outside
+        :func:`build_graph`'s dedupe may carry parallel edges."""
+        a = np.zeros((self.n, self.n), dtype=np.float32)
+        np.add.at(a, (self.dst, self.src), self.weight)
+        return a
+
 
 def _sort_by_dst(src: np.ndarray, dst: np.ndarray):
     order = np.argsort(dst, kind="stable")

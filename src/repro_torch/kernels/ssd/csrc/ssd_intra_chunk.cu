@@ -79,8 +79,9 @@
 // ssd_phase_cycles[row blocks | state blocks][phase], which
 // ssd_intra_chunk_phases reads back; by default the probes are empty.
 // They are there for this kernel's next step, blocks that stay resident
-// and prefetch their next work item (ROADMAP queue 3), which is to hide
-// the block start and the tile waits these counters measure.
+// and prefetch their next work item (resident prefetching blocks, ROADMAP
+// queue 2b), which is to hide the block start and the tile waits these
+// counters measure.
 #ifndef REPRO_SSD_PHASES
 #define REPRO_SSD_PHASES 0
 #endif

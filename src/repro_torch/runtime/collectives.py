@@ -14,13 +14,23 @@ initialised by the caller.
   rank seeds its backward from it, so the gradient of what each rank
   contributed is exactly that cotangent.  Parameters replicated on every
   rank then get the sum of the ranks' gradients by a :func:`psum` of the
-  gradients after the backward (``core.decouple``) — the step JAX's
-  ``shard_map`` transpose performs implicitly.
+  gradients after the backward (``core.decouple``, recorded as
+  ``grad_psum``) — the step JAX's ``shard_map`` transpose performs
+  implicitly.
+
+Each call reports its operand to the collecting ledgers
+(:mod:`.telemetry`) under its ``axis`` label (the mesh's, ``"model"``).
+The all-to-all's backward reports the mirrored call when it runs, into
+the ledgers that were collecting when its forward ran: autograd runs the
+backward of CUDA tensors on a thread of its own, which does not see the
+caller's context.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+
+from . import telemetry as T
 
 
 def axis_index(group=None) -> int:
@@ -31,6 +41,13 @@ def axis_index(group=None) -> int:
 def axis_size(group=None) -> int:
     """Number of ranks in ``group``."""
     return dist.get_world_size(group)
+
+
+def _record(op: str, axis: str, x: torch.Tensor, group, ledgers,
+            backward: bool = False) -> None:
+    if ledgers:
+        T.record(op, axis, x, group_size=axis_size(group),
+                 backward=backward, ledgers=ledgers)
 
 
 def _all_to_all(x: torch.Tensor, group, split_axis: int,
@@ -49,25 +66,28 @@ def _all_to_all(x: torch.Tensor, group, split_axis: int,
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, split_axis, concat_axis):
-        ctx.args = (group, split_axis, concat_axis)
+    def forward(ctx, x, group, split_axis, concat_axis, axis):
+        ctx.args = (group, split_axis, concat_axis, axis)
+        ctx.ledgers = T.active_ledgers()
+        _record("all_to_all", axis, x, group, ctx.ledgers)
         return _all_to_all(x, group, split_axis, concat_axis)
 
     @staticmethod
     def backward(ctx, g):
-        group, split_axis, concat_axis = ctx.args
+        group, split_axis, concat_axis, axis = ctx.args
+        _record("all_to_all", axis, g, group, ctx.ledgers, backward=True)
         return (_all_to_all(g, group, concat_axis, split_axis),
-                None, None, None)
+                None, None, None, None)
 
 
 def all_to_all(x: torch.Tensor, group=None, *, split_axis: int,
-               concat_axis: int) -> torch.Tensor:
+               concat_axis: int, axis: str = "model") -> torch.Tensor:
     """Exchange equal blocks: ``x`` is cut into ``n`` equal blocks along
     ``split_axis``, block ``j`` goes to rank ``j``, and the blocks received
     are concatenated along ``concat_axis`` in rank order (JAX's tiled
     ``all_to_all``; with ``split_axis == concat_axis == 0`` and
     ``x.shape[0] == n`` it is also the untiled one)."""
-    return _AllToAll.apply(x, group, split_axis, concat_axis)
+    return _AllToAll.apply(x, group, split_axis, concat_axis, axis)
 
 
 class _Psum(torch.autograd.Function):
@@ -82,7 +102,10 @@ class _Psum(torch.autograd.Function):
         return g, None
 
 
-def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+def psum(x: torch.Tensor, group=None, *, axis: str = "model",
+         op: str = "psum") -> torch.Tensor:
     """Sum ``x`` across the ranks of ``group`` (see the module docstring
-    for its backward)."""
+    for its backward).  ``op`` is the ledger's op kind: ``"grad_psum"``
+    for the replicated parameters' gradient all-reduce."""
+    _record(op, axis, x, group, T.active_ledgers())
     return _Psum.apply(x, group)

@@ -21,9 +21,11 @@ def padded_size(size: int, multiple: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class TPMesh:
     """The TP workers: the ranks of ``group`` (``None``: the default
-    group, which the caller has initialised)."""
+    group, which the caller has initialised), labelled ``axis`` in the
+    collective ledger (:mod:`.telemetry`)."""
 
     group: Any = None
+    axis: str = "model"
 
     @property
     def size(self) -> int:

@@ -1,0 +1,245 @@
+"""Collective telemetry: per-(op, axis, dtype) byte counters of one step.
+
+The paper's quantitative claim is about wire bytes: TP's gather/split
+moves V·D/N bytes per device whatever the graph's skew (Fig. 8, §3.2).
+Every byte the port moves between ranks goes through
+:mod:`repro_torch.runtime.collectives`, which reports each call here.
+
+Usage::
+
+    with telemetry.collect_comm() as ledger:
+        train_step(params, opt_state)        # exactly one step
+    ledger.wire_bytes(op="all_to_all", axis="model", train=True)
+
+Keys, counters and the ring cost model are the JAX package's
+(``repro.runtime.telemetry``), so ``as_dict()`` of the two compares as a
+plain dict:
+
+* **Keys** — ``(op kind, axis label, dtype)``; the dtype label is the
+  numpy name (``"float32"``).  Multi-axis labels join with ``+``; an axis
+  query matches a label it equals or names a ``+`` component of.
+* **Bytes** — ``payload_bytes`` is the per-device input operand;
+  ``wire_bytes`` is its per-device ring-algorithm traffic
+  (:func:`ring_wire_factor`).
+* **Mirrors** — ``mirrored_calls`` / ``mirrored_wire_bytes`` count the
+  collectives the backward pass runs; ``train=True`` queries add them.
+
+How the port's semantics differ from the reference's:
+
+* **Execution time, not trace time.**  The reference records while a
+  program traces, once, and multiplies the bodies of scans by their trip
+  count.  The port runs every chunk's call eagerly, so it records every
+  execution: a ledger collects over exactly one step, and nothing
+  replaces the reference's loop multiplier.
+* **Mirrors are recorded when they run.**  The reference declares at
+  each forward call whether autodiff will emit the mirrored collective
+  (``mirror=``).  Here the backward of the all-to-all records itself
+  (``record(..., backward=True)``), so those declarations — such as layer
+  0's ``mirror=False`` in the naive forward — are checked against what
+  autograd really does.  It records into the ledgers its forward saw
+  (``ledgers=``): autograd runs a CUDA backward on its own thread, where
+  the collecting context is not active.
+* **The replicated parameters' gradient all-reduce is counted.**  The
+  reference leaves it out of its ledger scope (it is an implicit
+  ``shard_map`` transpose there).  The port runs it explicitly and
+  records it under its own op kind, ``grad_psum``, at the ring cost of a
+  ``psum``, so the reference's keys are unchanged.
+
+When no ledger is collecting, a collective pays one ``ContextVar`` read
+(:func:`active_ledgers`) and nothing else.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+from contextvars import ContextVar
+from typing import Iterator, Mapping
+
+import torch
+
+__all__ = ["CommEntry", "CommLedger", "TelemetryError", "active_ledgers",
+           "collect_comm", "record", "ring_wire_factor"]
+
+
+class TelemetryError(RuntimeError):
+    """A collective could not be accounted while a ledger was collecting —
+    raised instead of silently skipping its bytes."""
+
+
+#: Op kinds :func:`record` accepts, each with the collective whose ring
+#: cost it pays: the reference's five, and the gradient all-reduce.
+OP_COST = {"psum": "psum", "all_gather": "all_gather",
+           "all_to_all": "all_to_all", "ppermute": "ppermute",
+           "psum_scatter": "psum_scatter", "grad_psum": "psum"}
+
+
+def ring_wire_factor(op: str, g: int) -> float:
+    """Ring-algorithm per-device wire-byte factor on the RESULT size:
+
+      all_gather      (g−1)/g      psum (all-reduce)   2(g−1)/g
+      psum_scatter    (g−1)        all_to_all          (g−1)/g
+      ppermute        1
+    """
+    if op == "ppermute":
+        return 1.0
+    if g <= 1:
+        return 0.0
+    return {"all_gather": (g - 1) / g,
+            "psum": 2 * (g - 1) / g,
+            "psum_scatter": float(g - 1),
+            "all_to_all": (g - 1) / g}[op]
+
+
+@dataclasses.dataclass
+class CommEntry:
+    """Accumulated counters for one (op, axis label, dtype) key."""
+
+    calls: float = 0.0            # forward collective executions
+    payload_bytes: float = 0.0    # per-device input payload, forward
+    wire_bytes: float = 0.0       # per-device ring wire bytes, forward
+    mirrored_calls: float = 0.0   # backward-pass executions
+    mirrored_wire_bytes: float = 0.0
+
+    def merge(self, other: "CommEntry") -> None:
+        self.calls += other.calls
+        self.payload_bytes += other.payload_bytes
+        self.wire_bytes += other.wire_bytes
+        self.mirrored_calls += other.mirrored_calls
+        self.mirrored_wire_bytes += other.mirrored_wire_bytes
+
+
+def _axis_label(axes) -> str:
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    return "+".join(axes)
+
+
+def _label_matches(label: str, axis: str | None) -> bool:
+    return axis is None or axis == label or axis in label.split("+")
+
+
+class CommLedger:
+    """Per-(op, axis, dtype) collective counters of the collected calls."""
+
+    def __init__(self) -> None:
+        self._entries: dict[tuple[str, str, str], CommEntry] = {}
+
+    def add(self, op: str, axes, dtype: str, *, payload: float, wire: float,
+            calls: float = 1.0, backward: bool = False) -> None:
+        """Count ``calls`` executions of one collective.  ``backward=True``:
+        they ran in the backward pass, and count as mirrored calls and
+        wire bytes only."""
+        key = (op, _axis_label(axes), str(dtype))
+        entry = self._entries.setdefault(key, CommEntry())
+        if backward:
+            entry.mirrored_calls += calls
+            entry.mirrored_wire_bytes += wire * calls
+        else:
+            entry.calls += calls
+            entry.payload_bytes += payload * calls
+            entry.wire_bytes += wire * calls
+
+    def _select(self, op: str | None, axis: str | None):
+        for (kop, klabel, _), entry in self._entries.items():
+            if (op is None or kop == op) and _label_matches(klabel, axis):
+                yield entry
+
+    def wire_bytes(self, op: str | None = None, axis: str | None = None, *,
+                   train: bool = False) -> float:
+        """Per-device ring wire bytes; ``train=True`` adds the backward
+        pass's (forward + backward of one step)."""
+        return sum(e.wire_bytes + (e.mirrored_wire_bytes if train else 0.0)
+                   for e in self._select(op, axis))
+
+    def payload_bytes(self, op: str | None = None,
+                      axis: str | None = None) -> float:
+        return sum(e.payload_bytes for e in self._select(op, axis))
+
+    def call_count(self, op: str | None = None, axis: str | None = None, *,
+                   train: bool = False) -> float:
+        return sum(e.calls + (e.mirrored_calls if train else 0.0)
+                   for e in self._select(op, axis))
+
+    def entries(self) -> dict[tuple[str, str, str], CommEntry]:
+        return dict(self._entries)
+
+    def as_dict(self) -> dict:
+        """JSON-friendly view: ``{"op|axis|dtype": {counters...}}``."""
+        return {"|".join(k): dataclasses.asdict(v)
+                for k, v in sorted(self._entries.items())}
+
+    @classmethod
+    def from_dict(cls, d: Mapping[str, Mapping[str, float]]) -> "CommLedger":
+        """Inverse of :meth:`as_dict`; also reads the reference's."""
+        ledger = cls()
+        for key, counters in d.items():
+            parts = key.split("|")
+            if len(parts) != 3:
+                raise TelemetryError(
+                    f"malformed ledger key {key!r} (want 'op|axis|dtype')")
+            ledger._entries[tuple(parts)] = CommEntry(**dict(counters))
+        return ledger
+
+    def merge_from(self, other: "CommLedger") -> "CommLedger":
+        """Accumulate ``other``'s counters into this ledger."""
+        for key, entry in other._entries.items():
+            self._entries.setdefault(key, CommEntry()).merge(entry)
+        return self
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __bool__(self) -> bool:
+        return bool(self._entries)
+
+
+_LEDGERS: ContextVar[tuple[CommLedger, ...]] = ContextVar(
+    "repro_torch_comm_ledgers", default=())
+
+
+@contextlib.contextmanager
+def collect_comm(ledger: CommLedger | None = None) -> Iterator[CommLedger]:
+    """Collect the collectives run inside the block.  Nested contexts
+    stack: every active ledger receives every record."""
+    ledger = CommLedger() if ledger is None else ledger
+    token = _LEDGERS.set(_LEDGERS.get() + (ledger,))
+    try:
+        yield ledger
+    finally:
+        _LEDGERS.reset(token)
+
+
+def active_ledgers() -> tuple[CommLedger, ...]:
+    return _LEDGERS.get()
+
+
+def record(op: str, axes, x: torch.Tensor, *, group_size: int,
+           backward: bool = False,
+           ledgers: tuple[CommLedger, ...] | None = None) -> None:
+    """Report one execution of a collective into every active ledger, or
+    into ``ledgers`` where given.
+
+    ``x`` is the per-device input operand (only its shape and dtype are
+    read); ``group_size`` the number of ranks taking part.
+    ``backward=True`` for the mirrored collective a backward pass runs.
+    No-op when no ledger is collecting."""
+    if ledgers is None:
+        ledgers = _LEDGERS.get()
+    if not ledgers:
+        return
+    if op not in OP_COST:
+        raise TelemetryError(f"unknown collective op kind {op!r} "
+                             f"(known: {sorted(OP_COST)})")
+    payload = float(math.prod(x.shape)) * x.element_size()
+    dtype = str(x.dtype).removeprefix("torch.")
+    # the ring factor is defined on the RESULT size: all_gather grows the
+    # input g×, psum_scatter shrinks it g×, the rest preserve it
+    if op == "all_gather":
+        wire = (group_size - 1) * payload
+    elif op == "psum_scatter":
+        wire = ring_wire_factor(op, group_size) * payload / group_size
+    else:
+        wire = ring_wire_factor(OP_COST[op], group_size) * payload
+    for ledger in ledgers:
+        ledger.add(op, axes, dtype, payload=payload, wire=wire,
+                   backward=backward)

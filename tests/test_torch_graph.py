@@ -1,14 +1,17 @@
 """The port's host graph code is byte-equal to the JAX package's: the
 generator, the chunk partition, the per-chunk tile plans (forward and
-transposed) and the chunk comm tables."""
+transposed), the chunk comm tables, the dense adjacency, and the
+partitioners, workload statistics and halo plans of ``graph/partition.py``."""
 import numpy as np
 import pytest
 
 from repro.core import chunks as jchunks
 from repro.graph import format as jformat
+from repro.graph import partition as jpart
 from repro.graph import synthetic as jsynth
 from repro_torch.core import chunks as tchunks
 from repro_torch.graph import format as tformat
+from repro_torch.graph import partition as tpart
 from repro_torch.graph import synthetic as tsynth
 
 SIZES = [dict(n=200, num_classes=4, feat_dim=12, avg_degree=6, seed=3),
@@ -99,3 +102,52 @@ def test_coo_tiles_accumulate_duplicate_edges():
     w = np.array([0.5, 0.25, 1.0], np.float32)
     rows, cols, blocks = tformat._coo_tiles(dst, src, w, 1, 1, 32)
     assert blocks[0, 0, 1] == np.float32(0.75) and blocks[0, 5, 2] == 1.0
+
+
+def test_dense_adjacency_byte_equal(pair):
+    jd, td = pair
+    a, b = jd.graph.dense_adjacency(), td.graph.dense_adjacency()
+    assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
+def _partitions(mod, g, k):
+    return {"chunk-vertex": mod.chunk_partition(g, k, balance="vertex"),
+            "chunk-edge": mod.chunk_partition(g, k, balance="edge"),
+            "hash": mod.hash_partition(g, k, seed=4),
+            "greedy": mod.greedy_edge_cut_partition(g, k)}
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_partitions_and_workload_stats_byte_equal(pair, k):
+    jd, td = pair
+    jparts, tparts = _partitions(jpart, jd.graph, k), \
+        _partitions(tpart, td.graph, k)
+    for name, jp in jparts.items():
+        tp = tparts[name]
+        assert jp.k == tp.k, name
+        fields = ["owner"] + (["bounds"] if jp.bounds is not None else [])
+        assert (tp.bounds is None) == (jp.bounds is None), name
+        assert_fields_equal(jp, tp, fields)
+        js = jpart.workload_stats(jd.graph, jp)
+        ts = tpart.workload_stats(td.graph, tp)
+        assert_fields_equal(js, ts, ["vertices", "edges", "remote_srcs"])
+        assert js.as_dict() == ts.as_dict(), name
+    assert jpart.tensor_parallel_stats(jd.graph, k, 16).as_dict() == \
+        tpart.tensor_parallel_stats(td.graph, k, 16).as_dict()
+
+
+@pytest.mark.parametrize("balance", ["vertex", "edge"])
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_halo_plan_byte_equal(pair, k, balance):
+    jd, td = pair
+    jh = jpart.halo_plan(jd.graph, jpart.chunk_partition(jd.graph, k,
+                                                         balance=balance))
+    th = tpart.halo_plan(td.graph, tpart.chunk_partition(td.graph, k,
+                                                         balance=balance))
+    assert (jh.k, jh.m, jh.halo_size) == (th.k, th.m, th.halo_size)
+    assert_fields_equal(jh, th, ["send_idx", "recv_pos", "n_local"])
+    for f in ("local_src", "local_dst", "local_w"):
+        a, b = getattr(jh, f), getattr(th, f)
+        assert len(a) == len(b) == k, f
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype and x.tobytes() == y.tobytes(), f
