@@ -67,7 +67,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               step on the rectangular per-worker plan and L+(L−1) = 3 halo
               all-to-alls; the kernel held against the plain version on
               that plan at both layers' widths;
-9. spmm-t   — the forward and the backward chunk at the decoupled path's
+9. stream   — the out-of-core streamed step (``core.stream``) on the same
+              graph: ``prepare_stream_bundle(n_chunks=4, n_stripes=16,
+              agg="blocksparse", bs=128)`` keeps the features (16× a
+              stripe) and the chunks' half plans (compressed rows, built
+              on the host) in pinned host memory; each step stages the
+              stripes and chunk inputs on a copy stream, two at a time.
+              Beside it the in-memory ``decoupled`` step on the same
+              padded vertices (whose card-derived compressed rows must be
+              bitwise the host half plans).  Held: 3 warm-up + 10 timed
+              steps, finite and falling loss, 16 SpMM launches a step (8
+              on the half plans, 8 on the transposed ones); one step's
+              h2d entries equal ``expected_h2d_bytes`` and its collective
+              entries the in-memory step's; step-0 loss and grads within
+              rtol 1e-4 of the plain version, the streamed segment backend
+              and the in-memory step; two steps from the same params
+              bitwise equal; 8 pinned buffers through ``prefetched`` under
+              a slow consumer and a slow producer keep their checksums;
+              on a circulant graph at V = 23 040, 46 080 and 92 160 (16,
+              32 and 64 chunks and stripes, segment backend) the staged
+              bytes are equal and the measured peak less its five (V, C)
+              buffers equal within 256 KiB.  Printed: both steps'
+              medians, h2d MB a step, the link's GB/s over the copies'
+              device time beside a pinned 256 MB copy (the ceiling), the
+              overlap share (copy time under a kernel on the compute
+              stream), device busy and idle share, the path's bound (max
+              of h2d at the ceiling and the in-memory step's device busy)
+              and both steps' peak memory;
+10. spmm-t  — the forward and the backward chunk at the decoupled path's
               shapes and the naive path's layer-0 forward chunk (d=602):
               the kernel held against the plain version on chunk
               0's tiles and on its arrays, a repeat launch bitwise equal,
@@ -78,7 +105,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the memset of its flags, printed apart), beside the CUDA-event
               time of a call, the plain version and the bound of these
               inputs (nonzeros, row pointers, h once, output once);
-10. serve   — the LM main path: Zamba2-2.7B at full width and depth
+11. serve   — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random weights from seed 0 drawn on the
               card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
               ``generate`` of 2 prompts × 2048 tokens from
@@ -86,17 +113,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               launches in prefill (all of the tensor-core kernel) and none
               in decode; then prefill and
               decode timed (medians) and one prefill profiled;
-11. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
+12. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
               under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
               launches, a
               finite loss; timed and profiled;
-12. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
+13. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
               path against the same path with both plain versions patched
               in on the card — prefill logits within 1e-4·max|ref|,
               identical greedy tokens over 8 steps, scoring loss within
-              1e-5 relative; and the bf16 scoring loss of phase 11 beside
+              1e-5 relative; and the bf16 scoring loss of phase 12 beside
               its plain-version twin (printed, not gated);
-13. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
+14. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
               its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
               (per element, as phase 4); one bf16 launch there timed beside
               its plain version, ``scaled_dot_product_attention`` on the
@@ -549,6 +576,432 @@ def dp(data, dev) -> tuple[dict, float]:
         max(errs)
 
 
+# ---------------------------------------------------------------------------
+# The out-of-core streamed GCN step
+# ---------------------------------------------------------------------------
+
+STREAM_FOOTPRINT_V = (23040, 46080, 92160)
+# At the step's peak (the gather's backward in the loss, N=1) five (V, C)
+# f32 buffers are alive: z, the logits' cotangent, the all-to-all's send
+# and receive buffers and its output.  The rest of the peak must not move
+# with V by more than this.  The sweep's chunks hold 1 440 rows (16 at
+# V = 23 040), so a chunk's edge messages (rows · 9 edges · C floats, two
+# at once in the segment backend) stay below those five buffers and the
+# peak is that one phase at every V.
+STREAM_PEAK_BUFFERS = 5
+STREAM_PEAK_TOL = 2 ** 18
+SLEEP_CYCLES = 5_000_000      # ≈ 2.5 ms at the H100's clock
+
+
+def _padded_data(data, n_padded: int):
+    """``data`` with isolated vertices appended up to ``n_padded`` (no
+    edge, zero features, label 0, in no mask): the vertex set the stream
+    bundle pads to, so an in-memory bundle of it has the same chunks."""
+    from repro_torch.core.decouple import _pad_graph
+    from repro_torch.graph.format import pad_features
+    from repro_torch.graph.synthetic import GraphData
+    return GraphData(
+        graph=_pad_graph(data.graph, n_padded),
+        features=pad_features(data.features, n_padded),
+        labels=pad_features(data.labels, n_padded),
+        train_mask=pad_features(data.train_mask, n_padded),
+        val_mask=pad_features(data.val_mask, n_padded),
+        test_mask=pad_features(data.test_mask, n_padded),
+        num_classes=data.num_classes)
+
+
+def _stream_step_fn(vg, opt, mask):
+    from repro_torch.optim import apply_updates
+
+    def step(params, state):
+        loss, grads = vg(params, mask)
+        updates, state = opt.update(grads, state, params)
+        return apply_updates(params, updates), state, loss
+    return step
+
+
+def _peak_bytes(fn) -> tuple[int, int]:
+    """(allocated, reserved) device bytes that one call of ``fn`` adds at
+    its peak over what was allocated (reserved) before it; the cached
+    free blocks are released first, so the reserved figure counts what
+    the call made the allocator hold."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    alloc0, res0 = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - alloc0,
+            torch.cuda.max_memory_reserved() - res0)
+
+
+def _merged(intervals) -> list:
+    """The union of (start, end) intervals as disjoint sorted ones."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap_us(a, b, merged) -> float:
+    return sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
+
+
+def _trace(fn, label: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler``, read from its trace:
+    the host→device copies from pinned memory (count, summed device
+    time), the share of that time during which a kernel runs on the
+    compute stream (the stream of the SpMM launches), and the device's
+    busy time (the union of every kernel, copy and memset) and idle
+    share of the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    path = ROOT / "build" / f"trace_{label.replace(' ', '_')}.json"
+    path.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+
+    def spans(pred):
+        return [(e["ts"], e["ts"] + e["dur"], e.get("args", {}).get("stream"))
+                for e in events if e.get("ph") == "X" and pred(e)]
+
+    def pinned_htod(e):
+        return e.get("cat") == "gpu_memcpy" and \
+            "Pinned -> Device" in e.get("name", "")
+
+    copies = spans(pinned_htod)
+    copy_bytes = sum(e.get("args", {}).get("bytes", 0) for e in events
+                     if e.get("ph") == "X" and pinned_htod(e))
+    pageable = spans(lambda e: e.get("cat") == "gpu_memcpy"
+                     and "Pageable -> Device" in e.get("name", ""))
+    kernels = spans(lambda e: e.get("cat") == "kernel")
+    spmm = spans(lambda e: e.get("cat") == "kernel"
+                 and "spmm_csr_kernel" in e.get("name", ""))
+    device = spans(lambda e: e.get("cat") in ("kernel", "gpu_memcpy",
+                                               "gpu_memset"))
+    compute = {s for *_, s in spmm}
+    merged = _merged([(a, b) for a, b, s in kernels if s in compute])
+    copy_us = sum(b - a for a, b, _ in copies)
+    overlap_us = sum(_overlap_us(a, b, merged) for a, b, _ in copies)
+    busy_ms = sum(b - a for a, b in _merged(
+        [(a, b) for a, b, _ in device])) / 1e3
+    out = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+           "idle_share": 1 - busy_ms / wall_ms, "htod_copies": len(copies),
+           "htod_ms": copy_us / 1e3, "htod_bytes": copy_bytes,
+           "pageable_htod_copies": len(pageable),
+           "overlap_share": overlap_us / copy_us if copy_us else 0.0,
+           "spmm_launches": len(spmm),
+           "spmm_ms": sum(b - a for a, b, _ in spmm) / 1e3,
+           "compute_streams": sorted(str(s) for s in compute),
+           "copy_streams": sorted({str(s) for *_, s in copies})}
+    print(f"  traced {label}: {len(copies)} pinned host→device copies "
+          f"({len(pageable)} pageable) of {copy_bytes} B on streams "
+          f"{out['copy_streams']}, {copy_us / 1e3:.3f} ms device time, "
+          f"{out['overlap_share']:.3f} "
+          f"of it under a kernel on the compute stream "
+          f"{out['compute_streams']}; {len(spmm)} SpMM launches "
+          f"{out['spmm_ms']:.3f} ms; device busy {busy_ms:.3f} ms (union) "
+          f"of {wall_ms:.2f} ms wall (idle share {out['idle_share']:.3f})")
+    return out
+
+
+def _link_ceiling(dev) -> float:
+    """Bytes per second of a pinned 256 MB host→device copy (CUDA events,
+    mean of 5 after a warm-up copy)."""
+    src = torch.empty(256 * 2 ** 20, dtype=torch.uint8).pin_memory()
+    dst = torch.empty(src.shape, dtype=src.dtype, device=dev)
+    ms = _time_ms(lambda: dst.copy_(src, non_blocking=True), 5)
+    rate = src.numel() / (ms / 1e3)
+    print(f"  pinned 256 MB host→device copy: {ms:.3f} ms, "
+          f"{rate / 1e9:.2f} GB/s (the link's ceiling here)")
+    return rate
+
+
+def _staging_check(dev) -> None:
+    """``stage`` and ``prefetched`` under a slow consumer and a slow
+    producer: 8 distinct pinned buffers of 16 MB each, whose device
+    checksums must equal their host sources'.  A slow consumer (a sleep
+    on the compute stream before each read) shows a missing
+    ``record_stream``: the copy stream would reuse a consumed buffer
+    before the read; a slow producer (a sleep on the copy stream before
+    each copy) shows a missing wait: the read would come before the
+    copy."""
+    from repro_torch.runtime import streaming as RS
+    gen = torch.Generator().manual_seed(5)
+    srcs = [torch.randint(0, 2 ** 24, (4 * 2 ** 20,), generator=gen,
+                          dtype=torch.int32).pin_memory() for _ in range(8)]
+    want = torch.stack([s.sum(dtype=torch.int64) for s in srcs])
+    copy = torch.cuda.Stream(dev)
+    for slow in ("consumer", "producer"):
+        def stage(x):
+            if slow == "producer":
+                with torch.cuda.stream(copy):
+                    torch.cuda._sleep(SLEEP_CYCLES)
+            return RS.stage(x, dev, label="check", copy_stream=copy)
+
+        sums = []
+        for item in RS.prefetched(srcs, stage):
+            x = item.take()
+            if slow == "consumer":
+                torch.cuda._sleep(SLEEP_CYCLES)
+            sums.append(x.sum(dtype=torch.int64))
+            del x
+        got = torch.stack(sums).cpu()
+        ok = torch.equal(got, want)
+        print(f"  staging, slow {slow}: 8 pinned 16 MB buffers through "
+              f"prefetched, checksums {'equal' if ok else 'DIFFER'}  "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"staging with a slow {slow}: checksums "
+                                 f"{got.tolist()} != {want.tolist()}")
+
+
+def _circulant(n: int, feat: int, classes: int, deg: int = 8, seed: int = 0):
+    """Fixed in-degree graph: every vertex has ``deg`` distinct in-
+    neighbours (v+1 … v+deg mod n) and its self loop, so every chunk holds
+    exactly chunk_size·(deg+1) edges."""
+    from repro_torch.graph.format import build_graph
+    from repro_torch.graph.synthetic import GraphData
+    rng = np.random.default_rng(seed)
+    dst = np.repeat(np.arange(n, dtype=np.int32), deg)
+    src = ((dst + np.tile(np.arange(1, deg + 1, dtype=np.int32), n))
+           % n).astype(np.int32)
+    labels = rng.integers(0, classes, n).astype(np.int32)
+    feats = (np.eye(classes, feat, dtype=np.float32)[labels]
+             + 0.5 * rng.standard_normal((n, feat), dtype=np.float32))
+    mask = np.ones(n, bool)
+    return GraphData(graph=build_graph(src, dst, n), features=feats,
+                     labels=labels, train_mask=mask, val_mask=mask,
+                     test_mask=mask, num_classes=classes)
+
+
+def _footprint(dev, feat: int, classes: int) -> list:
+    """The streamed step's device footprint as V grows 4× with the chunk
+    and stripe counts in proportion (16 of each at the smallest V; segment
+    backend, a circulant graph):
+    ``device_resident_bytes``' staged figures must be equal at every V,
+    and the measured peak minus its V-proportional buffers equal within
+    ``STREAM_PEAK_TOL``."""
+    from repro_torch.core import stream as ST
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh
+    rows = []
+    for v in STREAM_FOOTPRINT_V:
+        f = v // STREAM_FOOTPRINT_V[0]
+        data = _circulant(v, feat, classes)
+        sb = ST.prepare_stream_bundle(data, 1, n_chunks=16 * f,
+                                      n_stripes=16 * f, agg="segment",
+                                      device=dev)
+        cfg = ST.stream_gnn_config(data, sb, hidden_dim=128, num_layers=2)
+        params = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        vg = ST.make_stream_value_and_grad(cfg, sb, TPMesh())
+        loss, _ = vg(params, sb.train_mask)
+        del loss
+        peak, reserved = _peak_bytes(lambda: vg(params, sb.train_mask))
+        foot = ST.device_resident_bytes(sb, cfg)
+        v_bytes = STREAM_PEAK_BUFFERS * sb.n_padded * sb.c_padded * 4
+        rows.append(dict(V=sb.n_padded, chunks=sb.n_chunks,
+                         stripes=sb.n_stripes, store_bytes=sb.store.nbytes,
+                         peak_bytes=peak, peak_reserved_bytes=reserved,
+                         v_proportional_bytes=v_bytes,
+                         residual_bytes=peak - v_bytes, **foot))
+        print(f"  V={sb.n_padded}: {sb.n_chunks} chunks, {sb.n_stripes} "
+              f"stripes, store {sb.store.nbytes / 1e6:.1f} MB; staged "
+              f"{foot['staged_stripe_bytes']} + {foot['staged_chunk_bytes']}"
+              f" B; peak {peak} B allocated, {reserved} B reserved; "
+              f"{STREAM_PEAK_BUFFERS} (V, C) buffers {v_bytes} B; residual "
+              f"{peak - v_bytes} B")
+        del data, sb, vg, params
+    for key in ("staged_stripe_bytes", "staged_chunk_bytes"):
+        if len({r[key] for r in rows}) != 1:
+            raise AssertionError(f"{key} differs across V: "
+                                 f"{[r[key] for r in rows]}")
+    res = [r["residual_bytes"] for r in rows]
+    spread = max(res) - min(res)
+    ok = spread <= STREAM_PEAK_TOL
+    print(f"  staged bytes equal at V = {[r['V'] for r in rows]}; peak "
+          f"residuals {res} B spread {spread} B (tolerance "
+          f"{STREAM_PEAK_TOL} B)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"peak residual moves with V: {res}")
+    return rows
+
+
+def stream(data, dev) -> dict:
+    """Phase 9: the out-of-core streamed GCN step (blocksparse half plans,
+    16 stripes) beside the in-memory decoupled step on the same vertices;
+    the staging primitives; the footprint as V grows."""
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.core import stream as ST
+    from repro_torch.gnn import models as M
+    from repro_torch.params import tree_leaves
+    from repro_torch.runtime import TPMesh
+    from repro_torch.runtime.streaming import tree_tensors
+    from repro_torch.runtime.telemetry import collect_comm
+
+    t0 = time.perf_counter()
+    sb = ST.prepare_stream_bundle(data, 1, n_chunks=4, n_stripes=16,
+                                  agg="blocksparse", agg_block_size=128,
+                                  device=dev)
+    prep_s = time.perf_counter() - t0
+    cfg = ST.stream_gnn_config(data, sb, hidden_dim=128, num_layers=2)
+    h2d = ST.expected_h2d_bytes(sb, cfg)
+    nnz = [int(f.row_ptr[-1]) for f, _ in sb.half_plans]
+    plan_mb = sum(ST.chunk_input_nbytes(sb)) / 1e6
+    print(f"  stream bundle: V={sb.n_padded} (lcm padding), {sb.n_chunks} "
+          f"chunks, {sb.n_stripes} stripes; pinned store "
+          f"{sb.store.nbytes / 1e6:.2f} MB, a stripe "
+          f"{sb.store.stripe_nbytes / 1e6:.2f} MB "
+          f"({sb.store.nbytes // sb.store.stripe_nbytes}×); half plans of "
+          f"{nnz} nonzeros, {plan_mb:.2f} MB a direction, compressed on the "
+          f"host one chunk's tiles at a time; prepared in {prep_s:.1f} s; "
+          f"expected h2d {h2d / 1e6:.2f} MB a step")
+    t0 = time.perf_counter()
+    mem = D.prepare_bundle(_padded_data(data, sb.n_padded), n_workers=1,
+                           n_chunks=4, agg="blocksparse",
+                           agg_block_size=128, device=dev)
+    torch.cuda.synchronize()
+    for c, halves in enumerate(sb.half_plans):
+        inst = mem.graph.bsp.instance(c)
+        for hp, t in zip(halves, ("", "_t")):
+            n = int(hp.row_ptr[-1])
+            if not (torch.equal(hp.row_ptr, getattr(inst, "row_ptr" + t)
+                                .cpu())
+                    and torch.equal(hp.col_idx,
+                                    getattr(inst, "col_idx" + t)[:n].cpu())
+                    and torch.equal(hp.vals.view(torch.int32),
+                                    getattr(inst, "vals" + t)[:n].cpu()
+                                    .view(torch.int32))):
+                raise AssertionError(f"chunk {c}{t}: the host half plan is "
+                                     f"not the device-derived arrays")
+    print(f"  in-memory twin on the same {sb.n_padded} vertices prepared in "
+          f"{time.perf_counter() - t0:.1f} s; its compressed rows, derived "
+          f"on the card, are bitwise the host half plans  ok")
+
+    mesh = TPMesh()
+    if D.padded_gnn_config(data, mem, hidden_dim=128, num_layers=2) != cfg:
+        raise AssertionError("stream and in-memory configs differ")
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opt = optim.adamw(1e-2, weight_decay=5e-4)
+    vg = ST.make_stream_value_and_grad(cfg, sb, mesh)
+    mem_vg = D.make_tp_value_and_grad(cfg, mem, mesh, mode="decoupled")
+    mem_step, mem_eval = D.make_tp_train_fns(cfg, mem, mesh, opt,
+                                             mode="decoupled")
+    step = _stream_step_fn(vg, opt, sb.train_mask)
+    params, state, losses, launches, median_ms = _drive(
+        "stream", step, mem_eval, params0, opt, 16,
+        "2 rounds × 4 chunks on the half plans + 2 × 4 on the transposed "
+        "half plans")
+    mem_params, mem_state, mem_losses, _, mem_ms = _drive(
+        "in-memory decoupled", mem_step, mem_eval, params0, opt, 16,
+        "2 rounds × 4 chunks forward and backward")
+
+    ceiling = _link_ceiling(dev)
+    trace = _trace(lambda: step(params, state), "stream step")
+    mem_prof = _profile(lambda: mem_step(mem_params, mem_state),
+                        "in-memory decoupled step")
+    # the profiler can lose records: the rate is taken over the copies it
+    # caught, by their own bytes
+    link = trace["htod_bytes"] / (trace["htod_ms"] / 1e3) \
+        if trace["htod_ms"] else 0.0
+    bound_ms = max(h2d / ceiling * 1e3, mem_prof["busy_ms"])
+    n_copies = 2 * sb.n_stripes + cfg.num_layers * len(
+        tree_tensors(sb.half_plans))
+    h2d_rate = h2d / (trace["htod_ms"] / 1e3) if trace["htod_ms"] else 0.0
+    print(f"  h2d {h2d / 1e6:.3f} MB a step ({trace['htod_copies']} of "
+          f"{n_copies} copies traced): {link / 1e9:.2f} GB/s, the traced "
+          f"copies' bytes over their device time ({trace['htod_ms']:.3f} "
+          f"ms; the step's h2d bytes over it: {h2d_rate / 1e9:.2f} GB/s), "
+          f"{h2d / ceiling * 1e3:.3f} ms at the link's ceiling; overlap "
+          f"share {trace['overlap_share']:.3f}; path bound max(h2d at "
+          f"ceiling, in-memory busy {mem_prof['busy_ms']:.3f} ms) = "
+          f"{bound_ms:.3f} ms; streamed step {median_ms:.2f} ms median, "
+          f"in-memory {mem_ms:.2f} ms")
+
+    with collect_comm() as led:
+        vg(params0, sb.train_mask)
+    with collect_comm() as mem_led:
+        mem_vg(params0, mem.train_mask)
+    got = led.as_dict()
+    h2d_got = sum(v["payload_bytes"] for k, v in got.items()
+                  if k.startswith("h2d|"))
+    coll = {k: v for k, v in got.items() if not k.startswith("h2d|")}
+    print(f"  ledger of one streamed step: {json.dumps(got)}")
+    if h2d_got != h2d:
+        raise AssertionError(f"h2d {h2d_got} B recorded, {h2d} B expected")
+    if coll != mem_led.as_dict():
+        raise AssertionError(f"collective entries {coll} differ from the "
+                             f"in-memory step's {mem_led.as_dict()}")
+    print(f"  h2d entries sum to expected_h2d_bytes ({h2d} B); collective "
+          f"entries equal the in-memory decoupled step's  ok")
+
+    _hold_step0("stream", vg, ST.make_stream_value_and_grad(
+        cfg, sb, mesh, agg="segment"), params0, sb.train_mask, losses[0])
+    loss_k, grads_k = vg(params0, sb.train_mask)
+    loss_m, grads_m = mem_vg(params0, mem.train_mask)
+    _held("stream step-0 loss vs in-memory decoupled", loss_k, loss_m,
+          PATH_RTOL, 0.0)
+    for i, (a, b) in enumerate(zip(tree_leaves(grads_k),
+                                   tree_leaves(grads_m))):
+        _held(f"stream step-0 grad {i} {tuple(a.shape)} vs in-memory", a, b,
+              PATH_RTOL, 0.0)
+    loss_2, grads_2 = vg(params0, sb.train_mask)
+    if not (torch.equal(loss_k, loss_2) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(grads_k),
+                                              tree_leaves(grads_2)))):
+        raise AssertionError("two streamed steps from the same params "
+                             "differ bitwise")
+    print("  two streamed steps from the same params: loss and grads "
+          "bitwise equal  ok")
+
+    peak, peak_res = _peak_bytes(lambda: vg(params0, sb.train_mask))
+    mem_peak, mem_res = _peak_bytes(lambda: mem_vg(params0, mem.train_mask))
+    print(f"  peak device memory of a step (over what was allocated "
+          f"before it): streamed {peak / 1e6:.2f} MB ({peak_res / 1e6:.2f} "
+          f"MB reserved), in-memory {mem_peak / 1e6:.2f} MB "
+          f"({mem_res / 1e6:.2f} MB reserved); the in-memory bundle holds "
+          f"{_bundle_bytes(mem) / 1e6:.2f} MB on the card, the stream "
+          f"bundle {_bundle_bytes(sb) / 1e6:.2f} MB")
+    del mem, mem_vg, mem_step, mem_eval, mem_params, mem_state
+    torch.cuda.empty_cache()
+
+    _staging_check(dev)
+    foot = _footprint(dev, data.features.shape[1], data.num_classes)
+    info = _path_info(launches, median_ms, trace, got, losses)
+    info.update(prepare_s=prep_s, in_memory_step_ms=mem_ms,
+                htod_copies_expected=n_copies,
+                in_memory_busy_ms=mem_prof["busy_ms"],
+                in_memory_loss_last=mem_losses[-1], h2d_bytes=h2d,
+                link_bytes_per_s=link, link_ceiling_bytes_per_s=ceiling,
+                overlap_share=trace["overlap_share"], bound_ms=bound_ms,
+                peak_bytes=peak, peak_reserved_bytes=peak_res,
+                in_memory_peak_bytes=mem_peak,
+                in_memory_peak_reserved_bytes=mem_res, footprint=foot)
+    return info
+
+
+def _bundle_bytes(bundle) -> int:
+    """Bytes of the bundle's tensors that live on the card."""
+    from repro_torch.runtime.streaming import tree_tensors
+    seen, total = set(), 0
+    for t in tree_tensors(bundle):
+        if t.is_cuda and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            total += t.numel() * t.element_size()
+    return total
+
+
 def _profile(fn, label: str) -> dict:
     """Device busy time and the top kernels of one call of ``fn`` under
     ``torch.profiler`` (diagnostic: the wall time includes the profiler's
@@ -661,7 +1114,7 @@ def _csr_of_tiles(blocks, rows, cols, n_out, n_in):
 
 
 def timing(bundle, data, dev):
-    """Phase 9: returns the numbers of the forward and backward chunk of
+    """Phase 10: returns the numbers of the forward and backward chunk of
     the decoupled path (d = padded classes) and of the naive path's layer-0
     forward chunk (d = padded input features), and the max|Δ| there."""
     from repro_torch.core.decouple import _pad_graph
@@ -959,7 +1412,7 @@ def _expect(what: str, got, want) -> None:
 
 
 def serve(dev):
-    """Phase 10: Zamba2-2.7B full width, bf16, generate + timing."""
+    """Phase 11: Zamba2-2.7B full width, bf16, generate + timing."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1047,7 +1500,7 @@ def serve(dev):
 
 
 def score(cfg, params, batch, dev):
-    """Phase 11: forward + lm_loss on 2 × 2048, under no_grad."""
+    """Phase 12: forward + lm_loss on 2 × 2048, under no_grad."""
     from repro_torch.models import transformer as T
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
@@ -1090,7 +1543,7 @@ def score(cfg, params, batch, dev):
 
 
 def cross_check_fp32(cfg, params, batch, dev) -> float:
-    """Phase 12: the kernel path against the plain versions, fp32."""
+    """Phase 13: the kernel path against the plain versions, fp32."""
     import dataclasses
 
     from repro_torch.models import transformer as T
@@ -1128,7 +1581,7 @@ def cross_check_fp32(cfg, params, batch, dev) -> float:
 
 
 def lm_timing(dev):
-    """Phase 13: one flash and one SSD launch at the LM path's shapes."""
+    """Phase 14: one flash and one SSD launch at the LM path's shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
@@ -1211,7 +1664,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/13] device")
+    print("[1/14] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1225,52 +1678,56 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/13] build")
+    print("[2/14] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/13] spmm kernel against its plain version")
+    print("[3/14] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/13] flash kernel against its plain version")
+    print("[4/14] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/13] ssd kernel against its plain version")
+    print("[5/14] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/13] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/14] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/13] naive TP GCN training (a split and a gather per "
+        print("[7/14] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/13] DP halo-exchange GCN training (k=1)")
+        print("[8/14] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/13] spmm timing at the GCN paths' shapes")
+        print("[9/14] out-of-core streamed GCN training (pinned host "
+              "stores, a copy stream, half plans)")
+        stream_info = stream(data, dev)
+        print("[10/14] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[10/13] LM main path, serving: Zamba2-2.7B generate")
+    print("[11/14] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[11/13] LM main path, scoring: forward + lm_loss")
+    print("[12/14] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[12/13] fp32 cross-check at full width, kernels vs plain")
+    print("[13/14] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[13/13] flash and ssd timing at the LM path's shapes")
+    print("[14/14] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
     print(json.dumps({"timing": rows, "gcn": gcn, "naive": naive_info,
-                      "dp": dp_info, "build_s": build_s, "serve": serve_info,
+                      "dp": dp_info, "stream": stream_info,
+                      "build_s": build_s, "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
                       "card": card}))
@@ -1280,10 +1737,11 @@ def main() -> int:
         "replaces": "src/repro/kernels/spmm/spmm.py:64",
         "held_against": "ref.spmm_ref (tiles), ref.spmm_csr_ref",
         "launches": gcn["launches"] + naive_info["launches"]
-        + dp_info["launches"],
+        + dp_info["launches"] + stream_info["launches"],
         "launches_by_path": {"decoupled_pipelined": gcn["launches"],
                              "naive": naive_info["launches"],
-                             "dp": dp_info["launches"]},
+                             "dp": dp_info["launches"],
+                             "stream": stream_info["launches"]},
         "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

@@ -21,7 +21,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..graph import format as gf
 from ..graph.format import ChunkedGraph
+from ..kernels import spmm as SP
 from ..runtime import collectives as C
 from ..runtime.mesh import TPMesh
 
@@ -134,3 +136,68 @@ def chunk_gather_step(z_chunk: torch.Tensor, rows_c: torch.Tensor,
     mine = rows_c[i]
     ids = torch.where(mine >= 0, mine - i * shard, shard)
     return h_out.index_copy(0, ids.long(), full)
+
+
+# ---------------------------------------------------------------------------
+# Host-side per-chunk inputs (out-of-core streaming, core.stream)
+# ---------------------------------------------------------------------------
+#
+# The in-memory epoch keeps every chunk's aggregation inputs on the device.
+# The out-of-core epoch slices one chunk's inputs out of host memory,
+# stages them, consumes them and lets the buffer go; these builders are the
+# one place that says what chunk c needs on the device:
+#
+# * segment     — (src, dst_local, γ·w) edge arrays of chunk c, byte-equal
+#                 to the reference's.
+# * blocksparse — a half plan: one direction of chunk c in the kernel's
+#                 compressed rows.  The reference stages the chunk's dense
+#                 tiles; at the reddit_like scale those are ~2.1 GB per
+#                 direction against ~8 MB of compressed rows, so the port
+#                 compresses once on the host (host_half_plans) and stages
+#                 only the compressed rows.
+# * dense       — chunk c's (chunk_size, V) adjacency rows, byte-equal.
+#
+# The transposed builders feed the hand-written transpose of the same
+# chunk: segment reuses the edge arrays (the transpose adds by src),
+# blocksparse takes the transposed half plan, dense reuses the rows
+# (the transpose is rowsᵀ @ ct).
+
+
+def host_half_plans(gp: gf.Graph, n_chunks: int,
+                    bs: int) -> list[tuple[SP.HalfPlan, SP.HalfPlan]]:
+    """Each chunk's (forward, transposed) half plan in host memory: the
+    arrays ``block_sparse_plan_dev`` derives for that chunk of
+    ``chunk_block_sparse``, built one chunk's tiles at a time (the stacked
+    tile plan is never built)."""
+    return [SP.half_plans(plan, "cpu")
+            for plan in gf.chunk_plans(gp, n_chunks, bs)]
+
+
+def host_chunk_inputs(agg: str, c: int, *,
+                      chunked: ChunkedGraph | None = None,
+                      plans: list | None = None,
+                      dense_rows: torch.Tensor | None = None,
+                      gamma: float = 1.0):
+    """Host tensors of chunk ``c``'s forward aggregation inputs."""
+    if agg == "blocksparse":
+        return plans[c][0]
+    if agg == "dense":
+        return dense_rows[c]
+    w = chunked.weight[c]
+    return tuple(torch.from_numpy(a) for a in (
+        chunked.src[c], chunked.dst_local[c],
+        w if gamma == 1.0 else np.float32(gamma) * w))
+
+
+def host_chunk_inputs_t(agg: str, c: int, *,
+                        chunked: ChunkedGraph | None = None,
+                        plans: list | None = None,
+                        dense_rows: torch.Tensor | None = None,
+                        gamma: float = 1.0):
+    """Host tensors feeding the hand-written transpose of chunk ``c``'s
+    aggregation (``ct_z += Â_cᵀ @ ct_out[c]``)."""
+    if agg == "blocksparse":
+        return plans[c][1]
+    if agg == "dense":
+        return dense_rows[c]
+    return host_chunk_inputs("segment", c, chunked=chunked, gamma=gamma)

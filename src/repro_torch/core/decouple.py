@@ -355,20 +355,24 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
     return loss_and_acc
 
 
+def sum_grads(grads, mesh: TPMesh) -> list:
+    """The replicated parameters' gradients (a list of tensors) summed
+    across ranks in one all-reduce (ledger op ``grad_psum``)."""
+    flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group,
+                  axis=mesh.axis, op="grad_psum")
+    return [f.view_as(g) for f, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
+
+
 def value_and_grad(loss_and_acc, mesh: TPMesh):
     """(params, mask) → (loss, grads) over a per-rank
     ``loss_and_acc(params, mask) → (loss, acc)``, with the replicated
-    parameters' gradients summed across ranks in one all-reduce (ledger op
-    ``grad_psum``)."""
+    parameters' gradients summed across ranks (:func:`sum_grads`)."""
     def value_and_grad_fn(params, mask):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, _ = loss_and_acc(p, mask)
         grads = torch.autograd.grad(loss, tree_leaves(p))
-        flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group,
-                      axis=mesh.axis, op="grad_psum")
-        grads = [f.view_as(g) for f, g in
-                 zip(flat.split([g.numel() for g in grads]), grads)]
-        return loss.detach(), tree_unflatten(params, grads)
+        return loss.detach(), tree_unflatten(params, sum_grads(grads, mesh))
 
     return value_and_grad_fn
 

@@ -15,12 +15,16 @@ byte-identical to that module's (``tests/test_torch_graph.py``).
                        for one slice of Â, stacked per §4.2 chunk by
                        ``chunk_block_sparse`` for the block-sparse SpMM
                        kernel and its exact backward through Âᵀ.
+* ``HostFeatureStore`` — the host-resident feature matrix of the
+                       out-of-core path, sliced into worker-major stripes.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -359,20 +363,120 @@ def stack_plans(plans: list[BlockSparsePlan]) -> BlockSparsePlan:
         blocks_t=np.stack([s[3] for s in bwd]))
 
 
-def chunk_block_sparse(g: Graph, n_chunks: int,
-                       bs: int = 128) -> BlockSparsePlan:
-    """Per-chunk plans for the §4.2 chunk loop, stacked.
+def chunk_plans(g: Graph, n_chunks: int,
+                bs: int = 128) -> Iterator[BlockSparsePlan]:
+    """Each §4.2 chunk's plan, one at a time.
 
     Chunk ``c`` owns destination rows ``[c·cs, (c+1)·cs)`` with all their
     in-edges; sources span the full vertex set.  Chunk bounds clamp
     identically to :func:`chunk_graph` when ``n_chunks ∤ n``."""
     cs = -(-g.n // n_chunks)
-    plans = []
     for c in range(n_chunks):
         lo = min(g.n, c * cs)
         hi = min(g.n, (c + 1) * cs)
         e_lo, e_hi = g.indptr[lo], g.indptr[hi]
-        plans.append(rect_block_sparse(
+        yield rect_block_sparse(
             g.dst[e_lo:e_hi] - lo, g.src[e_lo:e_hi], g.weight[e_lo:e_hi],
-            n_rows=cs, n_cols=g.n, bs=bs))
-    return stack_plans(plans)
+            n_rows=cs, n_cols=g.n, bs=bs)
+
+
+def chunk_block_sparse(g: Graph, n_chunks: int,
+                       bs: int = 128) -> BlockSparsePlan:
+    """:func:`chunk_plans`, stacked for the in-memory chunk loop."""
+    return stack_plans(list(chunk_plans(g, n_chunks, bs)))
+
+
+def pad_features(x: np.ndarray, n_padded: int) -> np.ndarray:
+    """``x`` with zero rows appended up to ``n_padded`` rows."""
+    if x.shape[0] == n_padded:
+        return x
+    out = np.zeros((n_padded,) + x.shape[1:], dtype=x.dtype)
+    out[: x.shape[0]] = x
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host-resident feature store (out-of-core streaming, core.stream)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HostFeatureStore:
+    """Host-resident (n_padded, d) feature matrix, sliced into the
+    worker-major stripes of the out-of-core NN phase.
+
+    Stripe ``s`` stacks each TP worker ``i``'s rows ``[i·V/N + s·rs,
+    i·V/N + (s+1)·rs)`` (``rs = V/(N·S)``): worker ``i``'s part of it is
+    the contiguous block :meth:`rank_block`, which lands at rows
+    ``[s·rs, (s+1)·rs)`` of the worker's (V/N, ·) buffer, so streaming
+    keeps the in-memory row order.  :meth:`stripe` is the whole stripe,
+    byte-equal to the reference's; each rank stages only its own block,
+    which is what the reference's placement hands each worker.
+
+    ``x`` is a CPU tensor.  A block is a view of it, so it is pinned
+    when ``x`` is: the caller pins ``x`` once when the store feeds a
+    card, and every copy of a block can then run asynchronously."""
+
+    x: torch.Tensor          # (n_padded, d) CPU tensor
+    n_workers: int
+    n_stripes: int
+
+    def __post_init__(self):
+        n_padded = int(self.x.shape[0])
+        denom = self.n_workers * self.n_stripes
+        if n_padded % denom:
+            raise ValueError(
+                f"HostFeatureStore: n_padded={n_padded} must divide by "
+                f"n_workers·n_stripes={self.n_workers}·{self.n_stripes}"
+                f"={denom} for rectangular stripes — pad the vertex dim "
+                f"(tp.padded_size) or pick a stripe count dividing the "
+                f"per-worker block")
+
+    @property
+    def n_padded(self) -> int:
+        return int(self.x.shape[0])
+
+    @property
+    def d(self) -> int:
+        return int(self.x.shape[1])
+
+    @property
+    def stripe_rows(self) -> int:
+        """Per-worker rows of one stripe (``rs`` above)."""
+        return self.n_padded // (self.n_workers * self.n_stripes)
+
+    @property
+    def nbytes(self) -> int:
+        return self.x.numel() * self.x.element_size()
+
+    @property
+    def stripe_nbytes(self) -> int:
+        """Bytes of one whole stripe, all workers' blocks."""
+        return self.n_workers * self.rank_block_nbytes
+
+    @property
+    def rank_block_nbytes(self) -> int:
+        """Bytes of one worker's block of a stripe (what a rank stages)."""
+        return self.stripe_rows * self.d * self.x.element_size()
+
+    def _check(self, s: int) -> None:
+        if not 0 <= s < self.n_stripes:
+            raise IndexError(
+                f"stripe {s} out of range [0, {self.n_stripes})")
+
+    def stripe(self, s: int) -> torch.Tensor:
+        """Worker-major stripe ``s``: (n_workers·stripe_rows, d)."""
+        self._check(s)
+        rs = self.stripe_rows
+        return self.x.reshape(self.n_workers, self.n_stripes, rs,
+                              self.d)[:, s].reshape(-1, self.d)
+
+    def rank_block(self, s: int, rank: int) -> torch.Tensor:
+        """Worker ``rank``'s block of stripe ``s``: rows ``[rank·V/N +
+        s·rs, rank·V/N + (s+1)·rs)`` of ``x``, a view."""
+        self._check(s)
+        if not 0 <= rank < self.n_workers:
+            raise IndexError(
+                f"rank {rank} out of range [0, {self.n_workers})")
+        rs = self.stripe_rows
+        lo = rank * (self.n_padded // self.n_workers) + s * rs
+        return self.x[lo: lo + rs]

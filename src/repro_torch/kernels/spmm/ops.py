@@ -16,6 +16,12 @@ both directions.  On CUDA tensors the kernel (:func:`.spmm.spmm_csr`)
 runs, and a failure to build or launch raises; on CPU tensors the plain
 version (:func:`.ref.spmm_csr_ref`) runs.  There is no other path.
 
+The out-of-core epoch (:mod:`repro_torch.core.stream`) stages one
+direction of one chunk at a time, a :class:`HalfPlan` (:func:`half_plans`
+builds both of a plan), and multiplies through it forward only
+(:func:`spmm_half`): it runs the transpose itself, on the transposed half
+plan, with no autograd through the kernel.
+
 Only static-weight aggregation (GCN's fixed Â) can use these arrays; GAT's
 runtime attention weights cannot be baked in.
 """
@@ -130,9 +136,8 @@ def _compress_stack(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray,
     return row_ptr, col_idx, vals
 
 
-def block_sparse_plan_dev(plan: BlockSparsePlan,
-                          device: str | torch.device = "cuda"
-                          ) -> BlockSparsePlanDev:
+def _compress_plan(plan: BlockSparsePlan, device):
+    """The forward and the transposed compressed arrays of ``plan``."""
     r_blocks = plan.rows_padded // plan.bs
     c_blocks = plan.cols_padded // plan.bs
     _check_tiles(plan.block_rows, plan.block_cols, r_blocks, c_blocks,
@@ -144,12 +149,47 @@ def block_sparse_plan_dev(plan: BlockSparsePlan,
     bwd = _compress_stack(plan.blocks_t, plan.block_rows_t,
                           plan.block_cols_t, plan.cols_padded, plan.n_rows,
                           device, "transposed")
+    return fwd, bwd
+
+
+def block_sparse_plan_dev(plan: BlockSparsePlan,
+                          device: str | torch.device = "cuda"
+                          ) -> BlockSparsePlanDev:
+    fwd, bwd = _compress_plan(plan, device)
     return BlockSparsePlanDev(
         row_ptr=fwd[0], col_idx=fwd[1], vals=fwd[2],
         row_ptr_t=bwd[0], col_idx_t=bwd[1], vals_t=bwd[2],
         n_rows=plan.n_rows, n_cols=plan.n_cols,
         rows_padded=plan.rows_padded, cols_padded=plan.cols_padded,
         bs=plan.bs)
+
+
+@dataclasses.dataclass(frozen=True)
+class HalfPlan:
+    """One direction of one plan instance in the kernel's compressed form:
+    ``row_ptr`` (n_out + 1,) int32, and ``col_idx`` (int32) and ``vals``
+    (float32) of exactly its ``row_ptr[-1]`` nonzeros, over ``n_src``
+    source rows.  The transposed half plan is a forward plan of the
+    transposed rectangle: its rows are the forward plan's padded columns,
+    its sources the forward plan's rows."""
+
+    row_ptr: torch.Tensor
+    col_idx: torch.Tensor
+    vals: torch.Tensor
+    n_src: int
+
+
+def half_plans(plan: BlockSparsePlan, device: str | torch.device = "cuda"
+               ) -> tuple[HalfPlan, HalfPlan]:
+    """The forward and the transposed half plan of one (unstacked) plan,
+    on ``device``: the arrays :func:`block_sparse_plan_dev` derives for
+    it, with the same checks."""
+    if plan.blocks.ndim != 3:
+        raise ValueError("half_plans takes one plan, not a stack; take "
+                         "each chunk's plan from graph.format.chunk_plans")
+    fwd, bwd = _compress_plan(plan, device)
+    return HalfPlan(*fwd, n_src=plan.n_cols), HalfPlan(*bwd,
+                                                       n_src=plan.n_rows)
 
 
 def _run(row_ptr, col_idx, vals, h, n_src: int) -> torch.Tensor:
@@ -185,3 +225,10 @@ def aggregate_plan(plan: BlockSparsePlanDev, h: torch.Tensor) -> torch.Tensor:
     n_in ≤ cols_padded (missing source rows are zeros); the caller slices
     the real output rows (``[:plan.n_rows]``)."""
     return _PlanSpmm.apply(h, plan)
+
+
+def spmm_half(plan: HalfPlan, h: torch.Tensor) -> torch.Tensor:
+    """``(n_out, d) = A @ h`` through one half plan, forward only: the
+    kernel on CUDA tensors, the plain version on CPU tensors.  ``h`` is
+    (n_in, d) with n_in ≤ its source rows (missing rows are zeros)."""
+    return _run(plan.row_ptr, plan.col_idx, plan.vals, h, plan.n_src)

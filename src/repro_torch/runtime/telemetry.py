@@ -44,6 +44,15 @@ How the port's semantics differ from the reference's:
   ``shard_map`` transpose there).  The port runs it explicitly and
   records it under its own op kind, ``grad_psum``, at the ring cost of a
   ``psum``, so the reference's keys are unchanged.
+* **A hand-run backward records as one.**  The out-of-core epoch
+  (:mod:`repro_torch.core.stream`) runs the split's transpose itself, as
+  a gather outside autograd.  The reference's ``mirror_scope`` drops that
+  call, since the forward split declared its mirror; here nothing was
+  declared, so :func:`backward_scope` records it as the backward call of
+  its key — what autograd's mirror records in the in-memory epoch.
+
+Host→device staging (the out-of-core path) is counted beside the
+collectives under op kind :data:`H2D_OP` (:func:`record_h2d`).
 
 When no ledger is collecting, a collective pays one ``ContextVar`` read
 (:func:`active_ledgers`) and nothing else.
@@ -58,8 +67,9 @@ from typing import Iterator, Mapping
 
 import torch
 
-__all__ = ["CommEntry", "CommLedger", "TelemetryError", "active_ledgers",
-           "collect_comm", "record", "ring_wire_factor"]
+__all__ = ["CommEntry", "CommLedger", "H2D_OP", "TelemetryError",
+           "active_ledgers", "backward_scope", "collect_comm", "record",
+           "record_h2d", "ring_wire_factor"]
 
 
 class TelemetryError(RuntimeError):
@@ -72,6 +82,13 @@ class TelemetryError(RuntimeError):
 OP_COST = {"psum": "psum", "all_gather": "all_gather",
            "all_to_all": "all_to_all", "ppermute": "ppermute",
            "psum_scatter": "psum_scatter", "grad_psum": "psum"}
+
+
+#: Ledger op kind of host→device staging (out-of-core streaming).  Not a
+#: collective: no ring factor and no backward, so not in ``OP_COST``.
+#: Keys are ``("h2d", label, dtype)``; payload and wire bytes are both the
+#: bytes copied.
+H2D_OP = "h2d"
 
 
 def ring_wire_factor(op: str, g: int) -> float:
@@ -195,6 +212,8 @@ class CommLedger:
 
 _LEDGERS: ContextVar[tuple[CommLedger, ...]] = ContextVar(
     "repro_torch_comm_ledgers", default=())
+_AS_BACKWARD: ContextVar[bool] = ContextVar("repro_torch_as_backward",
+                                           default=False)
 
 
 @contextlib.contextmanager
@@ -213,6 +232,25 @@ def active_ledgers() -> tuple[CommLedger, ...]:
     return _LEDGERS.get()
 
 
+@contextlib.contextmanager
+def backward_scope() -> Iterator[None]:
+    """Record the collectives run inside the block as backward calls of
+    their keys (``mirrored_calls`` and ``mirrored_wire_bytes``).
+
+    For a backward run by hand, outside autograd: the out-of-core epoch's
+    split-transpose is a gather applied to the hand-propagated cotangent,
+    and it is the split's backward.  The reference's ``mirror_scope``
+    suppresses that call instead, because its forward split declared the
+    mirror at trace time; the port declares nothing and records each
+    backward when it runs, so the call is recorded, as a backward one.
+    Either way one step's ledger equals the in-memory epoch's."""
+    token = _AS_BACKWARD.set(True)
+    try:
+        yield
+    finally:
+        _AS_BACKWARD.reset(token)
+
+
 def record(op: str, axes, x: torch.Tensor, *, group_size: int,
            backward: bool = False,
            ledgers: tuple[CommLedger, ...] | None = None) -> None:
@@ -221,12 +259,14 @@ def record(op: str, axes, x: torch.Tensor, *, group_size: int,
 
     ``x`` is the per-device input operand (only its shape and dtype are
     read); ``group_size`` the number of ranks taking part.
-    ``backward=True`` for the mirrored collective a backward pass runs.
-    No-op when no ledger is collecting."""
+    ``backward=True`` for the mirrored collective a backward pass runs,
+    and inside :func:`backward_scope`.  No-op when no ledger is
+    collecting."""
     if ledgers is None:
         ledgers = _LEDGERS.get()
     if not ledgers:
         return
+    backward = backward or _AS_BACKWARD.get()
     if op not in OP_COST:
         raise TelemetryError(f"unknown collective op kind {op!r} "
                              f"(known: {sorted(OP_COST)})")
@@ -243,3 +283,18 @@ def record(op: str, axes, x: torch.Tensor, *, group_size: int,
     for ledger in ledgers:
         ledger.add(op, axes, dtype, payload=payload, wire=wire,
                    backward=backward)
+
+
+def record_h2d(tensors, *, label: str = "host") -> None:
+    """Report one host→device staging of ``tensors`` (a sequence) into
+    every active ledger: their total bytes under ``(H2D_OP, label,
+    dtype)``, the dtype the first tensor's, with ``payload == wire`` and
+    no backward.  Call it once per staging, each time it runs.  No-op when
+    no ledger is collecting."""
+    ledgers = _LEDGERS.get()
+    if not ledgers:
+        return
+    payload = float(sum(t.numel() * t.element_size() for t in tensors))
+    dtype = str(tensors[0].dtype).removeprefix("torch.")
+    for ledger in ledgers:
+        ledger.add(H2D_OP, label, dtype, payload=payload, wire=payload)
