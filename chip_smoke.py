@@ -94,7 +94,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               stream), device busy and idle share, the path's bound (max
               of h2d at the ceiling and the in-memory step's device busy)
               and both steps' peak memory;
-10. spmm-t  — the forward and the backward chunk at the decoupled path's
+10. gat     — GAT under decoupled-pipelined TP on phase 6's bundle and
+              widths (the paper's generalized decoupling): each rank scores
+              its own vertices and shares the two (V/N,) score halves by an
+              all-gather; attention α is a segment softmax over the in-edges
+              and the aggregation segment sums, whatever the bundle's
+              backend.  Held: 3 warm-up + 10 timed steps, finite and falling
+              loss, 0 SpMM launches; one step profiled; one step's ledger
+              (16 all-to-alls, 8 forward and 8 backward, and 4 all-gathers,
+              2 + 2, of 4·V bytes each); step-0 loss and grads within rtol
+              1e-4 of the unpipelined ``decoupled`` mode and of the
+              single-device ``decoupled_forward`` and loss on the card;
+11. gat-naive — the same with ``mode="naive"``: per layer ``h @ w``, the
+              score all-gathers, α, a split, the aggregation and a gather;
+              every all-to-all moves ``h @ w``, so 8 all-to-alls and 8
+              all-gathers a step; step-0 held against a single-device
+              coupled GAT on the card;
+12. sage, gin — SAGE and GIN decoupled-pipelined on phase 6's blocksparse
+              bundle (γ·Â propagation): each 3 warm-up + 10 timed steps
+              with finite, falling loss and 16 SpMM launches a step, one
+              step profiled; step-0 loss and grads against the plain
+              version and the segment backend, rtol 1e-4 (GIN's ``eps``
+              gets zero gradients, as under JAX);
+13. spmm-t  — the forward and the backward chunk at the decoupled path's
               shapes and the naive path's layer-0 forward chunk (d=602):
               the kernel held against the plain version on chunk
               0's tiles and on its arrays, a repeat launch bitwise equal,
@@ -105,7 +127,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the memset of its flags, printed apart), beside the CUDA-event
               time of a call, the plain version and the bound of these
               inputs (nonzeros, row pointers, h once, output once);
-11. serve   — the LM main path: Zamba2-2.7B at full width and depth
+14. serve   — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random weights from seed 0 drawn on the
               card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
               ``generate`` of 2 prompts × 2048 tokens from
@@ -113,17 +135,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               launches in prefill (all of the tensor-core kernel) and none
               in decode; then prefill and
               decode timed (medians) and one prefill profiled;
-12. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
+15. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
               under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
               launches, a
               finite loss; timed and profiled;
-13. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
+16. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
               path against the same path with both plain versions patched
               in on the card — prefill logits within 1e-4·max|ref|,
               identical greedy tokens over 8 steps, scoring loss within
-              1e-5 relative; and the bf16 scoring loss of phase 12 beside
+              1e-5 relative; and the bf16 scoring loss of phase 15 beside
               its plain-version twin (printed, not gated);
-14. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
+17. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
               its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
               (per element, as phase 4); one bf16 launch there timed beside
               its plain version, ``scaled_dot_product_attention`` on the
@@ -376,12 +398,13 @@ def _param_bytes(params) -> float:
 
 def _hold_ledger(name, step, params, state, a2a_calls: int,
                  a2a_mirrored: int, a2a_payload: float,
-                 param_bytes: float) -> dict:
+                 param_bytes: float, all_gather=None) -> dict:
     """Collect the ledger of one more step and hold it to the schedule's
     contract at N=1: the all-to-alls' forward and backward calls and
     their payload from the shapes, one stacked loss psum of 12 bytes, one
     gradient all-reduce of the parameters' bytes, and no wire bytes (the
-    ring factor is 0 at N=1)."""
+    ring factor is 0 at N=1).  ``all_gather=(calls, payload)``: GAT's
+    score all-gathers, each with its backward."""
     from repro_torch.runtime.telemetry import collect_comm
     with collect_comm() as ledger:
         step(params, state)
@@ -396,15 +419,39 @@ def _hold_ledger(name, step, params, state, a2a_calls: int,
                                               a2a_mirrored),
             "grad_psum|model|float32": entry(1, param_bytes),
             "psum|model|float32": entry(1, 12)}
+    if all_gather is not None:
+        calls, payload = all_gather
+        want["all_gather|model|float32"] = entry(calls, payload, calls)
     got = ledger.as_dict()
     print(f"  ledger of one {name} step: {json.dumps(got)}")
     if got != want:
         raise AssertionError(f"{name}: ledger {got} is not the schedule's "
                              f"{want}")
+    gathers = "" if all_gather is None else (
+        f"; {all_gather[0]} all-gathers forward + {all_gather[0]} "
+        f"backward, {all_gather[1]:.0f} payload bytes")
     print(f"  {name} ledger: {a2a_calls} all-to-alls forward + "
           f"{a2a_mirrored} backward = {a2a_calls + a2a_mirrored} per step, "
-          f"{a2a_payload:.0f} payload bytes, 0 wire bytes at N=1  ok")
+          f"{a2a_payload:.0f} payload bytes{gathers}, 0 wire bytes at N=1  "
+          f"ok")
     return got
+
+
+def _hold_same(name, got, others, first_loss: float) -> None:
+    """Hold the step-0 ``got = (loss, grads)`` to the first step's loss
+    and to each ``(label, (loss, grads))`` of ``others``, per tensor
+    within ``PATH_RTOL``."""
+    from repro_torch.params import tree_leaves
+    loss, grads = got
+    if abs(loss.item() - first_loss) > PATH_RTOL * abs(first_loss):
+        raise AssertionError(f"{name}: step-0 loss differs from the first "
+                             f"step's")
+    for label, (lo, go) in others:
+        _held(f"{name} step-0 loss, {label}", loss, lo, PATH_RTOL, 0.0)
+        for i, (a, b) in enumerate(zip(tree_leaves(grads),
+                                       tree_leaves(go))):
+            _held(f"{name} step-0 grad {i} {tuple(a.shape)}, {label}", a, b,
+                  PATH_RTOL, 0.0)
 
 
 def _hold_step0(name, vg, vg_segment, params0, mask, first_loss) -> None:
@@ -412,22 +459,12 @@ def _hold_step0(name, vg, vg_segment, params0, mask, first_loss) -> None:
     with the plain version patched in on the card, and against the
     segment backend, each within ``PATH_RTOL``."""
     from repro_torch.kernels.spmm import ops, spmm_csr_ref
-    from repro_torch.params import tree_leaves
-    loss_k, grads_k = vg(params0, mask)
+    got = vg(params0, mask)
     with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
-        loss_p, grads_p = vg(params0, mask)
-    loss_s, grads_s = vg_segment(params0, mask)
-    if abs(loss_k.item() - first_loss) > PATH_RTOL * abs(first_loss):
-        raise AssertionError(f"{name}: step-0 loss differs from the first "
-                             f"step's")
-    for other, lo, go in (("plain", loss_p, grads_p),
-                          ("segment", loss_s, grads_s)):
-        _held(f"{name} step-0 loss, kernel vs {other}", loss_k, lo,
-              PATH_RTOL, 0.0)
-        for i, (a, b) in enumerate(zip(tree_leaves(grads_k),
-                                       tree_leaves(go))):
-            _held(f"{name} step-0 grad {i} {tuple(a.shape)}, kernel vs "
-                  f"{other}", a, b, PATH_RTOL, 0.0)
+        plain = vg(params0, mask)
+    _hold_same(name, got, [("kernel vs plain", plain),
+                           ("kernel vs segment", vg_segment(params0, mask))],
+               first_loss)
 
 
 def _path_info(launches, median_ms, profile, ledger, losses) -> dict:
@@ -574,6 +611,132 @@ def dp(data, dev) -> tuple[dict, float]:
                 spmm_csr(*arrays, h), spmm_csr_ref(*arrays, h)))
     return _path_info(launches, median_ms, profile, ledger, losses), \
         max(errs)
+
+
+# ---------------------------------------------------------------------------
+# GAT under TP (the generalized decoupling), SAGE and GIN
+# ---------------------------------------------------------------------------
+
+def _single_device_vg(fwd, cfg, bundle):
+    """(params, mask) → (loss, grads) of ``fwd`` on the bundle's whole
+    padded graph and features, on one device: no split, no gather, no
+    chunks."""
+    from repro_torch.gnn import models as M
+    from repro_torch.params import tree_leaves, tree_map, tree_unflatten
+
+    def vg(params, mask):
+        p = tree_map(lambda t: t.detach().requires_grad_(), params)
+        logits = fwd(p, cfg, bundle.graph.edges, bundle.features)
+        loss_sum, _, cnt = M.masked_loss_and_acc(
+            logits, bundle.labels, mask, bundle.graph.num_classes)
+        loss = loss_sum / torch.clamp(cnt, min=1.0)
+        # the first layers' a_l and a_r score nothing in the decoupled
+        # GAT: zeros, as the TP step gives them
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), tree_unflatten(params, list(grads))
+
+    return vg
+
+
+def _gat_coupled_forward(params, cfg, g, x):
+    """Single-device coupled GAT: per layer ``h @ w``, attention α over the
+    in-edges, the α-weighted sum, ELU but on the last layer — the naive
+    schedule's math without its split, gather and score all-gathers."""
+    from repro_torch.gnn import layers as L
+    from repro_torch.gnn import models as M
+    h = x
+    for i, p in enumerate(params["layers"]):
+        hw, sl, sr = L.gat_edge_scores(p, h)
+        h = L.aggregate(g, hw, M.gat_alpha(g, sl, sr))
+        if i < cfg.num_layers - 1:
+            h = torch.nn.functional.elu(h)
+    return h
+
+
+def gat(bundle, data, dev, mode: str) -> dict:
+    """Phases 10–11: GAT in ``mode`` on phase 6's bundle (GAT aggregates
+    by segment sums whatever the bundle's backend: no SpMM launch)."""
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh
+
+    mesh = TPMesh()
+    cfg = D.padded_gnn_config(data, bundle, model="gat", hidden_dim=128,
+                              num_layers=2)
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opt = optim.adamw(1e-2, weight_decay=5e-4)
+    step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt, mode=mode)
+    name = f"gat {mode}"
+    params, state, losses, launches, median_ms = _drive(
+        name, step, evaluate, params0, opt, 0,
+        "GAT's edge weights are computed at run time: segment sums")
+    profile = _profile(lambda: step(params, state), f"{name} step")
+    n, layers = bundle.n_padded, cfg.num_layers
+    vg = D.make_tp_value_and_grad(cfg, bundle, mesh, mode=mode)
+    if mode == "naive":
+        # per layer a split send (V/N, D) and a gather send (V, D/N) of
+        # h @ w, the layer's output width, each with its backward; two
+        # (V/N,) score all-gathers a layer
+        widths = [cfg.hidden_dim] * (layers - 1) + [cfg.num_classes]
+        ledger = _hold_ledger(name, step, params, state, 2 * layers,
+                              2 * layers, 2 * 4 * n * sum(widths),
+                              _param_bytes(params0),
+                              all_gather=(2 * layers, 2 * layers * 4 * n))
+        others = [("naive vs single-device coupled",
+                   _single_device_vg(_gat_coupled_forward, cfg, bundle))]
+    else:
+        # phase 6's all-to-alls, and the two score all-gathers of the last
+        # layer's (V/N,) scores
+        cp, chunks = bundle.graph.comm_plan, bundle.graph.chunked.n_chunks
+        ledger = _hold_ledger(
+            name, step, params, state, 2 * chunks, 2 * chunks,
+            4 * cfg.num_classes * chunks * (cp.m_split + cp.m_gather),
+            _param_bytes(params0), all_gather=(2, 2 * 4 * n))
+        others = [("pipelined vs decoupled",
+                   D.make_tp_value_and_grad(cfg, bundle, mesh,
+                                            mode="decoupled")),
+                  ("pipelined vs single-device",
+                   _single_device_vg(M.decoupled_forward, cfg, bundle))]
+    mask = bundle.train_mask
+    _hold_same(name, vg(params0, mask),
+               [(label, fn(params0, mask)) for label, fn in others],
+               losses[0])
+    return _path_info(launches, median_ms, profile, ledger, losses)
+
+
+def gcn_like(bundle, data, dev) -> dict:
+    """Phase 12: SAGE and GIN decoupled-pipelined on phase 6's
+    blocksparse bundle: γ·Â propagation, so the SpMM kernel runs."""
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh
+
+    mesh, out = TPMesh(), {}
+    for model in ("sage", "gin"):
+        cfg = D.padded_gnn_config(data, bundle, model=model, hidden_dim=128,
+                                  num_layers=2)
+        params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        opt = optim.adamw(1e-2, weight_decay=5e-4)
+        step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt,
+                                             mode="decoupled_pipelined")
+        params, state, losses, launches, median_ms = _drive(
+            model, step, evaluate, params0, opt, 16,
+            "2 rounds × 4 chunks × forward and backward")
+        profile = _profile(lambda: step(params, state), f"{model} step")
+        _hold_step0(model,
+                    D.make_tp_value_and_grad(cfg, bundle, mesh,
+                                             mode="decoupled_pipelined"),
+                    D.make_tp_value_and_grad(cfg, bundle, mesh,
+                                             mode="decoupled_pipelined",
+                                             agg="segment"),
+                    params0, bundle.train_mask, losses[0])
+        out[model] = {"launches": launches, "step_ms": median_ms,
+                      "profile": profile, "loss_first": losses[0],
+                      "loss_last": losses[-1]}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1114,7 +1277,7 @@ def _csr_of_tiles(blocks, rows, cols, n_out, n_in):
 
 
 def timing(bundle, data, dev):
-    """Phase 10: returns the numbers of the forward and backward chunk of
+    """Phase 13: returns the numbers of the forward and backward chunk of
     the decoupled path (d = padded classes) and of the naive path's layer-0
     forward chunk (d = padded input features), and the max|Δ| there."""
     from repro_torch.core.decouple import _pad_graph
@@ -1412,7 +1575,7 @@ def _expect(what: str, got, want) -> None:
 
 
 def serve(dev):
-    """Phase 11: Zamba2-2.7B full width, bf16, generate + timing."""
+    """Phase 14: Zamba2-2.7B full width, bf16, generate + timing."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1500,7 +1663,7 @@ def serve(dev):
 
 
 def score(cfg, params, batch, dev):
-    """Phase 12: forward + lm_loss on 2 × 2048, under no_grad."""
+    """Phase 15: forward + lm_loss on 2 × 2048, under no_grad."""
     from repro_torch.models import transformer as T
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
@@ -1543,7 +1706,7 @@ def score(cfg, params, batch, dev):
 
 
 def cross_check_fp32(cfg, params, batch, dev) -> float:
-    """Phase 13: the kernel path against the plain versions, fp32."""
+    """Phase 16: the kernel path against the plain versions, fp32."""
     import dataclasses
 
     from repro_torch.models import transformer as T
@@ -1581,7 +1744,7 @@ def cross_check_fp32(cfg, params, batch, dev) -> float:
 
 
 def lm_timing(dev):
-    """Phase 14: one flash and one SSD launch at the LM path's shapes."""
+    """Phase 17: one flash and one SSD launch at the LM path's shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
@@ -1664,7 +1827,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/14] device")
+    print("[1/17] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1678,55 +1841,64 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/14] build")
+    print("[2/17] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/14] spmm kernel against its plain version")
+    print("[3/17] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/14] flash kernel against its plain version")
+    print("[4/17] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/14] ssd kernel against its plain version")
+    print("[5/17] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/14] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/17] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/14] naive TP GCN training (a split and a gather per "
+        print("[7/17] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/14] DP halo-exchange GCN training (k=1)")
+        print("[8/17] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/14] out-of-core streamed GCN training (pinned host "
+        print("[9/17] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/14] spmm timing at the GCN paths' shapes")
+        print("[10/17] GAT decoupled-pipelined TP training (the score "
+              "all-gathers)")
+        gat_info = gat(bundle, data, dev, "decoupled_pipelined")
+        print("[11/17] GAT naive TP training")
+        gat_naive_info = gat(bundle, data, dev, "naive")
+        print("[12/17] SAGE and GIN decoupled-pipelined TP training")
+        like_info = gcn_like(bundle, data, dev)
+        print("[13/17] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[11/14] LM main path, serving: Zamba2-2.7B generate")
+    print("[14/17] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[12/14] LM main path, scoring: forward + lm_loss")
+    print("[15/17] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[13/14] fp32 cross-check at full width, kernels vs plain")
+    print("[16/17] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[14/14] flash and ssd timing at the LM path's shapes")
+    print("[17/17] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
     print(json.dumps({"timing": rows, "gcn": gcn, "naive": naive_info,
                       "dp": dp_info, "stream": stream_info,
+                      "gat": gat_info, "gat_naive": gat_naive_info,
+                      "sage": like_info["sage"], "gin": like_info["gin"],
                       "build_s": build_s, "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
@@ -1737,11 +1909,17 @@ def main() -> int:
         "replaces": "src/repro/kernels/spmm/spmm.py:64",
         "held_against": "ref.spmm_ref (tiles), ref.spmm_csr_ref",
         "launches": gcn["launches"] + naive_info["launches"]
-        + dp_info["launches"] + stream_info["launches"],
+        + dp_info["launches"] + stream_info["launches"]
+        + gat_info["launches"] + gat_naive_info["launches"]
+        + like_info["sage"]["launches"] + like_info["gin"]["launches"],
         "launches_by_path": {"decoupled_pipelined": gcn["launches"],
                              "naive": naive_info["launches"],
                              "dp": dp_info["launches"],
-                             "stream": stream_info["launches"]},
+                             "stream": stream_info["launches"],
+                             "gat_decoupled_pipelined": gat_info["launches"],
+                             "gat_naive": gat_naive_info["launches"],
+                             "sage": like_info["sage"]["launches"],
+                             "gin": like_info["gin"]["launches"]},
         "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

@@ -15,6 +15,11 @@ Three execution modes:
   * ``naive``                — coupled layers with a split and a gather per
                                layer (the paper's "TP" baseline, Fig. 8)
 
+GAT's propagation weights are its attention α, computed at run time: each
+rank scores its own vertex rows and the two (V/N,) score halves are shared
+by an all-gather (the paper's generalized decoupling, §4.1.1), and GAT
+aggregates by segment sums on any bundle.
+
 Every rank builds the same host-side bundle (:func:`prepare_bundle`) and
 takes its own vertex rows of it.  Parameters are replicated: the backward
 runs through the mirrored all-to-alls, and the factories sum the
@@ -28,6 +33,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..gnn import layers as L
 from ..gnn import models as M
@@ -231,7 +237,44 @@ def _round_split_gather_pipelined(h_local, graph: TPGraph, w_chunk,
 
 
 # ---------------------------------------------------------------------------
-# Forward pass (per rank)
+# Edge weights for propagation (shared across ranks)
+# ---------------------------------------------------------------------------
+
+def _gat_alpha_tp(p, edges: L.EdgeListDev, h_local, mesh: TPMesh):
+    """GAT's attention α over the whole graph from this rank's rows: the
+    paper's generalized decoupling.  Each rank scores its own vertices,
+    and the two (V/N,) score halves are shared by an all-gather — O(V)
+    communication, not O(E·D)."""
+    sl = C.all_gather(h_local @ p["a_l"], mesh.group, axis=mesh.axis)
+    sr = C.all_gather(h_local @ p["a_r"], mesh.group, axis=mesh.axis)
+    return M.gat_alpha(edges, sl, sr)
+
+
+def _edge_weights_tp(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
+                     h_local, mesh: TPMesh):
+    """γ·w for the GCN-like models; γ·α, the precomputed attention, for
+    GAT."""
+    if cfg.model == "gat":
+        return cfg.gamma * _gat_alpha_tp(params["layers"][-1], edges,
+                                         h_local, mesh)
+    return cfg.gamma * edges.weight
+
+
+def _effective_agg(cfg: M.GNNConfig, agg: str) -> tuple[str, float]:
+    """(backend, scale) a forward actually uses.
+
+    GAT always aggregates by segment sums: its edge weights α are computed
+    at run time from the features, so they cannot be baked into the
+    precomputed tiles or dense rows, and γ is already inside α.  For the
+    tile-based backends the static γ of the propagation weights (γ·Â)
+    becomes a scalar post-multiplier, since γ·(Â@z) = (γÂ)@z."""
+    if cfg.model == "gat":
+        return "segment", 1.0
+    return agg, cfg.gamma
+
+
+# ---------------------------------------------------------------------------
+# Forward passes (per rank)
 # ---------------------------------------------------------------------------
 
 def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
@@ -239,14 +282,13 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
                          agg: str = "segment"):
     """Decoupled TP forward: this rank's (V/N, D) rows in, its (V/N, C_pad)
     logits out.  ``agg`` selects the aggregation backend of the
-    propagation rounds (:mod:`repro_torch.core.agg`); for the tile-based
-    backend the static γ of the propagation weights (γ·Â) is a scalar
-    post-multiplier, since γ·(Â@z) = (γÂ)@z."""
-    scale = cfg.gamma
+    propagation rounds (:mod:`repro_torch.core.agg`; GAT is pinned to
+    ``segment``, :func:`_effective_agg`)."""
+    agg, scale = _effective_agg(cfg, agg)
     h = M.mlp_phase(params, cfg, x_local)              # NN phase, local rows
     w_chunk = None
     if agg == "segment":
-        w_flat = M.propagation_edge_weights(params, cfg, graph.edges, h)
+        w_flat = _edge_weights_tp(params, cfg, graph.edges, h, mesh)
         w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
     n_rounds = cfg.num_layers
     d_full = h.shape[1]
@@ -264,22 +306,39 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
                                    scale)
 
 
+NAIVE_MODELS = ("gcn", "gat")
+
+
 def tp_naive_forward(params, cfg: M.GNNConfig, graph: TPGraph, x_local,
                      mesh: TPMesh, agg: str = "segment"):
     """Coupled ("naive") TP: a split, one aggregation round and a gather
-    per layer, then the dense update on this rank's rows — 2L all-to-alls
-    forward (Fig. 8's baseline).  The naive mode applies no γ
-    (``scale=1``).  Layer 0 moves the input features, which carry no
-    gradient, so its all-to-alls have no backward: 4L−2 per step."""
-    M._require_gcn(cfg)
+    per layer (Fig. 8's baseline), for GCN and GAT.  No γ (``scale=1``).
+
+    GCN: the dense update follows the gather, on this rank's rows.  Layer
+    0 moves the input features, which carry no gradient, so its
+    all-to-alls have no backward: 4L−2 a step.  GAT: ``h @ w`` comes
+    first, then the score all-gathers, α, and the aggregation by segment
+    sums (:func:`_effective_agg`); every all-to-all moves ``h @ w``,
+    which depends on the weights, so all have a backward: 4L a step, and
+    4L all-gathers."""
+    agg, _ = _effective_agg(cfg, agg)
     h = x_local
     n_layers = cfg.num_layers
     for i, p in enumerate(params["layers"]):
-        z = tp.split(h, mesh)                          # dim-sharded
-        z = _aggregate_once(graph, z, agg, None, 1.0)
-        h = L.dense(p, tp.gather(z, mesh))             # vertex-sharded
-        if i < n_layers - 1:
-            h = torch.relu(h)
+        last = i == n_layers - 1
+        if cfg.model == "gat":
+            hw = h @ p["w"]                            # dense on local rows
+            alpha = _gat_alpha_tp(p, graph.edges, hw, mesh)
+            w_chunk = L.rechunk_edge_values(graph.chunked, alpha)
+            z = _aggregate_once(graph, tp.split(hw, mesh), agg, w_chunk,
+                                1.0)
+            h = tp.gather(z, mesh)
+            h = h if last else F.elu(h)
+        else:
+            z = tp.split(h, mesh)                      # dim-sharded
+            z = _aggregate_once(graph, z, agg, None, 1.0)
+            h = L.dense(p, tp.gather(z, mesh))         # vertex-sharded
+            h = h if last else torch.relu(h)
     return h
 
 
@@ -314,6 +373,11 @@ def _make_tp_loss_and_acc(cfg: M.GNNConfig, mesh: TPMesh, mode: str,
     if mode not in _FORWARDS:
         raise ValueError(f"unknown mode {mode!r}; expected one of "
                          f"{tuple(_FORWARDS)}")
+    if mode == "naive" and cfg.model not in NAIVE_MODELS:
+        raise ValueError(
+            f"naive TP supports {NAIVE_MODELS}, not {cfg.model!r}, as the "
+            f"reference's coupled TP forward does; train {cfg.model!r} "
+            f"with mode='decoupled' or 'decoupled_pipelined'")
     fwd = _FORWARDS[mode]
 
     def shard_loss(params, graph, x_local, labels_local, mask_local):
@@ -371,7 +435,10 @@ def value_and_grad(loss_and_acc, mesh: TPMesh):
     def value_and_grad_fn(params, mask):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, _ = loss_and_acc(p, mask)
-        grads = torch.autograd.grad(loss, tree_leaves(p))
+        # a parameter the path does not use (GIN's eps, R-GCN's relation
+        # weights on the decoupled path) gets zeros, as under JAX
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
+                                    materialize_grads=True)
         return loss.detach(), tree_unflatten(params, sum_grads(grads, mesh))
 
     return value_and_grad_fn

@@ -431,9 +431,11 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
         acc = [torch.zeros_like(t) for t in leaves]
         for s, item in enumerate(stripes()):
             h = M.mlp_phase(p, cfg, item.take())
-            parts = torch.autograd.grad(h, leaves,
-                                        grad_outputs=ct_h[s * rs:
-                                                          (s + 1) * rs])
+            # GIN's eps and R-GCN's relation weights get zeros, as in
+            # the in-memory step
+            parts = torch.autograd.grad(
+                h, leaves, grad_outputs=ct_h[s * rs:(s + 1) * rs],
+                allow_unused=True, materialize_grads=True)
             for a, part in zip(acc, parts):
                 a.add_(part)
         grads = DC.sum_grads(RS.sync_for_collectives(acc), mesh)

@@ -209,7 +209,6 @@ def dp_coupled_forward(params, cfg: M.GNNConfig, g: DPGraph, x_local,
                        mesh: TPMesh, agg: str = "segment"):
     """Classic coupled data-parallel GCN: per layer a halo exchange, the
     local aggregation and the dense update on this worker's rows."""
-    M._require_gcn(cfg)
     h = x_local
     for i, p in enumerate(params["layers"]):
         h = L.dense(p, dp_aggregate(h, g, mesh, agg))
@@ -229,6 +228,11 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
     if data_axes:
         raise ValueError("hybrid DP×TP (data_axes) is not ported (ROADMAP "
                          "queue 1 item 12)")
+    if cfg.model != "gcn":
+        raise ValueError(
+            f"the DP halo-exchange baseline trains GCN only, as the "
+            f"reference's dp_coupled_forward does (its layers are GCN "
+            f"updates); got model {cfg.model!r}")
     g = bundle.graph
     if g.k != mesh.size:
         raise ValueError(

@@ -57,7 +57,7 @@ def rechunk_edge_values(cg: ChunkedDev, values: torch.Tensor) -> torch.Tensor:
     """Map a flat per-edge vector (E,) onto the chunked layout (C, max_e);
     padding slots get 0 (numerically inert in the weighted sum)."""
     ext = torch.cat([values, values.new_zeros(1)])
-    return ext[cg.edge_id]
+    return ext.index_select(0, cg.edge_id.reshape(-1)).view(cg.edge_id.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +94,36 @@ def aggregate_chunked(cg: ChunkedDev, h: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# GAT attention (the edge-associated NN op of the generalized decoupling)
+# ---------------------------------------------------------------------------
+
+def gat_edge_scores(params, h):
+    """GAT's per-vertex attention halves: e_uv = LeakyReLU(sl[u] + sr[v]).
+
+    Returning the two (V,) score vectors instead of per-edge values is what
+    makes the paper's edge-NN precompute cheap to share: communication is
+    O(V), not O(E·D)."""
+    hw = h @ params["w"]
+    return hw, hw @ params["a_l"], hw @ params["a_r"]
+
+
+def segment_softmax(scores: torch.Tensor, dst: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """Numerically stable softmax over in-edge groups (grouped by dst).
+
+    The max stabiliser is detached: it cancels from the result exactly in
+    math, so its gradient is zero, and detaching it sidesteps the
+    different tie rules of JAX's and torch's max gradients.  The E-sized
+    gathers are ``index_select``, whose backward is an ``index_add``:
+    the backward of ``x[idx]`` sorts the indices first."""
+    smax = scores.new_zeros(n).scatter_reduce(
+        0, dst.long(), scores.detach(), "amax", include_self=False)
+    ex = torch.exp(scores - smax.index_select(0, dst))
+    denom = scores.new_zeros(n).index_add(0, dst, ex)
+    return ex / (denom.index_select(0, dst) + 1e-16)
+
+
+# ---------------------------------------------------------------------------
 # Updates (the paper's UPDATE) and initializers
 # ---------------------------------------------------------------------------
 
@@ -111,3 +141,9 @@ def glorot(shape, generator: torch.Generator) -> torch.Tensor:
 def init_dense(generator: torch.Generator, d_in: int, d_out: int):
     return {"w": glorot((d_in, d_out), generator),
             "b": torch.zeros(d_out, dtype=torch.float32)}
+
+
+def init_gat_layer(generator: torch.Generator, d_in: int, d_out: int):
+    return {"w": glorot((d_in, d_out), generator),
+            "a_l": glorot((d_out,), generator),
+            "a_r": glorot((d_out,), generator)}

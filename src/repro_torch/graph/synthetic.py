@@ -25,6 +25,10 @@ class GraphData:
     test_mask: np.ndarray   # (n,) bool
     num_classes: int
 
+    # heterogeneous graphs (R-GCN, paper §5.8): each edge's type, or None
+    edge_types: np.ndarray | None = None
+    num_edge_types: int = 1
+
 
 def _splits(n: int, rng: np.random.Generator,
             train: float = 0.65, val: float = 0.25):
@@ -79,6 +83,56 @@ def sbm_power_law(n: int = 4096, num_classes: int = 8, feat_dim: int = 64,
     return GraphData(graph=g, features=feats, labels=comm,
                      train_mask=tr, val_mask=va, test_mask=te,
                      num_classes=num_classes)
+
+
+def barabasi_albert(n: int = 4096, m: int = 8, feat_dim: int = 64,
+                    num_classes: int = 8, seed: int = 0,
+                    normalization: str = "sym") -> GraphData:
+    """Preferential attachment: the heavy-tailed topology of the
+    load-imbalance benchmarks (paper Figs. 3, 10, 11's Friendster case)."""
+    rng = np.random.default_rng(seed)
+    src_l, dst_l = [], []
+    repeated: list[int] = list(range(m))
+    for v in range(m, n):
+        chosen = rng.choice(repeated, size=m, replace=False) \
+            if len(set(repeated)) >= m else rng.integers(0, v, size=m)
+        for u in np.unique(chosen):
+            src_l.append(v); dst_l.append(int(u))
+            repeated.extend([v, int(u)])
+    src = np.asarray(src_l + dst_l, dtype=np.int32)   # symmetrize
+    dst = np.asarray(dst_l + src_l, dtype=np.int32)
+
+    comm = rng.integers(0, num_classes, size=n).astype(np.int32)
+    centroids = rng.normal(size=(num_classes, feat_dim)).astype(np.float32)
+    feats = centroids[comm] + 1.5 * rng.normal(
+        size=(n, feat_dim)).astype(np.float32)
+    g = build_graph(src, dst, n, normalization=normalization)
+    tr, va, te = _splits(n, rng)
+    return GraphData(graph=g, features=feats, labels=comm,
+                     train_mask=tr, val_mask=va, test_mask=te,
+                     num_classes=num_classes)
+
+
+def heterogeneous_sbm(n: int = 2048, num_classes: int = 6,
+                      num_edge_types: int = 4, feat_dim: int = 64,
+                      avg_degree: int = 12, seed: int = 0) -> GraphData:
+    """Typed edges over :func:`sbm_power_law` ("mean" normalization), for
+    the R-GCN experiment (paper §5.8)."""
+    base = sbm_power_law(n=n, num_classes=num_classes, feat_dim=feat_dim,
+                         avg_degree=avg_degree, seed=seed,
+                         normalization="mean")
+    rng = np.random.default_rng(seed + 1)
+    etypes = rng.integers(0, num_edge_types,
+                          size=base.graph.e).astype(np.int32)
+    return dataclasses.replace(base, edge_types=etypes,
+                               num_edge_types=num_edge_types)
+
+
+REGISTRY = {
+    "sbm": sbm_power_law,
+    "ba": barabasi_albert,
+    "hetero": heterogeneous_sbm,
+}
 
 
 def reddit_like(scale: float = 1.0, seed: int = 0) -> GraphData:

@@ -9,6 +9,10 @@ initialised by the caller.
 * :func:`all_to_all` is autograd-aware: its backward is the mirrored
   all-to-all (split and concat axes swapped), written out explicitly
   rather than taken from ``torch.distributed.nn``.
+* :func:`all_gather` is too: its backward is the reduce-scatter, the
+  cotangent summed across ranks and then this rank's slice.  Every rank
+  uses the whole gathered vector (GAT's attention scores), so the
+  gradient of one rank's slice is the sum of every rank's use of it.
 * :func:`psum` sums across ranks.  Its backward passes the cotangent
   through unchanged: the summed value is the same on every rank, and each
   rank seeds its backward from it, so the gradient of what each rank
@@ -20,10 +24,11 @@ initialised by the caller.
 
 Each call reports its operand to the collecting ledgers
 (:mod:`.telemetry`) under its ``axis`` label (the mesh's, ``"model"``).
-The all-to-all's backward reports the mirrored call when it runs, into
-the ledgers that were collecting when its forward ran: autograd runs the
-backward of CUDA tensors on a thread of its own, which does not see the
-caller's context.
+The backward of the all-to-all and of the all-gather reports the mirrored
+call when it runs, under the forward operand's shape and into the ledgers
+that were collecting when its forward ran: autograd runs the backward of
+CUDA tensors on a thread of its own, which does not see the caller's
+context.
 """
 from __future__ import annotations
 
@@ -88,6 +93,37 @@ def all_to_all(x: torch.Tensor, group=None, *, split_axis: int,
     ``all_to_all``; with ``split_axis == concat_axis == 0`` and
     ``x.shape[0] == n`` it is also the untiled one)."""
     return _AllToAll.apply(x, group, split_axis, concat_axis, axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        ctx.ledgers = T.active_ledgers()
+        _record("all_gather", axis, x, group, ctx.ledgers)
+        parts = [torch.empty_like(x) for _ in range(axis_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis = ctx.args
+        # the reduce-scatter, as an all-reduce and a slice: the list-free
+        # reduce-scatter is missing from older gloo builds, and the
+        # operand is one (V,) vector
+        g = g.contiguous().clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        out = g.chunk(axis_size(group))[axis_index(group)]
+        _record("all_gather", axis, out, group, ctx.ledgers, backward=True)
+        return out, None, None
+
+
+def all_gather(x: torch.Tensor, group=None, *,
+               axis: str = "model") -> torch.Tensor:
+    """Every rank's ``x`` concatenated along dim 0 in rank order (JAX's
+    tiled ``all_gather`` on axis 0).  Its backward is the reduce-scatter
+    (module docstring)."""
+    return _AllGather.apply(x, group, axis)
 
 
 class _Psum(torch.autograd.Function):

@@ -1,5 +1,6 @@
 """The port's host graph code is byte-equal to the JAX package's: the
-generator, the chunk partition, the per-chunk tile plans (forward and
+generators (the typed edges of ``heterogeneous_sbm`` too), the chunk
+partition, the per-chunk tile plans (forward and
 transposed), the chunk comm tables, the dense adjacency, and the
 partitioners, workload statistics and halo plans of ``graph/partition.py``."""
 import numpy as np
@@ -45,6 +46,29 @@ def test_reddit_like_byte_equal():
     assert td.features.shape == (1024, 602) and td.num_classes == 41
     assert_fields_equal(jd, td, ["features", "labels", "train_mask"])
     assert_fields_equal(jd.graph, td.graph, ["src", "dst", "weight"])
+
+
+def test_heterogeneous_sbm_byte_equal():
+    kw = dict(n=300, num_classes=4, num_edge_types=3, feat_dim=9,
+              avg_degree=7, seed=5)
+    jd, td = jsynth.heterogeneous_sbm(**kw), tsynth.heterogeneous_sbm(**kw)
+    assert td.num_edge_types == jd.num_edge_types == 3
+    assert td.edge_types.shape == (td.graph.e,)
+    assert_fields_equal(jd, td, ["features", "labels", "train_mask",
+                                 "val_mask", "test_mask", "edge_types"])
+    assert_fields_equal(jd.graph, td.graph, ["src", "dst", "weight",
+                                             "indptr"])
+
+
+def test_barabasi_albert_byte_equal_and_registry():
+    kw = dict(n=150, m=3, feat_dim=6, num_classes=4, seed=1)
+    jd, td = jsynth.barabasi_albert(**kw), tsynth.barabasi_albert(**kw)
+    assert td.edge_types is None and td.num_edge_types == 1
+    assert_fields_equal(jd, td, ["features", "labels", "train_mask"])
+    assert_fields_equal(jd.graph, td.graph, ["src", "dst", "weight",
+                                             "indptr"])
+    assert {k: v.__name__ for k, v in tsynth.REGISTRY.items()} == \
+        {k: v.__name__ for k, v in jsynth.REGISTRY.items()}
 
 
 @pytest.mark.parametrize("n_chunks", [3, 4])

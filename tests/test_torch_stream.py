@@ -10,7 +10,8 @@
   in-memory ``decoupled`` step, for every backend × both stream modes; one
   step's ``h2d`` entries equal ``expected_h2d_bytes`` (and the reference's
   for ``segment`` and ``dense``), its collective entries the in-memory
-  step's.
+  step's.  SAGE and GIN streamed (``segment``) against the reference:
+  GIN's ``eps`` gets zero gradients, as under JAX.
 * The reference's primitive tests carried over: the scope gates,
   ``prefetched`` ordering and depth, ``stage`` recording its bytes; and the
   port's own: a CUDA-bound pageable source is refused, ``backward_scope``.
@@ -280,6 +281,23 @@ def test_streamed_step_matches_reference_and_in_memory(one_rank, reference,
     _close(loss, grads, *ref[mode], f"{agg}/{mode} vs repro")
     mem_loss, mem_grads, _ = _in_memory_step(agg, one_rank, ref["params"])
     _close(loss, grads, mem_loss, mem_grads, f"{agg}/{mode} vs in-memory")
+
+
+@pytest.mark.parametrize("model", ["sage", "gin"])
+def test_streamed_gcn_like_models_match_reference(one_rank, model):
+    """GIN's ``eps`` acts only in the coupled layers: the per-stripe
+    gradient gives it zeros, as JAX does."""
+    j, t = _bundles("segment")
+    jcfg = _cfg(j, jsynth, jST, model=model)
+    params = jM.init_params(jax.random.PRNGKey(3), jcfg)
+    want_loss, want_grads = jST.make_stream_value_and_grad(jcfg, j)(
+        params, j.train_mask)
+    vg = tST.make_stream_value_and_grad(_cfg(t, tsynth, tST, model=model),
+                                        t, one_rank)
+    loss, grads = vg(P.from_numpy_tree(jax.tree.map(np.asarray, params),
+                                       "cpu"), t.train_mask)
+    _close(loss.item(), P.tree_leaves(grads), float(want_loss),
+           _leaves_np(want_grads), f"{model} streamed vs repro")
 
 
 @pytest.mark.parametrize("agg", BACKENDS)
