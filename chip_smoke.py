@@ -116,7 +116,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               step profiled; step-0 loss and grads against the plain
               version and the segment backend, rtol 1e-4 (GIN's ``eps``
               gets zero gradients, as under JAX);
-13. spmm-t  — the forward and the backward chunk at the decoupled path's
+13. hybrid  — hybrid DP×TP on ``hybrid_mesh(model=1, data=1)`` over the
+              1-rank NCCL world (model and data subgroups of one rank):
+              GCN decoupled-pipelined and naive on phase 6's bundle (its
+              padding is the hybrid one at one replica), the DP baseline
+              from ``prepare_dp_bundle(mesh=...)`` (k=1, n_replicas=1) and
+              GAT decoupled-pipelined, each 3 warm-up + 5 timed steps with
+              finite, falling loss and 16 / 12 / 3 / 0 SpMM launches a
+              step, one step profiled; one step's ledger equal to the
+              pure-TP step's of phases 6, 7, 8 and 10 with its gradient
+              all-reduce keyed ``model+data`` and the data-axis entries
+              added (the replica all-gathers, 1 / 2 / 2 / 1 forward and 1
+              backward each, payload from the shapes; one stacked loss
+              psum of 12 bytes; 0 wire bytes); step-0 loss and grads
+              within rtol 1e-6 of the pure-TP path, the largest
+              difference printed;
+14. spmm-t  — the forward and the backward chunk at the decoupled path's
               shapes and the naive path's layer-0 forward chunk (d=602):
               the kernel held against the plain version on chunk
               0's tiles and on its arrays, a repeat launch bitwise equal,
@@ -127,7 +142,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the memset of its flags, printed apart), beside the CUDA-event
               time of a call, the plain version and the bound of these
               inputs (nonzeros, row pointers, h once, output once);
-14. serve   — the LM main path: Zamba2-2.7B at full width and depth
+15. serve   — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random weights from seed 0 drawn on the
               card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
               ``generate`` of 2 prompts × 2048 tokens from
@@ -135,17 +150,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               launches in prefill (all of the tensor-core kernel) and none
               in decode; then prefill and
               decode timed (medians) and one prefill profiled;
-15. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
+16. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
               under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
               launches, a
               finite loss; timed and profiled;
-16. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
+17. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
               path against the same path with both plain versions patched
               in on the card — prefill logits within 1e-4·max|ref|,
               identical greedy tokens over 8 steps, scoring loss within
-              1e-5 relative; and the bf16 scoring loss of phase 15 beside
+              1e-5 relative; and the bf16 scoring loss of phase 16 beside
               its plain-version twin (printed, not gated);
-17. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
+18. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
               its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
               (per element, as phase 4); one bf16 launch there timed beside
               its plain version, ``scaled_dot_product_attention`` on the
@@ -167,6 +182,7 @@ SpMM's ``event_ms`` are always CUDA events.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import socket
@@ -174,6 +190,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -354,8 +371,9 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _drive(name, step, evaluate, params0, opt, per_step: int, why: str):
-    """3 warm-up + 10 timed steps of ``step`` from ``params0``: finite and
+def _drive(name, step, evaluate, params0, opt, per_step: int, why: str,
+           timed: int = 10):
+    """3 warm-up + ``timed`` steps of ``step`` from ``params0``: finite and
     falling loss, ``per_step`` SpMM launches on every step (``why`` says
     whence).  The launch count is zeroed just before the steps and read
     just after.  Returns (params, opt state, losses, launches, median
@@ -364,7 +382,8 @@ def _drive(name, step, evaluate, params0, opt, per_step: int, why: str):
     params, state = params0, opt.init(params0)
     losses, ms = [], []
     spmm_csr.launches = 0
-    for i in range(13):
+    steps = 3 + timed
+    for i in range(steps):
         torch.cuda.synchronize()
         t = time.perf_counter()
         params, state, loss = step(params, state)
@@ -375,18 +394,20 @@ def _drive(name, step, evaluate, params0, opt, per_step: int, why: str):
               f"loss {losses[-1]:.6f}  {ms[-1]:.2f} ms")
     launches = spmm_csr.launches
     median_ms = statistics.median(ms[3:])
-    print(f"  {name}: median step {median_ms:.2f} ms over 10 timed steps; "
-          f"spmm_csr launches {launches} ({launches / 13:.0f} per step)")
+    print(f"  {name}: median step {median_ms:.2f} ms over {timed} timed "
+          f"steps; spmm_csr launches {launches} ({launches / steps:.0f} per "
+          f"step)")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{name}: non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"{name}: loss did not fall: {losses[0]} → "
                              f"{losses[-1]}")
-    if launches != 13 * per_step:
+    if launches != steps * per_step:
         raise AssertionError(f"{name}: expected {per_step} kernel launches "
-                             f"per step ({why}), got {launches} in 13 steps")
+                             f"per step ({why}), got {launches} in {steps} "
+                             f"steps")
     _, val_acc = evaluate(params, "val")
-    print(f"  val accuracy after 13 steps {val_acc.item():.4f}")
+    print(f"  val accuracy after {steps} steps {val_acc.item():.4f}")
     return params, state, losses, launches, median_ms
 
 
@@ -736,6 +757,171 @@ def gcn_like(bundle, data, dev) -> dict:
         out[model] = {"launches": launches, "step_ms": median_ms,
                       "profile": profile, "loss_first": losses[0],
                       "loss_last": losses[-1]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Hybrid DP×TP on a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+HYBRID_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def _deterministic(label: str):
+    """torch's deterministic algorithms: GAT's segment sums
+    (``index_add_``) then accumulate in a fixed order, not by atomics, so
+    two runs of a step agree bitwise.  An op with no deterministic kernel
+    warns and runs as before; those warnings alone are taken, and the ops
+    they name are printed, since a hold that flakes rests on them.  Every
+    other warning is shown as usual."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    caught = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        fell_back = set()
+        for w in caught:
+            text = str(w.message)
+            if "deterministic" in text.lower():
+                fell_back.add("cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)"
+                              if "CuBLAS" in text
+                              else text.split(" does not have")[0][:80])
+            else:
+                warnings.showwarning(w.message, w.category, w.filename,
+                                     w.lineno)
+        print(f"  {label}: ops run without a deterministic kernel: "
+              f"{sorted(fell_back) or 'none'}")
+
+
+def _hold_equal(name, got, want, what: str = "hybrid vs pure TP") -> float:
+    """Hold the step-0 ``got = (loss, grads)`` to ``want`` per tensor,
+    max|Δ| ≤ HYBRID_RTOL·max|ref|; returns the largest max|Δ|."""
+    from repro_torch.params import tree_leaves
+    pairs = [("loss", got[0], want[0])] + [
+        (f"grad {i} {tuple(a.shape)}", a, b) for i, (a, b) in
+        enumerate(zip(tree_leaves(got[1]), tree_leaves(want[1])))]
+    worst = 0.0
+    for label, a, b in pairs:
+        worst = max(worst, _held(f"{name} step-0 {label}, {what}", a, b,
+                                 HYBRID_RTOL, 0.0))
+    return worst
+
+
+def hybrid(bundle, data, dev, pure: dict, card: str) -> dict:
+    """Phase 13: hybrid DP×TP on ``hybrid_mesh(model=1, data=1)``, NCCL
+    subgroups of one rank: GCN decoupled-pipelined and naive on phase 6's
+    bundle, the DP baseline, GAT decoupled-pipelined.  ``pure`` maps each
+    path to its pure-TP info from phases 6, 7, 8 and 10 (their ledgers)."""
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import dp_baseline as DP
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh, hybrid_mesh
+    from repro_torch.runtime.telemetry import collect_comm
+
+    mesh, pure_mesh = hybrid_mesh(model=1, data=1), TPMesh()
+    print(f"  mesh {mesh.shape}: data axes {mesh.data_axes}, "
+          f"{mesh.n_devices} rank; model and data groups of one rank")
+    t0 = time.perf_counter()
+    dp_bundle = DP.prepare_dp_bundle(data, mesh=mesh, agg="blocksparse",
+                                     agg_block_size=128, device=dev)
+    print(f"  DP bundle from the mesh (k=1, n_replicas=1): "
+          f"{dp_bundle.graph.n_local_max} local rows; prepared in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gcn_cfg = D.padded_gnn_config(data, bundle, hidden_dim=128, num_layers=2)
+    gat_cfg = D.padded_gnn_config(data, bundle, model="gat", hidden_dim=128,
+                                  num_layers=2)
+    dp_cfg = M.GNNConfig(in_dim=data.features.shape[1], hidden_dim=128,
+                         num_classes=data.num_classes, num_layers=2)
+    v, c = bundle.n_padded, gcn_cfg.num_classes
+
+    def tp(cfg, mode):
+        def fns(m, opt=None):
+            if opt is not None:
+                return D.make_tp_train_fns(cfg, bundle, m, opt, mode=mode)
+            return D.make_tp_value_and_grad(cfg, bundle, m, mode=mode)
+        return fns
+
+    def dp(m, opt=None):
+        if opt is not None:
+            return DP.make_dp_train_fns(dp_cfg, dp_bundle, m, opt)
+        return DP.make_dp_value_and_grad(dp_cfg, dp_bundle, m)
+
+    # path: (cfg, factory, train mask, SpMM launches a step, why, the
+    # replica all-gathers: (calls, payload bytes, backward calls))
+    paths = {
+        "decoupled_pipelined": (
+            gcn_cfg, tp(gcn_cfg, "decoupled_pipelined"), bundle.train_mask,
+            16, "2 rounds × 4 chunks × forward and backward",
+            (1, 4 * v * c, 1)),
+        "naive": (
+            gcn_cfg, tp(gcn_cfg, "naive"), bundle.train_mask, 12,
+            "layer 0 forward only, layer 1 forward and backward",
+            (2, 4 * v * sum(_widths(gcn_cfg)), 1)),
+        "dp": (
+            dp_cfg, dp, dp_bundle.train_mask, 3,
+            "one per layer forward, and layer 1's backward",
+            (2, 4 * dp_bundle.graph.n_local_max * sum(_widths(dp_cfg)), 1)),
+        "gat_decoupled_pipelined": (
+            gat_cfg, tp(gat_cfg, "decoupled_pipelined"), bundle.train_mask,
+            0, "GAT's edge weights are computed at run time: segment sums",
+            (1, 4 * v * c, 1)),
+    }
+    out = {}
+    for name, (cfg, fns, mask, per_step, why, gathers) in paths.items():
+        label = f"hybrid {name}"
+        params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        opt = optim.adamw(1e-2, weight_decay=5e-4)
+        step, evaluate = fns(mesh, opt)
+        params, state, losses, launches, median_ms = _drive(
+            label, step, evaluate, params0, opt, per_step, why, timed=5)
+        profile = _profile(lambda: step(params, state), f"{label} step")
+        print(f"  {label}: median step {median_ms:.2f} ms, device busy "
+              f"{profile['busy_ms']:.2f} ms, idle share "
+              f"{1 - profile['busy_ms'] / profile['wall_ms']:.3f}; {card}")
+        # the pure-TP step's entries, its gradient all-reduce over model
+        # and replicas, and the data-axis entries: the replica all-gathers
+        # with their backward and the stacked loss psum, 0 wire bytes
+        want = dict(pure[name]["ledger"])
+        want["grad_psum|model+data|float32"] = want.pop(
+            "grad_psum|model|float32")
+        calls, payload, mirrored = gathers
+        want["all_gather|data|float32"] = {
+            "calls": float(calls), "payload_bytes": float(payload),
+            "wire_bytes": 0.0, "mirrored_calls": float(mirrored),
+            "mirrored_wire_bytes": 0.0}
+        want["psum|data|float32"] = {
+            "calls": 1.0, "payload_bytes": 12.0, "wire_bytes": 0.0,
+            "mirrored_calls": 0.0, "mirrored_wire_bytes": 0.0}
+        with collect_comm() as ledger:
+            step(params, state)
+        torch.cuda.synchronize()
+        got = ledger.as_dict()
+        print(f"  ledger of one {label} step: {json.dumps(got)}")
+        if got != want:
+            raise AssertionError(f"{label}: ledger {got} is not the pure-TP "
+                                 f"step's with the data-axis entries {want}")
+        print(f"  {label} ledger: the pure-TP step's entries, grad_psum on "
+              f"model+data, {calls} all-gathers on data ({payload} payload "
+              f"bytes, {mirrored} backward), one loss psum on data  ok")
+        # GAT's segment sums add by atomics: two runs of the same step
+        # differ in the last bits unless the order is fixed
+        with _deterministic(label):
+            pure_step0 = fns(pure_mesh)(params0, mask)
+            noise = _hold_equal(label, fns(pure_mesh)(params0, mask),
+                                pure_step0, "pure TP run twice")
+            diff = _hold_equal(label, fns(mesh)(params0, mask), pure_step0)
+        print(f"  {label}: largest step-0 difference from pure TP {diff:.3e} "
+              f"(pure TP against itself {noise:.3e}; deterministic "
+              f"algorithms)")
+        out[name] = _path_info(launches, median_ms, profile, got, losses)
+        out[name]["max_diff_vs_pure"] = diff
     return out
 
 
@@ -1277,7 +1463,7 @@ def _csr_of_tiles(blocks, rows, cols, n_out, n_in):
 
 
 def timing(bundle, data, dev):
-    """Phase 13: returns the numbers of the forward and backward chunk of
+    """Phase 14: returns the numbers of the forward and backward chunk of
     the decoupled path (d = padded classes) and of the naive path's layer-0
     forward chunk (d = padded input features), and the max|Δ| there."""
     from repro_torch.core.decouple import _pad_graph
@@ -1575,7 +1761,7 @@ def _expect(what: str, got, want) -> None:
 
 
 def serve(dev):
-    """Phase 14: Zamba2-2.7B full width, bf16, generate + timing."""
+    """Phase 15: Zamba2-2.7B full width, bf16, generate + timing."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -1663,7 +1849,7 @@ def serve(dev):
 
 
 def score(cfg, params, batch, dev):
-    """Phase 15: forward + lm_loss on 2 × 2048, under no_grad."""
+    """Phase 16: forward + lm_loss on 2 × 2048, under no_grad."""
     from repro_torch.models import transformer as T
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
@@ -1706,7 +1892,7 @@ def score(cfg, params, batch, dev):
 
 
 def cross_check_fp32(cfg, params, batch, dev) -> float:
-    """Phase 16: the kernel path against the plain versions, fp32."""
+    """Phase 17: the kernel path against the plain versions, fp32."""
     import dataclasses
 
     from repro_torch.models import transformer as T
@@ -1744,7 +1930,7 @@ def cross_check_fp32(cfg, params, batch, dev) -> float:
 
 
 def lm_timing(dev):
-    """Phase 17: one flash and one SSD launch at the LM path's shapes."""
+    """Phase 18: one flash and one SSD launch at the LM path's shapes."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
@@ -1827,7 +2013,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/17] device")
+    print("[1/18] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1841,56 +2027,61 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/17] build")
+    print("[2/18] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/17] spmm kernel against its plain version")
+    print("[3/18] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/17] flash kernel against its plain version")
+    print("[4/18] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/17] ssd kernel against its plain version")
+    print("[5/18] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/17] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/18] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/17] naive TP GCN training (a split and a gather per "
+        print("[7/18] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/17] DP halo-exchange GCN training (k=1)")
+        print("[8/18] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/17] out-of-core streamed GCN training (pinned host "
+        print("[9/18] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/17] GAT decoupled-pipelined TP training (the score "
+        print("[10/18] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/17] GAT naive TP training")
+        print("[11/18] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/17] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/18] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/17] spmm timing at the GCN paths' shapes")
+        print("[13/18] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+              "decoupled-pipelined and naive, DP, GAT")
+        hybrid_info = hybrid(bundle, data, dev, {
+            "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
+            "gat_decoupled_pipelined": gat_info}, card)
+        print("[14/18] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[14/17] LM main path, serving: Zamba2-2.7B generate")
+    print("[15/18] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[15/17] LM main path, scoring: forward + lm_loss")
+    print("[16/18] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[16/17] fp32 cross-check at full width, kernels vs plain")
+    print("[17/18] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[17/17] flash and ssd timing at the LM path's shapes")
+    print("[18/18] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
@@ -1899,7 +2090,8 @@ def main() -> int:
                       "dp": dp_info, "stream": stream_info,
                       "gat": gat_info, "gat_naive": gat_naive_info,
                       "sage": like_info["sage"], "gin": like_info["gin"],
-                      "build_s": build_s, "serve": serve_info,
+                      "hybrid": hybrid_info, "build_s": build_s,
+                      "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
                       "card": card}))
@@ -1911,7 +2103,8 @@ def main() -> int:
         "launches": gcn["launches"] + naive_info["launches"]
         + dp_info["launches"] + stream_info["launches"]
         + gat_info["launches"] + gat_naive_info["launches"]
-        + like_info["sage"]["launches"] + like_info["gin"]["launches"],
+        + like_info["sage"]["launches"] + like_info["gin"]["launches"]
+        + sum(h["launches"] for h in hybrid_info.values()),
         "launches_by_path": {"decoupled_pipelined": gcn["launches"],
                              "naive": naive_info["launches"],
                              "dp": dp_info["launches"],
@@ -1919,7 +2112,9 @@ def main() -> int:
                              "gat_decoupled_pipelined": gat_info["launches"],
                              "gat_naive": gat_naive_info["launches"],
                              "sage": like_info["sage"]["launches"],
-                             "gin": like_info["gin"]["launches"]},
+                             "gin": like_info["gin"]["launches"],
+                             **{f"hybrid_{k}": h["launches"]
+                                for k, h in hybrid_info.items()}},
         "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

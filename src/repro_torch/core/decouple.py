@@ -24,6 +24,16 @@ Every rank builds the same host-side bundle (:func:`prepare_bundle`) and
 takes its own vertex rows of it.  Parameters are replicated: the backward
 runs through the mirrored all-to-alls, and the factories sum the
 parameter gradients across ranks (``runtime.collectives`` says why).
+
+Hybrid DP×TP (a :func:`repro_torch.runtime.hybrid_mesh`, ``data_axes``
+non-empty): the vertex dim shards over every rank, model-major (rank
+(m, r) holds block ``m·R + r``, :func:`repro_torch.core.tp.vertex_block`).
+The NN phase runs on a rank's own rows; ``replica_gather`` builds the
+model worker's contiguous V/N block for the aggregation and
+``replica_slice`` returns to the replica's rows after it; the gather and
+split all-to-alls stay on the model axis; the loss sums span the model
+then the replica axes, and the gradients are summed over every rank.
+``data_axes=()`` on a hybrid mesh is pure TP inside each replica group.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ from ..graph.synthetic import GraphData
 from ..params import tree_leaves, tree_map, tree_unflatten
 from ..optim.adamw import apply_updates
 from ..runtime import collectives as C
-from ..runtime.mesh import TPMesh, padded_size
+from ..runtime.mesh import TPMesh, padded_size, resolve_bundle_degrees
 from . import agg as AGG
 from . import chunks as CH
 from . import tp
@@ -111,18 +121,30 @@ def _pad_graph(g: gf.Graph, n_padded: int) -> gf.Graph:
                     indptr=indptr)
 
 
-def prepare_bundle(data: GraphData, n_workers: int, n_chunks: int = 4,
-                   agg: str = "segment", agg_block_size: int = 128,
-                   device="cuda") -> TPBundle:
+def prepare_bundle(data: GraphData, n_workers: int | None = None,
+                   n_chunks: int = 4, n_replicas: int | None = None,
+                   mesh: TPMesh | None = None, agg: str = "segment",
+                   agg_block_size: int = 128, device="cuda") -> TPBundle:
     """Host-side prep for ``n_workers`` TP ranks, placed on ``device``.
+    Under a hybrid mesh ``n_replicas`` is the replica count, so the vertex
+    dim pads to a multiple of every rank (``n_workers·n_chunks·
+    n_replicas``).  ``mesh=`` derives both degrees from the mesh; explicit
+    ones must match it.
 
     ``agg`` selects the default aggregation backend
     (:data:`repro_torch.core.agg.AGG_BACKENDS`) and builds its per-chunk
     data: tile plans of block size ``agg_block_size`` for
     ``"blocksparse"``, dense adjacency rows (O(V²) memory — small graphs)
     for ``"dense"``.  The chunked segment view is always built."""
+    if mesh is not None:
+        n_workers, n_replicas = resolve_bundle_degrees(mesh, n_workers,
+                                                       n_replicas)
+    elif n_workers is None:
+        raise TypeError("prepare_bundle needs n_workers= (or mesh= to "
+                        "derive it)")
+    n_replicas = 1 if n_replicas is None else n_replicas
     g = data.graph
-    n_padded = padded_size(g.n, n_workers * n_chunks)
+    n_padded = padded_size(g.n, n_workers * n_chunks * n_replicas)
     gp = _pad_graph(g, n_padded)
     cg = gf.chunk_graph(gp, n_chunks)
     plan = CH.build_chunk_comm_plan(cg, n_workers, n_padded, device)
@@ -283,9 +305,16 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
     """Decoupled TP forward: this rank's (V/N, D) rows in, its (V/N, C_pad)
     logits out.  ``agg`` selects the aggregation backend of the
     propagation rounds (:mod:`repro_torch.core.agg`; GAT is pinned to
-    ``segment``, :func:`_effective_agg`)."""
+    ``segment``, :func:`_effective_agg`).
+
+    Hybrid DP×TP (``mesh`` has data axes): ``x_local`` holds only this
+    replica's rows (V/(N·R), D).  The NN phase runs on them before the replica shards
+    are gathered into the model worker's block (exact: the MLP is
+    row-wise), and the result is sliced back to this replica's rows."""
+    rep = mesh.replicas()
     agg, scale = _effective_agg(cfg, agg)
     h = M.mlp_phase(params, cfg, x_local)              # NN phase, local rows
+    h = C.replica_gather(h, rep)                       # (V/N, C)
     w_chunk = None
     if agg == "segment":
         w_flat = _edge_weights_tp(params, cfg, graph.edges, h, mesh)
@@ -296,14 +325,16 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
     if not pipelined:
         z = tp.split(h, mesh)                          # (V, C/N)
         z = _propagate_plain(graph, z, w_chunk, n_rounds, agg, scale)
-        return tp.gather(z, mesh)                      # (V/N, C)
-    if n_rounds == 1:
-        return _round_split_gather_pipelined(
+        out = tp.gather(z, mesh)                       # (V/N, C)
+    elif n_rounds == 1:
+        out = _round_split_gather_pipelined(
             h, graph, w_chunk, d_full, mesh, agg, scale)
-    z = _round_split_pipelined(h, graph, w_chunk, mesh, agg, scale)
-    z = _propagate_plain(graph, z, w_chunk, n_rounds - 2, agg, scale)
-    return _round_gather_pipelined(z, graph, w_chunk, d_full, mesh, agg,
-                                   scale)
+    else:
+        z = _round_split_pipelined(h, graph, w_chunk, mesh, agg, scale)
+        z = _propagate_plain(graph, z, w_chunk, n_rounds - 2, agg, scale)
+        out = _round_gather_pipelined(z, graph, w_chunk, d_full, mesh, agg,
+                                      scale)
+    return C.replica_slice(out, rep)
 
 
 NAIVE_MODELS = ("gcn", "gat")
@@ -320,7 +351,14 @@ def tp_naive_forward(params, cfg: M.GNNConfig, graph: TPGraph, x_local,
     first, then the score all-gathers, α, and the aggregation by segment
     sums (:func:`_effective_agg`); every all-to-all moves ``h @ w``,
     which depends on the weights, so all have a backward: 4L a step, and
-    4L all-gathers."""
+    4L all-gathers.
+
+    Hybrid DP×TP: each layer keeps only this replica's rows between
+    layers, gathers the replica shards for the aggregation (which needs
+    the model worker's whole block) and slices back before the dense
+    update, as the DP baseline does; layer 0's replica gather, like its
+    all-to-alls, has no backward."""
+    rep = mesh.replicas()
     agg, _ = _effective_agg(cfg, agg)
     h = x_local
     n_layers = cfg.num_layers
@@ -328,16 +366,19 @@ def tp_naive_forward(params, cfg: M.GNNConfig, graph: TPGraph, x_local,
         last = i == n_layers - 1
         if cfg.model == "gat":
             hw = h @ p["w"]                            # dense on local rows
+            hw = C.replica_gather(hw, rep)             # (V/N, D')
             alpha = _gat_alpha_tp(p, graph.edges, hw, mesh)
             w_chunk = L.rechunk_edge_values(graph.chunked, alpha)
             z = _aggregate_once(graph, tp.split(hw, mesh), agg, w_chunk,
                                 1.0)
-            h = tp.gather(z, mesh)
+            h = C.replica_slice(tp.gather(z, mesh), rep)
             h = h if last else F.elu(h)
         else:
-            z = tp.split(h, mesh)                      # dim-sharded
+            hf = C.replica_gather(h, rep, mirror=i > 0)  # (V/N, D) block
+            z = tp.split(hf, mesh)                     # dim-sharded
             z = _aggregate_once(graph, z, agg, None, 1.0)
-            h = L.dense(p, tp.gather(z, mesh))         # vertex-sharded
+            a = C.replica_slice(tp.gather(z, mesh), rep)  # replica's rows
+            h = L.dense(p, a)
             h = h if last else torch.relu(h)
     return h
 
@@ -355,13 +396,15 @@ _FORWARDS = {
 
 def global_loss_and_acc(logits, labels, mask, num_classes: int,
                         mesh: TPMesh):
-    """(loss, acc) over every rank's vertices from this rank's logits.
+    """(loss, acc) over every rank's vertices from this rank's logits:
+    summed over the model axis, then over the replica axes.
 
-    The three sums travel in one stacked psum of 12 bytes; the reference
-    makes three scalar psums of the same bytes."""
+    The three sums travel in one stacked psum of 12 bytes per axis group;
+    the reference makes three scalar psums of the same bytes."""
     sums = torch.stack(M.masked_loss_and_acc(logits, labels, mask,
                                              num_classes))
-    loss_sum, correct, cnt = C.psum(sums, mesh.group, axis=mesh.axis)
+    sums = C.psum(sums, mesh.group, axis=mesh.axis)
+    loss_sum, correct, cnt = C.psum_replicas(sums, mesh.replicas())
     cnt = torch.clamp(cnt, min=1.0)
     return loss_sum / cnt, correct / cnt
 
@@ -389,18 +432,29 @@ def _make_tp_loss_and_acc(cfg: M.GNNConfig, mesh: TPMesh, mode: str,
 
 
 def _check_bundle_fits(bundle: TPBundle, mesh: TPMesh) -> None:
-    mesh.validate_divisible(n_vertices=bundle.n_padded,
-                            dim=bundle.in_dim_padded)
-    if bundle.n_workers != mesh.size:
+    """Fail early with a padding hint when the bundle was prepared for
+    another (model, data) shape than the execution will use (the pure-TP
+    view of a hybrid mesh validates against the model degree alone)."""
+    n, replicas = mesh.size, mesh.data_size
+    try:
+        mesh.validate_divisible(n_vertices=bundle.n_padded,
+                                dim=bundle.in_dim_padded)
+    except ValueError as e:
         raise ValueError(
-            f"bundle prepared for n_workers={bundle.n_workers} but the "
-            f"mesh has {mesh.size} ranks — re-run prepare_bundle with "
-            f"n_workers={mesh.size}")
+            f"{e} Re-run prepare_bundle with n_workers={n}, "
+            f"n_replicas={replicas}.") from None
+    if bundle.n_workers != n:
+        raise ValueError(
+            f"bundle prepared for n_workers={bundle.n_workers} but mesh "
+            f"model degree is {n} — re-run prepare_bundle with the "
+            f"mesh's model degree (and n_replicas={replicas})")
 
 
 def _local_rows(bundle: TPBundle, mesh: TPMesh) -> slice:
-    shard = bundle.n_padded // mesh.size
-    return slice(mesh.index * shard, (mesh.index + 1) * shard)
+    """This rank's vertex rows: block ``m·R + r`` of V/(N·R)."""
+    idx, count = tp.vertex_block(mesh)
+    shard = bundle.n_padded // count
+    return slice(idx * shard, (idx + 1) * shard)
 
 
 def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
@@ -421,9 +475,15 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
 
 def sum_grads(grads, mesh: TPMesh) -> list:
     """The replicated parameters' gradients (a list of tensors) summed
-    across ranks in one all-reduce (ledger op ``grad_psum``)."""
-    flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), mesh.group,
-                  axis=mesh.axis, op="grad_psum")
+    across ranks in one all-reduce (ledger op ``grad_psum``): over the
+    model group, or under hybrid DP×TP over every rank of the mesh (the
+    default group), with the label ``model+data`` (``model+pod+data``)."""
+    if mesh.data_axes:
+        group, axis = None, (mesh.axis,) + mesh.data_axes
+    else:
+        group, axis = mesh.group, mesh.axis
+    flat = C.psum(torch.cat([g.reshape(-1) for g in grads]), group,
+                  axis=axis, op="grad_psum")
     return [f.view_as(g) for f, g in
             zip(flat.split([g.numel() for g in grads]), grads)]
 
@@ -439,7 +499,8 @@ def value_and_grad(loss_and_acc, mesh: TPMesh):
         # weights on the decoupled path) gets zeros, as under JAX
         grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), tree_unflatten(params, sum_grads(grads, mesh))
+        return loss.detach(), tree_unflatten(
+            params, sum_grads(grads, mesh))
 
     return value_and_grad_fn
 
@@ -463,22 +524,29 @@ def train_fns(loss_and_acc, mesh: TPMesh, optimizer, masks: dict):
 
 
 def make_tp_value_and_grad(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
-                           mode: str = "decoupled_pipelined", agg=None):
+                           mode: str = "decoupled_pipelined", agg=None,
+                           data_axes=None):
     """(params, mask) → (loss, grads), with ``mask`` over all vertices and
     the grads summed across ranks (the same on every rank).  ``agg=None``
-    uses the bundle's prepared aggregation backend."""
+    uses the bundle's prepared aggregation backend; ``data_axes=None``
+    the mesh's replica axes (``()``: pure TP on a hybrid mesh)."""
+    mesh = mesh.for_data_axes(data_axes)
     return value_and_grad(_make_local_loss(cfg, bundle, mesh, mode, agg),
                           mesh)
 
 
 def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
                       optimizer, mode: str = "decoupled_pipelined",
-                      agg=None):
+                      agg=None, data_axes=None):
     """(train_step, evaluate) for TP training.
 
     ``train_step(params, opt_state) → (params, opt_state, loss)``;
     ``evaluate(params, split) → (loss, acc)`` over the ``"train"``,
     ``"val"`` or ``"test"`` mask.  ``mode`` ∈ {decoupled,
-    decoupled_pipelined, naive}; ``agg=None`` uses the bundle's backend."""
+    decoupled_pipelined, naive}; ``agg=None`` uses the bundle's backend;
+    ``data_axes=None`` derives the replica axes from ``mesh`` (hybrid
+    DP×TP on a :func:`repro_torch.runtime.hybrid_mesh`), ``()`` forces
+    pure TP."""
+    mesh = mesh.for_data_axes(data_axes)
     return train_fns(_make_local_loss(cfg, bundle, mesh, mode, agg), mesh,
                      optimizer, bundle.masks())

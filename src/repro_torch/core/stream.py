@@ -42,7 +42,8 @@ How it differs from the reference (``repro.core.stream``):
   (:meth:`HostFeatureStore.rank_block`), what the reference's placement
   hands each worker; the reference records the whole stripe per process.
 * Only the ``"explicit"`` engine backend exists; ``backend="constraint"``
-  raises, and there is no hybrid DP×TP mesh to stream (ROADMAP item 12).
+  raises (ROADMAP item 12b).  A hybrid DP×TP mesh raises the reference's
+  gate: the stripe slicing is pure-TP vertex-sharded.
 
 ``decoupled_pipelined`` is accepted as an alias of ``decoupled``, as in
 the reference: under streaming the asynchronous copies give the overlap
@@ -360,7 +361,13 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
         raise ValueError(
             f"stream backend {backend!r} is not ported: repro_torch has "
             f"only the 'explicit' engine backend; the 'constraint' backend "
-            f"and the hybrid DP×TP meshes are ROADMAP item 12")
+            f"is ROADMAP item 12b")
+    if mesh.data_axes:
+        raise ValueError(
+            f"make_stream_value_and_grad: hybrid DP×TP meshes (data axes "
+            f"{mesh.data_axes}) are not streamable — the stripe slicing "
+            f"contract is pure-TP vertex-sharded.  Use a pure-TP mesh "
+            f"(runtime.TPMesh()) or the in-memory prepare_bundle path.")
     agg = _resolve_stream_agg(sb, agg)
     _check_streamable(cfg, sb, mode)
     if mesh.size != sb.n_workers:

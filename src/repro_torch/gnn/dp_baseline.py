@@ -14,8 +14,11 @@ builds the same bundle and takes its own partition (index ``mesh.index``):
 one process per worker, L halo all-to-alls forward and L−1 backward (layer
 0's input features carry no gradient).
 
-Pure data parallelism only: hybrid DP×TP meshes, the constraint backend
-and streamed placement are ROADMAP queue 1 items 12–14.
+On a hybrid (data, model) mesh the partitions stay on the model axis
+(halo all-to-alls unchanged) while each partition's rows also shard over
+the data axes: the dense updates run on 1/replicas of the rows, each layer
+gathers the replica shards for the halo exchange and the aggregation and
+slices back after it, and the gradients are summed over every rank.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from ..graph import partition as gp
 from ..graph.synthetic import GraphData
 from ..kernels import spmm as SP
 from ..runtime import collectives as C
-from ..runtime.mesh import TPMesh
+from ..runtime.mesh import TPMesh, resolve_bundle_degrees
 from . import layers as L
 from . import models as M
 
@@ -76,11 +79,17 @@ class DPBundle:
                 "test": self.test_mask}
 
 
-def prepare_dp_bundle(data: GraphData, k: int, balance: str = "vertex",
-                      n_replicas: int = 1, agg: str = "segment",
+def prepare_dp_bundle(data: GraphData, k: int | None = None,
+                      balance: str = "vertex",
+                      n_replicas: int | None = None,
+                      mesh: TPMesh | None = None, agg: str = "segment",
                       agg_block_size: int = 128,
                       device="cuda") -> DPBundle:
-    """``k`` graph partitions, placed on ``device``.
+    """``k`` graph partitions (the model axis), placed on ``device``; under
+    a hybrid mesh ``n_replicas`` pads each partition's row count to a
+    multiple of it, so the local rows also shard over the data axes.
+    ``mesh=`` derives both counts from the mesh; explicit ones must match
+    it.
 
     ``agg`` selects the default aggregation backend
     (:data:`repro_torch.core.agg.AGG_BACKENDS`): ``"blocksparse"`` builds
@@ -88,13 +97,19 @@ def prepare_dp_bundle(data: GraphData, k: int, balance: str = "vertex",
     local+halo source rows, block size ``agg_block_size``), ``"dense"``
     the per-worker dense rows.  The segment edge lists are always built."""
     AGG.validate_backend(agg)
-    if n_replicas != 1:
-        raise ValueError("hybrid DP×TP (n_replicas > 1) is not ported "
-                         "(ROADMAP queue 1 item 12)")
+    if mesh is not None:
+        k, n_replicas = resolve_bundle_degrees(
+            mesh, k, n_replicas, caller="prepare_dp_bundle",
+            worker_name="k")
+    elif k is None:
+        raise TypeError("prepare_dp_bundle needs k= (or mesh= to derive "
+                        "it)")
+    n_replicas = 1 if n_replicas is None else n_replicas
     g = data.graph
     part = gp.chunk_partition(g, k, balance=balance)
     plan = gp.halo_plan(g, part)
     n_local_max = int(plan.n_local.max())
+    n_local_max = -(-n_local_max // n_replicas) * n_replicas
     e_max = max(1, max(len(s) for s in plan.local_src))
 
     send_local = np.full((k, k, plan.m), -1, dtype=np.int32)
@@ -208,10 +223,20 @@ def dp_aggregate(h_local: torch.Tensor, g: DPGraph, mesh: TPMesh,
 def dp_coupled_forward(params, cfg: M.GNNConfig, g: DPGraph, x_local,
                        mesh: TPMesh, agg: str = "segment"):
     """Classic coupled data-parallel GCN: per layer a halo exchange, the
-    local aggregation and the dense update on this worker's rows."""
+    local aggregation and the dense update on this worker's rows.
+
+    Hybrid DP×TP (``mesh`` has data axes): ``x_local`` holds only this
+    replica's block of the
+    partition's rows; each layer gathers the replica shards (the halo
+    exchange and the aggregation need every local row), then slices back
+    so the dense update runs on 1/replicas of the rows.  Layer 0's gather
+    moves the input features: no backward."""
+    rep = mesh.replicas()
     h = x_local
     for i, p in enumerate(params["layers"]):
-        h = L.dense(p, dp_aggregate(h, g, mesh, agg))
+        h_full = C.replica_gather(h, rep, mirror=i > 0)
+        a = C.replica_slice(dp_aggregate(h_full, g, mesh, agg), rep)
+        h = L.dense(p, a)
         if i < cfg.num_layers - 1:
             h = torch.relu(h)
     return h
@@ -221,48 +246,70 @@ def dp_coupled_forward(params, cfg: M.GNNConfig, g: DPGraph, x_local,
 # Loss / train-step factories
 # ---------------------------------------------------------------------------
 
+def _resolve_dp_axes(bundle: DPBundle, mesh: TPMesh, data_axes) -> TPMesh:
+    """The mesh of the execution over ``data_axes``
+    (:meth:`TPMesh.for_data_axes`), with the bundle's padding checked
+    against it."""
+    mesh = mesh.for_data_axes(data_axes)
+    k, replicas = mesh.size, mesh.data_size
+    g = bundle.graph
+    if g.k != k:
+        raise ValueError(
+            f"DP bundle partitioned for k={g.k} workers but mesh model "
+            f"degree is {k} — re-run prepare_dp_bundle with k={k}")
+    if g.n_local_max % replicas:
+        raise ValueError(
+            f"DP bundle rows n_local_max={g.n_local_max} do not divide "
+            f"the {replicas} replicas — re-run prepare_dp_bundle with "
+            f"n_replicas={replicas}")
+    return mesh
+
+
 def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
-                     agg, data_axes):
-    """(params, mask) → (loss, acc) on this rank's partition, with ``mask``
-    over every partition, (k, n_local_max)."""
-    if data_axes:
-        raise ValueError("hybrid DP×TP (data_axes) is not ported (ROADMAP "
-                         "queue 1 item 12)")
+                     agg):
+    """(params, mask) → (loss, acc) on this rank's rows of its partition,
+    with ``mask`` over every partition, (k, n_local_max)."""
     if cfg.model != "gcn":
         raise ValueError(
             f"the DP halo-exchange baseline trains GCN only, as the "
             f"reference's dp_coupled_forward does (its layers are GCN "
             f"updates); got model {cfg.model!r}")
     g = bundle.graph
-    if g.k != mesh.size:
-        raise ValueError(
-            f"DP bundle partitioned for k={g.k} workers but the mesh has "
-            f"{mesh.size} ranks — re-run prepare_dp_bundle with "
-            f"k={mesh.size}")
     agg = AGG.resolve_choice(g, agg)
-    i = mesh.index
-    x, labels, valid = bundle.features[i], bundle.labels[i], g.valid_rows[i]
+    i, rep = mesh.index, mesh.replicas()
+
+    def mine(a):
+        """This rank's rows of partition i of a (k, n_local_max, ...)."""
+        return C.replica_slice(a[i], rep)
+
+    x, labels = mine(bundle.features), mine(bundle.labels)
+    valid = mine(g.valid_rows)
 
     def loss_and_acc(params, mask):
         logits = dp_coupled_forward(params, cfg, g, x, mesh, agg)
-        return D.global_loss_and_acc(logits, labels, mask[i] * valid,
+        return D.global_loss_and_acc(logits, labels, mine(mask) * valid,
                                      bundle.num_classes, mesh)
 
     return loss_and_acc
 
 
 def make_dp_value_and_grad(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
-                           agg: str | None = None, data_axes=()):
+                           agg: str | None = None, data_axes=None):
     """(params, mask) → (loss, grads), the grads summed across ranks.
-    ``agg=None`` keeps the bundle's prepared aggregation backend."""
-    return D.value_and_grad(
-        _make_local_loss(cfg, bundle, mesh, agg, data_axes), mesh)
+    ``agg=None`` keeps the bundle's prepared aggregation backend;
+    ``data_axes=None`` derives the replica axes from ``mesh``, ``()``
+    forces the pure partition-parallel baseline."""
+    mesh = _resolve_dp_axes(bundle, mesh, data_axes)
+    return D.value_and_grad(_make_local_loss(cfg, bundle, mesh, agg), mesh)
 
 
 def make_dp_train_fns(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
-                      optimizer, agg: str | None = None, data_axes=()):
+                      optimizer, agg: str | None = None, data_axes=None):
     """(train_step, evaluate) for the DP baseline (GCN), with the
     signatures of :func:`repro_torch.core.decouple.make_tp_train_fns`.
-    ``agg=None`` keeps the bundle's prepared aggregation backend."""
-    return D.train_fns(_make_local_loss(cfg, bundle, mesh, agg, data_axes),
-                       mesh, optimizer, bundle.masks())
+    ``agg=None`` keeps the bundle's prepared aggregation backend;
+    ``data_axes=None`` derives the replica axes from ``mesh`` (hybrid
+    DP×TP: partition rows shard over the data axes)."""
+    mesh = _resolve_dp_axes(bundle, mesh, data_axes)
+    return D.train_fns(_make_local_loss(cfg, bundle, mesh, agg), mesh,
+                       optimizer, bundle.masks())

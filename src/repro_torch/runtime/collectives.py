@@ -11,8 +11,10 @@ initialised by the caller.
   rather than taken from ``torch.distributed.nn``.
 * :func:`all_gather` is too: its backward is the reduce-scatter, the
   cotangent summed across ranks and then this rank's slice.  Every rank
-  uses the whole gathered vector (GAT's attention scores), so the
-  gradient of one rank's slice is the sum of every rank's use of it.
+  uses the whole gathered tensor (GAT's attention scores, the replica
+  gathers' rows), so the gradient of one rank's slice is the sum of every
+  rank's use of it.  NCCL runs it as one ``reduce_scatter_tensor``; gloo,
+  which has none, as an all-reduce and a slice.
 * :func:`psum` sums across ranks.  Its backward passes the cotangent
   through unchanged: the summed value is the same on every rank, and each
   rank seeds its backward from it, so the gradient of what each rank
@@ -22,8 +24,14 @@ initialised by the caller.
   ``grad_psum``) — the step JAX's ``shard_map`` transpose performs
   implicitly.
 
+Replica ops (:func:`replica_gather`, :func:`replica_slice`,
+:func:`psum_replicas`, :func:`replica_index`, :func:`replica_size`) carry
+hybrid DP×TP traffic across the data/pod axes, named by a
+:class:`Replicas`; each is the identity for ``Replicas()`` (pure TP).
+
 Each call reports its operand to the collecting ledgers
-(:mod:`.telemetry`) under its ``axis`` label (the mesh's, ``"model"``).
+(:mod:`.telemetry`) under its ``axis`` label (the mesh's, ``"model"``; a
+tuple of axes, such as ``("pod", "data")``, for a group that spans them).
 The backward of the all-to-all and of the all-gather reports the mirrored
 call when it runs, under the forward operand's shape and into the ledgers
 that were collecting when its forward ran: autograd runs the backward of
@@ -31,6 +39,10 @@ CUDA tensors on a thread of its own, which does not see the caller's
 context.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
 
 import torch
 import torch.distributed as dist
@@ -48,8 +60,10 @@ def axis_size(group=None) -> int:
     return dist.get_world_size(group)
 
 
-def _record(op: str, axis: str, x: torch.Tensor, group, ledgers,
+def _record(op: str, axis, x: torch.Tensor, group, ledgers,
             backward: bool = False) -> None:
+    """Report ``x`` under ``axis`` (a name or a tuple of names), whose
+    group size is ``group``'s: for a tuple, the product of its axes'."""
     if ledgers:
         T.record(op, axis, x, group_size=axis_size(group),
                  backward=backward, ledgers=ledgers)
@@ -108,12 +122,18 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         group, axis = ctx.args
-        # the reduce-scatter, as an all-reduce and a slice: the list-free
-        # reduce-scatter is missing from older gloo builds, and the
-        # operand is one (V,) vector
-        g = g.contiguous().clone()
-        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
-        out = g.chunk(axis_size(group))[axis_index(group)]
+        n, g = axis_size(group), g.contiguous()
+        if dist.get_backend(group) == dist.Backend.NCCL:
+            out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
+            dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM,
+                                       group=group)
+        else:
+            # gloo has no reduce-scatter of one tensor: an all-reduce and
+            # this rank's slice, which moves about twice the bytes the
+            # ledger records (the reduce-scatter's)
+            g = g.clone()
+            dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+            out = g.chunk(n)[axis_index(group)]
         _record("all_gather", axis, out, group, ctx.ledgers, backward=True)
         return out, None, None
 
@@ -138,10 +158,99 @@ class _Psum(torch.autograd.Function):
         return g, None
 
 
-def psum(x: torch.Tensor, group=None, *, axis: str = "model",
+def psum(x: torch.Tensor, group=None, *, axis="model",
          op: str = "psum") -> torch.Tensor:
     """Sum ``x`` across the ranks of ``group`` (see the module docstring
-    for its backward).  ``op`` is the ledger's op kind: ``"grad_psum"``
-    for the replicated parameters' gradient all-reduce."""
+    for its backward); ``axis`` is the ledger's label, a tuple where the
+    group spans several axes.  ``op`` is the ledger's op kind:
+    ``"grad_psum"`` for the replicated parameters' gradient all-reduce."""
     _record(op, axis, x, group, T.active_ledgers())
     return _Psum.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# Replica (data/pod) axis ops — hybrid DP×TP
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Replicas:
+    """The replica axes a hybrid DP×TP op spans: their names, outermost
+    first, this rank's group on each, and its group over all of them
+    together, whose rank order is the flattened replica coordinate
+    (``TPMesh.replicas`` builds one).  ``Replicas()`` is pure TP."""
+
+    axes: tuple[str, ...] = ()
+    groups: tuple = ()
+    group: Any = None
+
+
+def replica_index(rep: Replicas) -> int:
+    """Flattened replica coordinate over ``rep.axes`` (major-to-minor,
+    outermost first — the block order of the hybrid vertex layout).  0
+    for ``Replicas()``."""
+    idx = 0
+    for g in rep.groups:
+        idx = idx * axis_size(g) + axis_index(g)
+    return idx
+
+
+def replica_size(rep: Replicas) -> int:
+    """Total replica count (product of the data-axis sizes; 1 for
+    ``Replicas()``)."""
+    return math.prod(axis_size(g) for g in rep.groups)
+
+
+def replica_gather(x: torch.Tensor, rep: Replicas, *,
+                   mirror: bool = True) -> torch.Tensor:
+    """Concatenate the replica shards of ``x`` along dim 0.
+
+    One all-gather per data axis, innermost first, so that for rows
+    sharded model-major over ``(model,) + axes`` the result is the model
+    worker's contiguous block in global row order.  Its backward is the
+    all-gather's reduce-scatter on each axis — the cross-replica gradient
+    reduction of hybrid DP×TP — and records as the reference's
+    ``mirror=True`` entry.  ``mirror=False`` declares that ``x`` carries
+    no gradient (layer 0's input features), so no backward runs and none
+    is recorded; a ``x`` that does require one raises.  Identity for
+    ``Replicas()``."""
+    if not mirror and x.requires_grad:
+        raise ValueError(
+            "replica_gather(mirror=False) on a tensor that requires grad: "
+            "its backward would run and be recorded — pass mirror=True")
+    for a, g in zip(reversed(rep.axes), reversed(rep.groups)):
+        x = all_gather(x, g, axis=a)
+    return x
+
+
+def _replica_block(length: int, n: int, axis: int,
+                   data_axes: tuple[str, ...]) -> int:
+    """Per-replica block length, refusing to silently truncate: a floor
+    would drop the trailing ``length % n`` rows of every replica."""
+    block, rem = divmod(length, n)
+    if rem:
+        raise ValueError(
+            f"replica_slice: axis {axis} of length {length} does not "
+            f"divide the replica count {n} (= product of data axes "
+            f"{data_axes!r}) — flooring would silently drop {rem} "
+            f"trailing rows per replica; pad the axis to a multiple of "
+            f"{n} first (runtime.padded_size)")
+    return block
+
+
+def replica_slice(x: torch.Tensor, rep: Replicas) -> torch.Tensor:
+    """This replica's block of ``x`` along dim 0 (inverse of
+    :func:`replica_gather` on replica-identical values).  Identity for
+    ``Replicas()``; raises when dim 0 does not divide the replica count
+    instead of silently truncating."""
+    if not rep.axes:
+        return x
+    block = _replica_block(x.shape[0], replica_size(rep), 0, rep.axes)
+    return x.narrow(0, replica_index(rep) * block, block)
+
+
+def psum_replicas(x: torch.Tensor, rep: Replicas) -> torch.Tensor:
+    """Sum ``x`` across the replica axes (recorded under their joined
+    label, ``"pod+data"``).  Identity for ``Replicas()``."""
+    if not rep.axes:
+        return x
+    return psum(x, rep.group, axis=rep.axes)

@@ -43,7 +43,13 @@ How the port's semantics differ from the reference's:
   reference leaves it out of its ledger scope (it is an implicit
   ``shard_map`` transpose there).  The port runs it explicitly and
   records it under its own op kind, ``grad_psum``, at the ring cost of a
-  ``psum``, so the reference's keys are unchanged.
+  ``psum``, so the reference's keys are unchanged.  Under hybrid DP×TP it
+  spans every rank, model and replicas, in one call keyed
+  ``grad_psum|model+data`` (``model+pod+data``) with the group size N·R.
+* **The loss sums travel stacked.**  (loss, correct, count) go in one
+  psum of 12 bytes per axis group where the reference makes three scalar
+  psums of the same bytes: one call on ``psum|model`` and, under hybrid
+  DP×TP, one on the replica axes (``psum|data``, ``psum|pod+data``).
 * **A hand-run backward records as one.**  The out-of-core epoch
   (:mod:`repro_torch.core.stream`) runs the split's transpose itself, as
   a gather outside autograd.  The reference's ``mirror_scope`` drops that

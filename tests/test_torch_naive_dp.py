@@ -230,12 +230,24 @@ def test_dp_bundle_arrays_equal(agg, balance):
 
 
 def test_dp_rejects_unported_options(one_rank):
-    _, tdata = one_rank
-    with pytest.raises(ValueError, match="item 12"):
-        tDP.prepare_dp_bundle(tdata, k=1, n_replicas=2, device="cpu")
+    jdata, tdata = one_rank
+    # n_replicas pads each partition's rows to a multiple, as the
+    # reference does (130 rows: 2 divides, 4 pads to 132)
+    for r in (2, 4):
+        jb = jDP.prepare_dp_bundle(jdata, k=1, n_replicas=r)
+        tb = tDP.prepare_dp_bundle(tdata, k=1, n_replicas=r, device="cpu")
+        assert tb.graph.n_local_max == jb.graph.n_local_max
+        np.testing.assert_array_equal(tb.features.numpy(),
+                                      np.asarray(jb.features))
+        np.testing.assert_array_equal(tb.graph.valid_rows.numpy(),
+                                      np.asarray(jb.graph.valid_rows))
     tb = tDP.prepare_dp_bundle(tdata, k=1, device="cpu")
-    _, tcfg = _dp_cfgs(2)
-    with pytest.raises(ValueError, match="item 12"):
+    jcfg, tcfg = _dp_cfgs(2)
+    # data axes that a pure-TP mesh does not have: the reference's error
+    with pytest.raises(KeyError, match="data"):
+        jDP.make_dp_value_and_grad(jcfg, jDP.prepare_dp_bundle(jdata, k=1),
+                                   tp_mesh(1), data_axes=("data",))
+    with pytest.raises(KeyError, match="data"):
         tDP.make_dp_value_and_grad(tcfg, tb, TPMesh(), data_axes=("data",))
     with pytest.raises(ValueError, match="k=1"):
         tDP.make_dp_value_and_grad(
