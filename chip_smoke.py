@@ -131,7 +131,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               psum of 12 bytes; 0 wire bytes); step-0 loss and grads
               within rtol 1e-6 of the pure-TP path, the largest
               difference printed;
-14. spmm-t  — the forward and the backward chunk at the decoupled path's
+14. constraint — the constraint engine backend (``backend="constraint"``:
+              global-view DTensor programs, every layout transition run
+              through ``runtime/collectives.py``, DTensor's own
+              collectives only the loss and gradient all-reduces) on six
+              paths, each beside its explicit twin in the same phase (3
+              warm-up + 5 timed steps each, one step profiled): GCN
+              decoupled (``decoupled_pipelined`` is its alias: its step-0
+              and ledger equal decoupled's, 4 all-to-alls a step), GCN
+              naive, DP (k=1), GAT decoupled, the streamed epoch (phase
+              9's bundle) and GCN decoupled on ``hybrid_mesh(1, 1)``.
+              Held: 16 / 12 / 3 / 0 / 16 / 16 SpMM launches a step; one
+              step's all-to-all, all-gather and h2d entries equal to the
+              explicit twin's, and no psum or grad_psum entries (those
+              reductions are DTensor's); step-0 loss and grads within
+              rtol 1e-6 of the twin's under deterministic algorithms; a
+              ``CommDebugMode`` census of one step (forward and the
+              reductions: the backward runs on autograd's thread, which
+              the mode does not see) with no DTensor collective but
+              all-reduces, the counts printed (none at one rank);
+15. spmm-t  — the forward and the backward chunk at the decoupled path's
               shapes and the naive path's layer-0 forward chunk (d=602):
               the kernel held against the plain version on chunk
               0's tiles and on its arrays, a repeat launch bitwise equal,
@@ -142,7 +161,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the memset of its flags, printed apart), beside the CUDA-event
               time of a call, the plain version and the bound of these
               inputs (nonzeros, row pointers, h once, output once);
-15. serve   — the LM main path: Zamba2-2.7B at full width and depth
+16. serve   — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random weights from seed 0 drawn on the
               card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
               ``generate`` of 2 prompts × 2048 tokens from
@@ -150,17 +169,17 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               launches in prefill (all of the tensor-core kernel) and none
               in decode; then prefill and
               decode timed (medians) and one prefill profiled;
-16. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
+17. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
               under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
               launches, a
               finite loss; timed and profiled;
-17. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
+18. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
               path against the same path with both plain versions patched
               in on the card — prefill logits within 1e-4·max|ref|,
               identical greedy tokens over 8 steps, scoring loss within
-              1e-5 relative; and the bf16 scoring loss of phase 16 beside
+              1e-5 relative; and the bf16 scoring loss of phase 17 beside
               its plain-version twin (printed, not gated);
-18. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
+19. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
               its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
               (per element, as phase 4); one bf16 launch there timed beside
               its plain version, ``scaled_dot_product_attention`` on the
@@ -375,7 +394,7 @@ def _drive(name, step, evaluate, params0, opt, per_step: int, why: str,
            timed: int = 10):
     """3 warm-up + ``timed`` steps of ``step`` from ``params0``: finite and
     falling loss, ``per_step`` SpMM launches on every step (``why`` says
-    whence).  The launch count is zeroed just before the steps and read
+    whence); then the val accuracy, where there is an ``evaluate``.  The launch count is zeroed just before the steps and read
     just after.  Returns (params, opt state, losses, launches, median
     step ms)."""
     from repro_torch.kernels.spmm import spmm_csr
@@ -406,8 +425,9 @@ def _drive(name, step, evaluate, params0, opt, per_step: int, why: str,
         raise AssertionError(f"{name}: expected {per_step} kernel launches "
                              f"per step ({why}), got {launches} in {steps} "
                              f"steps")
-    _, val_acc = evaluate(params, "val")
-    print(f"  val accuracy after {steps} steps {val_acc.item():.4f}")
+    if evaluate is not None:
+        _, val_acc = evaluate(params, "val")
+        print(f"  val accuracy after {steps} steps {val_acc.item():.4f}")
     return params, state, losses, launches, median_ms
 
 
@@ -922,6 +942,162 @@ def hybrid(bundle, data, dev, pure: dict, card: str) -> dict:
               f"algorithms)")
         out[name] = _path_info(launches, median_ms, profile, got, losses)
         out[name]["max_diff_vs_pure"] = diff
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The constraint engine backend
+# ---------------------------------------------------------------------------
+
+def _moved(ledger: dict) -> dict:
+    """The ledger's all-to-all, all-gather and h2d entries."""
+    return {k: v for k, v in ledger.items()
+            if k.split("|")[0] in ("all_to_all", "all_gather", "h2d")}
+
+
+def constraint(bundle, data, dev, card: str) -> dict:
+    """Phase 14: the constraint engine backend on six paths, each beside
+    its explicit twin: GCN decoupled (and its alias), naive, DP, GAT
+    decoupled, the streamed epoch and GCN decoupled on a hybrid mesh."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.core import stream as ST
+    from repro_torch.gnn import dp_baseline as DP
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh, hybrid_mesh
+    from repro_torch.runtime.telemetry import collect_comm
+
+    mesh, hmesh = TPMesh(), hybrid_mesh(model=1, data=1)
+    t0 = time.perf_counter()
+    dp_bundle = DP.prepare_dp_bundle(data, k=1, agg="blocksparse",
+                                     agg_block_size=128, device=dev)
+    sb = ST.prepare_stream_bundle(data, 1, n_chunks=4, n_stripes=16,
+                                  agg="blocksparse", agg_block_size=128,
+                                  device=dev)
+    torch.cuda.synchronize()
+    print(f"  DP (k=1) and stream (4 chunks, 16 stripes) bundles prepared "
+          f"in {time.perf_counter() - t0:.1f} s")
+    gcn_cfg = D.padded_gnn_config(data, bundle, hidden_dim=128, num_layers=2)
+    gat_cfg = D.padded_gnn_config(data, bundle, model="gat", hidden_dim=128,
+                                  num_layers=2)
+    dp_cfg = M.GNNConfig(in_dim=data.features.shape[1], hidden_dim=128,
+                         num_classes=data.num_classes, num_layers=2)
+    st_cfg = ST.stream_gnn_config(data, sb, hidden_dim=128, num_layers=2)
+
+    def tp(cfg, mode, m):
+        def fns(backend, opt=None):
+            if opt is None:
+                return D.make_tp_value_and_grad(cfg, bundle, m, mode=mode,
+                                                backend=backend)
+            return D.make_tp_train_fns(cfg, bundle, m, opt, mode=mode,
+                                       backend=backend)
+        return fns
+
+    def dp(backend, opt=None):
+        if opt is None:
+            return DP.make_dp_value_and_grad(dp_cfg, dp_bundle, mesh,
+                                             backend=backend)
+        return DP.make_dp_train_fns(dp_cfg, dp_bundle, mesh, opt,
+                                    backend=backend)
+
+    def stream(backend, opt=None):
+        vg = ST.make_stream_value_and_grad(st_cfg, sb, mesh, backend=backend)
+        return vg if opt is None else (
+            _stream_step_fn(vg, opt, sb.train_mask), None)
+
+    # path: (cfg, factory, train mask, SpMM launches a step, why)
+    paths = {
+        "decoupled": (gcn_cfg, tp(gcn_cfg, "decoupled", mesh),
+                      bundle.train_mask, 16,
+                      "2 rounds × 4 chunks × forward and backward"),
+        "naive": (gcn_cfg, tp(gcn_cfg, "naive", mesh), bundle.train_mask,
+                  12, "layer 0 forward only, layer 1 forward and backward"),
+        "dp": (dp_cfg, dp, dp_bundle.train_mask, 3,
+               "one per layer forward, and layer 1's backward"),
+        "gat_decoupled": (gat_cfg, tp(gat_cfg, "decoupled", mesh),
+                          bundle.train_mask, 0,
+                          "GAT's edge weights are computed at run time: "
+                          "segment sums"),
+        "stream": (st_cfg, stream, sb.train_mask, 16,
+                   "2 rounds × 4 chunks on the half plans + 2 × 4 on the "
+                   "transposed half plans"),
+        "hybrid_decoupled": (gcn_cfg, tp(gcn_cfg, "decoupled", hmesh),
+                             bundle.train_mask, 16,
+                             "2 rounds × 4 chunks × forward and backward"),
+    }
+    out = {}
+    for name, (cfg, fns, mask, per_step, why) in paths.items():
+        label = f"constraint {name}"
+        params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        runs = {}
+        for backend in ("explicit", "constraint"):
+            opt = optim.adamw(1e-2, weight_decay=5e-4)
+            step, evaluate = fns(backend, opt)
+            params, state, losses, launches, median_ms = _drive(
+                f"{backend} {name}", step, evaluate, params0, opt, per_step,
+                why, timed=5)
+            profile = _profile(lambda: step(params, state),
+                               f"{backend} {name} step")
+            with collect_comm() as ledger:
+                step(params, state)
+            torch.cuda.synchronize()
+            runs[backend] = _path_info(launches, median_ms, profile,
+                                       ledger.as_dict(), losses)
+        got, want = runs["constraint"]["ledger"], runs["explicit"]["ledger"]
+        print(f"  ledger of one {label} step: {json.dumps(got)}")
+        if set(got) != set(_moved(got)) or _moved(got) != _moved(want):
+            raise AssertionError(
+                f"{label}: ledger {got} is not the explicit step's "
+                f"all-to-all, all-gather and h2d entries {_moved(want)}")
+        print(f"  {label} ledger: the explicit twin's all-to-all, all-gather "
+              f"and h2d entries, no psum or grad_psum  ok")
+        vg = fns("constraint")
+        with CommDebugMode() as census:
+            vg(params0, mask)
+        torch.cuda.synchronize()
+        counts = {str(k): v for k, v in census.get_comm_counts().items()}
+        own = {k: v for k, v in counts.items()
+               if k.startswith("c10d_functional.")}
+        if set(own) - {"c10d_functional.all_reduce"}:
+            raise AssertionError(f"{label}: DTensor ran collectives other "
+                                 f"than all-reduces: {counts}")
+        print(f"  {label}: CommDebugMode over one step {counts}; DTensor's "
+              f"own {own or 'none (one rank)'}  ok")
+        with _deterministic(label):
+            twin = fns("explicit")(params0, mask)
+            step0 = vg(params0, mask)
+            diff = _hold_equal(label, step0, twin, "constraint vs explicit")
+            if name == "decoupled":
+                alias = tp(gcn_cfg, "decoupled_pipelined", mesh)("constraint")
+                with collect_comm() as ledger:
+                    got_alias = alias(params0, mask)
+                _hold_equal(label, got_alias, step0,
+                            "decoupled_pipelined (the alias) vs decoupled")
+                with collect_comm() as led_d:
+                    vg(params0, mask)
+                calls = ledger.call_count("all_to_all", train=True)
+                if ledger.as_dict() != led_d.as_dict() or calls != 4:
+                    raise AssertionError(
+                        f"{label}: the alias's ledger "
+                        f"{ledger.as_dict()} is not decoupled's "
+                        f"{led_d.as_dict()} (4 all-to-alls)")
+                print(f"  {label}: decoupled_pipelined is its alias: the "
+                      f"same step-0 and ledger, {calls:.0f} all-to-alls a "
+                      f"step  ok")
+        print(f"  {label}: largest step-0 difference from the explicit "
+              f"twin {diff:.3e} (deterministic algorithms)")
+        for backend, info in runs.items():
+            p = info["profile"]
+            print(f"  {label}: {backend:10s} median step "
+                  f"{info['step_ms']:.2f} ms, device busy "
+                  f"{p['busy_ms']:.2f} ms, idle share "
+                  f"{1 - p['busy_ms'] / p['wall_ms']:.3f}; {card}")
+        out[name] = {**runs["constraint"], "census": counts,
+                     "max_diff_vs_explicit": diff,
+                     "explicit": {k: runs["explicit"][k]
+                                  for k in ("step_ms", "profile")}}
     return out
 
 
@@ -2013,7 +2189,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/18] device")
+    print("[1/19] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2027,61 +2203,65 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/18] build")
+    print("[2/19] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/18] spmm kernel against its plain version")
+    print("[3/19] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/18] flash kernel against its plain version")
+    print("[4/19] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/18] ssd kernel against its plain version")
+    print("[5/19] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/18] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/19] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/18] naive TP GCN training (a split and a gather per "
+        print("[7/19] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/18] DP halo-exchange GCN training (k=1)")
+        print("[8/19] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/18] out-of-core streamed GCN training (pinned host "
+        print("[9/19] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/18] GAT decoupled-pipelined TP training (the score "
+        print("[10/19] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/18] GAT naive TP training")
+        print("[11/19] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/18] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/19] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/18] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/19] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/18] spmm timing at the GCN paths' shapes")
+        print("[14/19] the constraint engine backend (DTensor, "
+              "transitions through the choke point) beside the explicit "
+              "one")
+        constraint_info = constraint(bundle, data, dev, card)
+        print("[15/19] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[15/18] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/19] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[16/18] LM main path, scoring: forward + lm_loss")
+    print("[17/19] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[17/18] fp32 cross-check at full width, kernels vs plain")
+    print("[18/19] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[18/18] flash and ssd timing at the LM path's shapes")
+    print("[19/19] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
@@ -2090,7 +2270,8 @@ def main() -> int:
                       "dp": dp_info, "stream": stream_info,
                       "gat": gat_info, "gat_naive": gat_naive_info,
                       "sage": like_info["sage"], "gin": like_info["gin"],
-                      "hybrid": hybrid_info, "build_s": build_s,
+                      "hybrid": hybrid_info,
+                      "constraint": constraint_info, "build_s": build_s,
                       "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
@@ -2104,7 +2285,8 @@ def main() -> int:
         + dp_info["launches"] + stream_info["launches"]
         + gat_info["launches"] + gat_naive_info["launches"]
         + like_info["sage"]["launches"] + like_info["gin"]["launches"]
-        + sum(h["launches"] for h in hybrid_info.values()),
+        + sum(h["launches"] for h in hybrid_info.values())
+        + sum(c["launches"] for c in constraint_info.values()),
         "launches_by_path": {"decoupled_pipelined": gcn["launches"],
                              "naive": naive_info["launches"],
                              "dp": dp_info["launches"],
@@ -2114,7 +2296,9 @@ def main() -> int:
                              "sage": like_info["sage"]["launches"],
                              "gin": like_info["gin"]["launches"],
                              **{f"hybrid_{k}": h["launches"]
-                                for k, h in hybrid_info.items()}},
+                                for k, h in hybrid_info.items()},
+                             **{f"constraint_{k}": c["launches"]
+                                for k, c in constraint_info.items()}},
         "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

@@ -123,7 +123,7 @@ def main() -> int:
         print(f"  {case:<36} worst ratio: split {worst['split']:.3f}, "
               f"single {worst['single']:.3f}")
 
-    gen = torch.Generator(device=dev).manual_seed(4)   # as phase 18
+    gen = torch.Generator(device=dev).manual_seed(4)   # as phase 19
     q, k, v = (torch.randn(2, 32, 2048, 80, generator=gen, device=dev)
                .to(torch.bfloat16) for _ in range(3))
     want = flash_ref(q, k, v)

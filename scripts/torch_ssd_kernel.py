@@ -232,12 +232,12 @@ def main() -> int:
     result = {"card": card, "ptxas": ptxas, "phase5_max_abs_err":
               ssd_cases(dev)}
 
-    # the path shape, held and timed; inputs as chip_smoke.py phase 18
+    # the path shape, held and timed; inputs as chip_smoke.py phase 19
     # draws them
     b, s, h, p, n, q = PATH_SHAPE
     gen = torch.Generator(device=dev).manual_seed(4)
     _ = [torch.randn(2, 32, 2048, 80, generator=gen, device=dev)
-         for _ in range(3)]   # phase 18 draws the flash inputs first
+         for _ in range(3)]   # phase 19 draws the flash inputs first
     del _
     inputs = _ssd_inputs(b, s, h, p, n, gen, dev)
     y, st = _run(fn, *inputs, q)

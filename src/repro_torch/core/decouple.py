@@ -34,6 +34,17 @@ model worker's contiguous V/N block for the aggregation and
 split all-to-alls stay on the model axis; the loss sums span the model
 then the replica axes, and the gradients are summed over every rank.
 ``data_axes=()`` on a hybrid mesh is pure TP inside each replica group.
+
+Every mode runs on two engine backends, ``backend="explicit" |
+"constraint"``, as in the reference.  The explicit one is the per-rank
+code above.  The constraint one (:mod:`repro_torch.runtime.constraint`)
+writes the same forward on global DTensors: the NN phase on the mesh's
+vertex layout, the split and gather as layout transitions run through
+the same choke point, the chunk loop and the loss on local shards, and
+the loss sums and gradients reduced by DTensor (``constraint.replicate``).
+``decoupled_pipelined`` is an alias of ``decoupled`` under it, as in the
+reference.  Both take and return plain tensors, with the same numerics and
+the same all-to-all and all-gather ledger entries.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from ..graph.synthetic import GraphData
 from ..params import tree_leaves, tree_map, tree_unflatten
 from ..optim.adamw import apply_updates
 from ..runtime import collectives as C
+from ..runtime import constraint as K
 from ..runtime.mesh import TPMesh, padded_size, resolve_bundle_degrees
 from . import agg as AGG
 from . import chunks as CH
@@ -384,6 +396,106 @@ def tp_naive_forward(params, cfg: M.GNNConfig, graph: TPGraph, x_local,
 
 
 # ---------------------------------------------------------------------------
+# Global-view forwards for the constraint backend
+# ---------------------------------------------------------------------------
+
+def _aggregate_chunked_constraint(graph: TPGraph, z, w_chunk, axis: str,
+                                  agg: str = "segment", scale: float = 1.0):
+    """One aggregation round of the dim-sharded global ``z`` on each
+    rank's column shard (:func:`repro_torch.runtime.constraint.local_map`,
+    ``(None, axis)`` in and out).  DTensor has no sharding rule for the
+    SpMM kernel's autograd function, nor a safe one for ``index_select`` /
+    ``index_add_`` on a column-sharded operand: without the local map it
+    would raise or replicate z (the reference's "involuntary full
+    rematerialization")."""
+    return K.local_map(
+        lambda zl: _aggregate_once(graph, zl, agg, w_chunk, scale),
+        (None, axis), z)
+
+
+def _edge_weights_constraint(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
+                             h, axis: str):
+    """γ·w, or GAT's γ·α from the model-sharded global ``h``.  The
+    reference anchors the two (V,) score vectors replicated (``P(None)``)
+    and lets its partitioner gather them; here that O(V) all-gather is a
+    transition through the choke point, and α is computed on the whole
+    vectors on every rank as a local tensor, whose gradient the
+    all-gather's backward sums."""
+    if cfg.model == "gat":
+        p = params["layers"][-1]
+        sl, sr = (K.layout_cast(h @ p[k], (None,),
+                                src_spec=(axis,)).to_local()
+                  for k in ("a_l", "a_r"))
+        return cfg.gamma * M.gat_alpha(edges, sl, sr)
+    return cfg.gamma * edges.weight
+
+
+def tp_decoupled_forward_constraint(params, cfg: M.GNNConfig,
+                                    graph: TPGraph, x, mesh: TPMesh,
+                                    agg: str = "segment"):
+    """Decoupled TP forward on global DTensors: ``x`` (V, D) laid out
+    :func:`repro_torch.core.tp.vertex_spec`, the logits (V, C_pad) too.
+    The NN phase runs on the vertex layout (under hybrid DP×TP on every
+    rank's rows), then the data-axis hop gathers the model block, where
+    GAT scores its vertices, and the split, L rounds and the gather
+    follow."""
+    axis, data_axes = mesh.axis, mesh.data_axes
+    agg, scale = _effective_agg(cfg, agg)
+    vspec = tp.vertex_spec(axis, data_axes)
+    h = K.constrain(M.mlp_phase(params, cfg, x), vspec)
+    if data_axes:
+        h = K.layout_cast(h, (axis, None), src_spec=vspec)
+    w_chunk = None
+    if agg == "segment":
+        w_flat = _edge_weights_constraint(params, cfg, graph.edges, h, axis)
+        w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
+    z = tp.split_constraint(h, axis)
+    for _ in range(cfg.num_layers):
+        z = _aggregate_chunked_constraint(graph, z, w_chunk, axis, agg,
+                                          scale)
+    return tp.gather_constraint(z, axis, data_axes)
+
+
+def tp_naive_forward_constraint(params, cfg: M.GNNConfig, graph: TPGraph,
+                                x, mesh: TPMesh, agg: str = "segment"):
+    """Coupled ("naive") TP on global DTensors: a split and a gather
+    transition per layer, the dense updates on the vertex layout.  Layer
+    0's transitions move the input features (``mirror=False``).  The
+    relu is spelled ``h * (h > 0)``, as the reference spells it for this
+    backend."""
+    axis, data_axes = mesh.axis, mesh.data_axes
+    agg, _ = _effective_agg(cfg, agg)
+    vspec = tp.vertex_spec(axis, data_axes)
+    h = K.constrain(x, vspec)
+    n_layers = cfg.num_layers
+    for i, p in enumerate(params["layers"]):
+        last = i == n_layers - 1
+        if cfg.model == "gat":
+            hw = K.constrain(h @ p["w"], vspec)
+            if data_axes:
+                hw = K.layout_cast(hw, (axis, None), src_spec=vspec)
+            sl, sr = (K.layout_cast(hw @ p[k], (None,),
+                                    src_spec=(axis,)).to_local()
+                      for k in ("a_l", "a_r"))
+            w_chunk = L.rechunk_edge_values(
+                graph.chunked, M.gat_alpha(graph.edges, sl, sr))
+            z = tp.split_constraint(hw, axis)
+            z = _aggregate_chunked_constraint(graph, z, w_chunk, axis)
+            h = tp.gather_constraint(z, axis, data_axes)
+            h = h if last else F.elu(h)
+        else:
+            mirror = i > 0
+            z = tp.split_constraint(h, axis, data_axes, mirror=mirror)
+            z = _aggregate_chunked_constraint(graph, z, None, axis, agg,
+                                              1.0)
+            a = tp.gather_constraint(z, axis, data_axes, mirror=mirror)
+            h = L.dense(p, a)
+            h = h if last else h * (h > 0)
+        h = K.constrain(h, vspec)
+    return h
+
+
+# ---------------------------------------------------------------------------
 # Loss / train-step factories
 # ---------------------------------------------------------------------------
 
@@ -392,6 +504,23 @@ _FORWARDS = {
     "decoupled_pipelined": partial(tp_decoupled_forward, pipelined=True),
     "naive": tp_naive_forward,
 }
+
+# the chunk interleaving has nothing to pipeline when the transitions are
+# whole-tensor moves: decoupled_pipelined is decoupled, as in the reference
+_FORWARDS_CONSTRAINT = {
+    "decoupled": tp_decoupled_forward_constraint,
+    "decoupled_pipelined": tp_decoupled_forward_constraint,
+    "naive": tp_naive_forward_constraint,
+}
+
+BACKENDS = ("explicit", "constraint")
+
+
+def check_backend(backend: str) -> str:
+    if backend not in BACKENDS:
+        raise ValueError(f"engine backend must be 'explicit' or "
+                         f"'constraint', got {backend!r}")
+    return backend
 
 
 def global_loss_and_acc(logits, labels, mask, num_classes: int,
@@ -409,10 +538,24 @@ def global_loss_and_acc(logits, labels, mask, num_classes: int,
     return loss_sum / cnt, correct / cnt
 
 
+def global_loss_and_acc_constraint(logits, labels, mask, num_classes: int):
+    """(loss, acc) of global DTensors: each rank's three sums (a
+    ``local_map``, Partial), reduced stacked in one
+    :func:`repro_torch.runtime.constraint.replicate`."""
+    sums = K.local_map(
+        lambda lg, y, m: torch.stack(M.masked_loss_and_acc(lg, y, m,
+                                                           num_classes)),
+        None, logits, labels, mask, partial=True)
+    sums = K.replicate(sums)
+    cnt = torch.clamp(sums[2], min=1.0)
+    return sums[0] / cnt, sums[1] / cnt
+
+
 def _make_tp_loss_and_acc(cfg: M.GNNConfig, mesh: TPMesh, mode: str,
-                          agg: str):
-    """(params, graph, x_local, labels_local, mask_local) → (loss, acc),
-    the loss and accuracy over every rank's vertices."""
+                          agg: str, backend: str):
+    """(params, graph, x, labels, mask) → (loss, acc), the loss and
+    accuracy over every rank's vertices: of this rank's rows (explicit),
+    or of global DTensors (constraint)."""
     if mode not in _FORWARDS:
         raise ValueError(f"unknown mode {mode!r}; expected one of "
                          f"{tuple(_FORWARDS)}")
@@ -421,6 +564,15 @@ def _make_tp_loss_and_acc(cfg: M.GNNConfig, mesh: TPMesh, mode: str,
             f"naive TP supports {NAIVE_MODELS}, not {cfg.model!r}, as the "
             f"reference's coupled TP forward does; train {cfg.model!r} "
             f"with mode='decoupled' or 'decoupled_pipelined'")
+    if check_backend(backend) == "constraint":
+        fwd_c = _FORWARDS_CONSTRAINT[mode]
+
+        def global_loss(params, graph, x, labels, mask):
+            logits = fwd_c(params, cfg, graph, x, mesh, agg=agg)
+            return global_loss_and_acc_constraint(logits, labels, mask,
+                                                  graph.num_classes)
+
+        return global_loss
     fwd = _FORWARDS[mode]
 
     def shard_loss(params, graph, x_local, labels_local, mask_local):
@@ -458,14 +610,26 @@ def _local_rows(bundle: TPBundle, mesh: TPMesh) -> slice:
 
 
 def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
-                     mode: str, agg):
+                     mode: str, agg, backend: str):
     """(params, mask) → (loss, acc) on this rank's rows of the bundle, with
-    ``mask`` over all vertices."""
+    ``mask`` over all vertices.  Under the constraint backend the rows
+    enter as the shards of global DTensors laid out ``vertex_spec``."""
     _check_bundle_fits(bundle, mesh)
     body = _make_tp_loss_and_acc(cfg, mesh, mode,
-                                 AGG.resolve_choice(bundle.graph, agg))
+                                 AGG.resolve_choice(bundle.graph, agg),
+                                 backend)
     rows = _local_rows(bundle, mesh)
     x, labels = bundle.features[rows], bundle.labels[rows]
+    if backend == "constraint":
+        vspec = tp.vertex_spec(mesh.axis, mesh.data_axes)
+        x = K.from_local(x, vspec, mesh)
+        labels = K.from_local(labels, vspec[:1], mesh)
+
+        def global_loss(params, mask):
+            return body(params, bundle.graph, x, labels,
+                        K.from_local(mask[rows], vspec[:1], mesh))
+
+        return global_loss
 
     def loss_and_acc(params, mask):
         return body(params, bundle.graph, x, labels, mask[rows])
@@ -488,10 +652,15 @@ def sum_grads(grads, mesh: TPMesh) -> list:
             zip(flat.split([g.numel() for g in grads]), grads)]
 
 
-def value_and_grad(loss_and_acc, mesh: TPMesh):
+def value_and_grad(loss_and_acc, mesh: TPMesh, backend: str = "explicit"):
     """(params, mask) → (loss, grads) over a per-rank
     ``loss_and_acc(params, mask) → (loss, acc)``, with the replicated
-    parameters' gradients summed across ranks (:func:`sum_grads`)."""
+    parameters' gradients summed across ranks (:func:`sum_grads`).  Under
+    the constraint backend ``loss_and_acc`` is global-view, and
+    :func:`repro_torch.runtime.constraint.value_and_grad` wraps it."""
+    if backend == "constraint":
+        return K.value_and_grad(loss_and_acc, mesh)
+
     def value_and_grad_fn(params, mask):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
         loss, _ = loss_and_acc(p, mask)
@@ -505,11 +674,15 @@ def value_and_grad(loss_and_acc, mesh: TPMesh):
     return value_and_grad_fn
 
 
-def train_fns(loss_and_acc, mesh: TPMesh, optimizer, masks: dict):
+def train_fns(loss_and_acc, mesh: TPMesh, optimizer, masks: dict,
+              backend: str = "explicit"):
     """(train_step, evaluate) over a per-rank ``loss_and_acc(params,
-    mask)``; ``masks`` maps ``"train"``/``"val"``/``"test"`` to the mask
-    ``loss_and_acc`` takes."""
-    vg = value_and_grad(loss_and_acc, mesh)
+    mask)`` (global-view under the constraint backend); ``masks`` maps
+    ``"train"``/``"val"``/``"test"`` to the mask ``loss_and_acc``
+    takes."""
+    vg = value_and_grad(loss_and_acc, mesh, backend)
+    if backend == "constraint":
+        loss_and_acc = K.plain(loss_and_acc, mesh)
 
     def train_step(params, opt_state):
         loss, grads = vg(params, masks["train"])
@@ -525,19 +698,21 @@ def train_fns(loss_and_acc, mesh: TPMesh, optimizer, masks: dict):
 
 def make_tp_value_and_grad(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
                            mode: str = "decoupled_pipelined", agg=None,
-                           data_axes=None):
+                           data_axes=None, backend: str = "explicit"):
     """(params, mask) → (loss, grads), with ``mask`` over all vertices and
     the grads summed across ranks (the same on every rank).  ``agg=None``
     uses the bundle's prepared aggregation backend; ``data_axes=None``
-    the mesh's replica axes (``()``: pure TP on a hybrid mesh)."""
+    the mesh's replica axes (``()``: pure TP on a hybrid mesh);
+    ``backend`` the engine backend (module docstring)."""
     mesh = mesh.for_data_axes(data_axes)
-    return value_and_grad(_make_local_loss(cfg, bundle, mesh, mode, agg),
-                          mesh)
+    return value_and_grad(
+        _make_local_loss(cfg, bundle, mesh, mode, agg, backend), mesh,
+        backend)
 
 
 def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
                       optimizer, mode: str = "decoupled_pipelined",
-                      agg=None, data_axes=None):
+                      agg=None, data_axes=None, backend: str = "explicit"):
     """(train_step, evaluate) for TP training.
 
     ``train_step(params, opt_state) → (params, opt_state, loss)``;
@@ -546,7 +721,8 @@ def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
     decoupled_pipelined, naive}; ``agg=None`` uses the bundle's backend;
     ``data_axes=None`` derives the replica axes from ``mesh`` (hybrid
     DP×TP on a :func:`repro_torch.runtime.hybrid_mesh`), ``()`` forces
-    pure TP."""
+    pure TP; ``backend`` ∈ {explicit, constraint}."""
     mesh = mesh.for_data_axes(data_axes)
-    return train_fns(_make_local_loss(cfg, bundle, mesh, mode, agg), mesh,
-                     optimizer, bundle.masks())
+    return train_fns(
+        _make_local_loss(cfg, bundle, mesh, mode, agg, backend), mesh,
+        optimizer, bundle.masks(), backend)

@@ -41,9 +41,18 @@ How it differs from the reference (``repro.core.stream``):
 * Each rank stages only its own block of a stripe
   (:meth:`HostFeatureStore.rank_block`), what the reference's placement
   hands each worker; the reference records the whole stripe per process.
-* Only the ``"explicit"`` engine backend exists; ``backend="constraint"``
-  raises (ROADMAP item 12b).  A hybrid DP×TP mesh raises the reference's
-  gate: the stripe slicing is pure-TP vertex-sharded.
+* Both engine backends run the epoch, as in the reference.  Under
+  ``backend="constraint"`` steps 1, 2, 4, 6 and 7 are global-view
+  (:mod:`repro_torch.runtime.constraint`): the NN phase and its recompute
+  on DTensor stripes laid out on the model axis, the split and the
+  split's transpose as :func:`repro_torch.core.tp.split_constraint` /
+  :func:`~repro_torch.core.tp.gather_constraint` transitions through the
+  same choke point, the loss on ``gather_constraint``, and the gradient
+  reduction left to ``constraint.replicate``; the chunk rounds (3, 5) run
+  no collective and are shared.  Its ledger equals the explicit epoch's
+  but for the loss and gradient reductions, which are DTensor's.  A hybrid
+  DP×TP mesh raises the reference's gate on either backend: the stripe
+  slicing is pure-TP vertex-sharded.
 
 ``decoupled_pipelined`` is accepted as an alias of ``decoupled``, as in
 the reference: under streaming the asynchronous copies give the overlap
@@ -67,6 +76,7 @@ from ..graph import format as gf
 from ..graph.synthetic import GraphData
 from ..kernels import spmm as SP
 from ..params import tree_leaves, tree_map, tree_unflatten
+from ..runtime import constraint as K
 from ..runtime import streaming as RS
 from ..runtime import telemetry as T
 from ..runtime.mesh import TPMesh, padded_size
@@ -357,11 +367,10 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
     step to float tolerance, and the ledger the in-memory ``decoupled``
     step's (module docstring).  The host chunk inputs are built, and
     pinned for a card, once here."""
-    if backend != "explicit":
+    if backend not in DC.BACKENDS:
         raise ValueError(
-            f"stream backend {backend!r} is not ported: repro_torch has "
-            f"only the 'explicit' engine backend; the 'constraint' backend "
-            f"is ROADMAP item 12b")
+            f"stream backend must be 'explicit' or 'constraint', "
+            f"got {backend!r}")
     if mesh.data_axes:
         raise ValueError(
             f"make_stream_value_and_grad: hybrid DP×TP meshes (data axes "
@@ -395,6 +404,10 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
 
     def chunks(inputs, label):
         return RS.prefetched(inputs, lambda x: stage(x, label))
+
+    if backend == "constraint":
+        return _constraint_value_and_grad(cfg, sb, mesh, agg, stripes,
+                                          chunks, fwd_in, bwd_in)
 
     def value_and_grad_fn(params, mask):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -447,5 +460,86 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
                 a.add_(part)
         grads = DC.sum_grads(RS.sync_for_collectives(acc), mesh)
         return loss.detach(), tree_unflatten(params, grads)
+
+    return value_and_grad_fn
+
+
+def _constraint_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
+                               mesh: TPMesh, agg: str, stripes, chunks,
+                               fwd_in, bwd_in):
+    """The epoch of :func:`make_stream_value_and_grad` on the constraint
+    backend: the same seven steps, the same staging (``stripes``,
+    ``chunks``) and buffers, with the stripes, H and the loss as global
+    DTensors (module docstring)."""
+    dev, rank = sb.device, mesh.index
+    V, N, cs, rs = sb.n_padded, sb.n_workers, sb.chunk_size, sb.stripe_rows
+    cp, width = cfg.num_classes, cfg.num_classes // sb.n_workers
+    scale = 1.0 if agg == "segment" else cfg.gamma
+    axis = mesh.axis
+    vspec, zspec = (axis, None), (None, axis)
+    rows = slice(rank * (V // N), (rank + 1) * (V // N))
+    labels = K.from_local(sb.labels[rows], (axis,), mesh)
+
+    def value_and_grad_fn(params, mask):
+        p = K.replicated_params(params, mesh, requires_grad=True)
+        with K.mesh_context(mesh), torch.no_grad():
+            # 1. the NN phase over the global stripes: stripe s is
+            # (N·rs, C), each rank's block of it its own rows
+            H = RS.global_zeros((V // N, cp), dev)
+            for s, item in enumerate(stripes()):
+                h = M.mlp_phase(p, cfg, K.from_local(item.take(), vspec))
+                H[s * rs:(s + 1) * rs] = K.constrain(h, vspec).to_local()
+            # 2. split
+            z = tp.split_constraint(
+                K.from_local(RS.sync_for_collectives(H), vspec),
+                axis).to_local()
+            del H
+            # 3. L rounds, chunk by chunk, each into a fresh buffer
+            for _ in range(cfg.num_layers):
+                z_next = RS.global_zeros((V, width), dev)
+                for c, item in enumerate(chunks(fwd_in, "chunk")):
+                    z_next[c * cs:(c + 1) * cs] = _chunk_fwd(
+                        agg, z, item.take(), cs, scale)
+                z = z_next
+            del z_next
+        # 4. gather + loss; dL/dz through the gather's autograd mirror
+        z = RS.sync_for_collectives(z).requires_grad_()
+        with K.mesh_context(mesh):
+            loss, _ = DC.global_loss_and_acc_constraint(
+                tp.gather_constraint(K.from_local(z, zspec), axis), labels,
+                K.from_local(mask[rows], (axis,)), sb.num_classes)
+        (ct,) = torch.autograd.grad(loss, z)
+        del z
+        with K.mesh_context(mesh), torch.no_grad():
+            # 5. L transposed rounds
+            for _ in range(cfg.num_layers):
+                g = RS.global_zeros((V, width), dev)
+                for c, item in enumerate(chunks(bwd_in, "chunk_t")):
+                    _chunk_bwd(agg, ct[c * cs:(c + 1) * cs], item.take(), g,
+                               scale)
+                ct = g
+            del g
+            # 6. the split's transpose: recorded as its backward call
+            with T.backward_scope():
+                ct_h = tp.gather_constraint(
+                    K.from_local(RS.sync_for_collectives(ct), zspec), axis,
+                    mirror=False).to_local()
+            del ct
+        # 7. per-stripe recompute; each rank's gradients are its partial
+        # sums, reduced once by constraint.replicate
+        leaves = tree_leaves(p)
+        acc = [torch.zeros_like(t.to_local()) for t in leaves]
+        with K.mesh_context(mesh):
+            for s, item in enumerate(stripes()):
+                h = M.mlp_phase(p, cfg, K.from_local(item.take(), vspec))
+                parts = torch.autograd.grad(
+                    h, leaves,
+                    grad_outputs=K.from_local(ct_h[s * rs:(s + 1) * rs],
+                                              vspec),
+                    allow_unused=True, materialize_grads=True)
+                for a, part in zip(acc, parts):
+                    a.add_(part.to_local())
+        grads = K.reduce_grads(RS.sync_for_collectives(acc), mesh)
+        return loss.to_local().detach(), tree_unflatten(params, grads)
 
     return value_and_grad_fn

@@ -19,6 +19,11 @@ On a hybrid (data, model) mesh the partitions stay on the model axis
 the data axes: the dense updates run on 1/replicas of the rows, each layer
 gathers the replica shards for the halo exchange and the aggregation and
 slices back after it, and the gradients are summed over every rank.
+
+Both engine backends run it (``backend="explicit" | "constraint"``, as in
+the reference): the constraint one (:func:`dp_coupled_forward_constraint`)
+on global DTensors in the stacked (k, n_local_max, ·) layout, its halo
+all-to-all a transition through the same choke point.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from ..graph import partition as gp
 from ..graph.synthetic import GraphData
 from ..kernels import spmm as SP
 from ..runtime import collectives as C
+from ..runtime import constraint as K
 from ..runtime.mesh import TPMesh, resolve_bundle_degrees
 from . import layers as L
 from . import models as M
@@ -182,6 +188,25 @@ def prepare_dp_bundle(data: GraphData, k: int | None = None,
 # Halo exchange + aggregation (per rank)
 # ---------------------------------------------------------------------------
 
+def _halo_send(h_local: torch.Tensor, g: DPGraph, i: int) -> torch.Tensor:
+    """Worker ``i``'s (k, m, D) send buffer: block j holds the rows worker
+    j needs, zeros in the pads."""
+    send_rows = g.send_idx_local[i]                      # (k, m) local ids
+    valid = (send_rows >= 0).reshape(-1, 1)
+    send = h_local.index_select(0, torch.where(send_rows >= 0, send_rows,
+                                               0).reshape(-1))
+    return torch.where(valid, send, 0.0).reshape(g.k, g.m, -1)
+
+
+def _halo_land(recv: torch.Tensor, g: DPGraph, i: int) -> torch.Tensor:
+    """The (k, m, D) rows worker ``i`` received, landed in its halo
+    buffer: (halo_size+1, D), the last row a dump row for the pads."""
+    d = recv.shape[-1]
+    pos = g.recv_pos[i].reshape(-1).long()               # (k*m,)
+    halo = recv.new_zeros(g.halo_size + 1, d)
+    return halo.index_copy(0, pos, recv.reshape(-1, d))
+
+
 def halo_exchange(h_local: torch.Tensor, g: DPGraph,
                   mesh: TPMesh) -> torch.Tensor:
     """DepComm: fetch remote in-neighbor rows.  Returns (halo_size+1, D),
@@ -189,18 +214,21 @@ def halo_exchange(h_local: torch.Tensor, g: DPGraph,
     gradient (layer 0's input features) autograd runs no backward
     all-to-all for it, and the ledger counts none."""
     i = mesh.index
-    d = h_local.shape[1]
-    send_rows = g.send_idx_local[i]                      # (k, m) local ids
-    valid = (send_rows >= 0).reshape(-1, 1)
-    send = h_local.index_select(0, torch.where(send_rows >= 0, send_rows,
-                                               0).reshape(-1))
-    send = torch.where(valid, send, 0.0).reshape(g.k, g.m, d)
-    recv = C.all_to_all(send, mesh.group, split_axis=0, concat_axis=0,
-                        axis=mesh.axis)
+    recv = C.all_to_all(_halo_send(h_local, g, i), mesh.group, split_axis=0,
+                        concat_axis=0, axis=mesh.axis)
     # recv[j] = rows worker j sent me; land them in my halo buffer
-    pos = g.recv_pos[i].reshape(-1).long()               # (k*m,)
-    halo = h_local.new_zeros(g.halo_size + 1, d)
-    return halo.index_copy(0, pos, recv.reshape(-1, d))
+    return _halo_land(recv, g, i)
+
+
+def _local_aggregate(h_ext: torch.Tensor, g: DPGraph, i: int,
+                     agg: str) -> torch.Tensor:
+    """Worker ``i``'s rows of Â·[local | halo]: (n_local_max, D)."""
+    if agg == "blocksparse":
+        return SP.aggregate_plan(g.bsp.instance(i), h_ext)[: g.n_local_max]
+    if agg == "dense":
+        return g.dense_adj[i] @ h_ext
+    return L.aggregate_chunk(h_ext, g.src[i], g.dst[i], g.weight[i],
+                             g.n_local_max)
 
 
 def dp_aggregate(h_local: torch.Tensor, g: DPGraph, mesh: TPMesh,
@@ -209,15 +237,8 @@ def dp_aggregate(h_local: torch.Tensor, g: DPGraph, mesh: TPMesh,
     this worker's (n_local_max, n_local_max + halo_size) slice of Â.  The
     halo exchange — the only communication — is the same for every
     backend."""
-    i = mesh.index
     halo = halo_exchange(h_local, g, mesh)[:-1]          # drop the dump row
-    h_ext = torch.cat([h_local, halo])
-    if agg == "blocksparse":
-        return SP.aggregate_plan(g.bsp.instance(i), h_ext)[: g.n_local_max]
-    if agg == "dense":
-        return g.dense_adj[i] @ h_ext
-    return L.aggregate_chunk(h_ext, g.src[i], g.dst[i], g.weight[i],
-                             g.n_local_max)
+    return _local_aggregate(torch.cat([h_local, halo]), g, mesh.index, agg)
 
 
 def dp_coupled_forward(params, cfg: M.GNNConfig, g: DPGraph, x_local,
@@ -238,6 +259,70 @@ def dp_coupled_forward(params, cfg: M.GNNConfig, g: DPGraph, x_local,
         a = C.replica_slice(dp_aggregate(h_full, g, mesh, agg), rep)
         h = L.dense(p, a)
         if i < cfg.num_layers - 1:
+            h = torch.relu(h)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# Global-view forward for the constraint backend
+# ---------------------------------------------------------------------------
+
+def _dp_row_spec(axis: str, data_axes: tuple[str, ...],
+                 trailing: int = 1) -> tuple:
+    """Spec of the stacked DP layout (k, n_local_max, ...): partitions on
+    the model axis, local rows on the data axes (hybrid) or unsharded."""
+    row_entry = tuple(data_axes) if data_axes else None
+    return (axis, row_entry) + (None,) * trailing
+
+
+def _halo_exchange_constraint(h, g: DPGraph, mesh: TPMesh, *,
+                              mirror: bool = True):
+    """Global-view DepComm: (k, n_local_max, D) → (k, halo_size, D).
+
+    The send buffers form one (k, k, m, D) tensor, ``[sender, receiver]``,
+    laid out on the sender; its transpose is laid out on dim 1, and moving
+    the model axis back to dim 0 is the halo all-to-all, run through the
+    choke point by :func:`repro_torch.runtime.constraint
+    .note_transition`."""
+    axis, i = mesh.axis, mesh.index
+    spec4 = (axis, None, None, None)
+    send = K.local_map(lambda hl: _halo_send(hl[0], g, i)[None], spec4, h)
+    recv = K.note_transition(send.transpose(0, 1), (None, axis),
+                             spec4, mirror=mirror)
+    return K.local_map(lambda r: _halo_land(r[0], g, i)[None, :-1],
+                       (axis, None, None), recv)
+
+
+def dp_coupled_forward_constraint(params, cfg: M.GNNConfig, g: DPGraph, x,
+                                  mesh: TPMesh, agg: str = "segment"):
+    """Coupled DP GCN on global DTensors: same math as
+    :func:`dp_coupled_forward` on the stacked (k, n_local_max, ·) layout
+    (``x`` laid out :func:`_dp_row_spec`'s; under hybrid DP×TP the rows
+    shard over the data axes, and each layer's data-axis hop gathers them
+    for the halo exchange and the aggregation, which run on each rank's
+    partition under a ``local_map``).  Layer 0's transitions move the
+    input features (``mirror=False``)."""
+    axis, data_axes, i = mesh.axis, mesh.data_axes, mesh.index
+    row, full = _dp_row_spec(axis, data_axes), (axis, None, None)
+    h = x
+    for li, p in enumerate(params["layers"]):
+        mirror = li > 0
+        h = K.constrain(h, row)
+        if data_axes:
+            h = K.layout_cast(h, full, src_spec=row, mirror=mirror)
+        halo = _halo_exchange_constraint(h, g, mesh, mirror=mirror)
+        a = K.local_map(
+            lambda hl, hh: _local_aggregate(torch.cat([hl[0], hh[0]]), g, i,
+                                            agg)[None],
+            full, h, halo)
+        a = K.constrain(a, row)                         # hybrid: a slice
+        # DTensor has no rule for the matmul of a (k, n, D) operand whose
+        # partition dim is sharded (it flattens k into the rows), so the
+        # update runs on the local rows too; its parameter gradients are
+        # each rank's partial sums, as everywhere (constraint.reduce_grads)
+        h = K.local_map(lambda al, w, b: L.dense({"w": w, "b": b}, al),
+                        row, a, p["w"], p["b"])
+        if li < cfg.num_layers - 1:
             h = torch.relu(h)
     return h
 
@@ -266,9 +351,10 @@ def _resolve_dp_axes(bundle: DPBundle, mesh: TPMesh, data_axes) -> TPMesh:
 
 
 def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
-                     agg):
+                     agg, backend: str):
     """(params, mask) → (loss, acc) on this rank's rows of its partition,
-    with ``mask`` over every partition, (k, n_local_max)."""
+    with ``mask`` over every partition, (k, n_local_max); global-view
+    under the constraint backend."""
     if cfg.model != "gcn":
         raise ValueError(
             f"the DP halo-exchange baseline trains GCN only, as the "
@@ -284,6 +370,20 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
 
     x, labels = mine(bundle.features), mine(bundle.labels)
     valid = mine(g.valid_rows)
+    if backend == "constraint":
+        row, row1 = (_dp_row_spec(mesh.axis, mesh.data_axes, t)
+                     for t in (1, 0))
+        x, labels = K.from_local(x[None], row, mesh), \
+            K.from_local(labels[None], row1, mesh)
+
+        def global_loss(params, mask):
+            logits = dp_coupled_forward_constraint(params, cfg, g, x, mesh,
+                                                   agg)
+            mask = K.from_local((mine(mask) * valid)[None], row1, mesh)
+            return D.global_loss_and_acc_constraint(logits, labels, mask,
+                                                    bundle.num_classes)
+
+        return global_loss
 
     def loss_and_acc(params, mask):
         logits = dp_coupled_forward(params, cfg, g, x, mesh, agg)
@@ -294,22 +394,29 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
 
 
 def make_dp_value_and_grad(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
-                           agg: str | None = None, data_axes=None):
+                           agg: str | None = None, data_axes=None,
+                           backend: str = "explicit"):
     """(params, mask) → (loss, grads), the grads summed across ranks.
     ``agg=None`` keeps the bundle's prepared aggregation backend;
     ``data_axes=None`` derives the replica axes from ``mesh``, ``()``
-    forces the pure partition-parallel baseline."""
+    forces the pure partition-parallel baseline; ``backend`` ∈
+    {explicit, constraint}."""
     mesh = _resolve_dp_axes(bundle, mesh, data_axes)
-    return D.value_and_grad(_make_local_loss(cfg, bundle, mesh, agg), mesh)
+    return D.value_and_grad(
+        _make_local_loss(cfg, bundle, mesh, agg, D.check_backend(backend)),
+        mesh, backend)
 
 
 def make_dp_train_fns(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
-                      optimizer, agg: str | None = None, data_axes=None):
+                      optimizer, agg: str | None = None, data_axes=None,
+                      backend: str = "explicit"):
     """(train_step, evaluate) for the DP baseline (GCN), with the
     signatures of :func:`repro_torch.core.decouple.make_tp_train_fns`.
     ``agg=None`` keeps the bundle's prepared aggregation backend;
     ``data_axes=None`` derives the replica axes from ``mesh`` (hybrid
-    DP×TP: partition rows shard over the data axes)."""
+    DP×TP: partition rows shard over the data axes); ``backend`` ∈
+    {explicit, constraint}."""
     mesh = _resolve_dp_axes(bundle, mesh, data_axes)
-    return D.train_fns(_make_local_loss(cfg, bundle, mesh, agg), mesh,
-                       optimizer, bundle.masks())
+    return D.train_fns(
+        _make_local_loss(cfg, bundle, mesh, agg, D.check_backend(backend)),
+        mesh, optimizer, bundle.masks(), backend)

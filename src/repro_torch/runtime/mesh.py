@@ -104,6 +104,24 @@ class TPMesh:
             raise KeyError(name)
         return self.data_groups[self.data_axes.index(name)]
 
+    def device_mesh(self, device_type: str = "cuda"):
+        """The ``DeviceMesh`` view of this mesh for tensors on
+        ``device_type``, built once per device type over the mesh's own
+        process groups (``DeviceMesh.from_group``: NCCL builds no second
+        set of communicators).
+
+        Its dims are ``(model, *data_axes)``, model first: the vertex dim
+        shards over the mesh model-major (rank (m, r) holds block
+        ``m·R + r``, :func:`repro_torch.core.tp.vertex_block`), and
+        DTensor splits a dim sharded on several mesh dims in mesh-dim
+        order.  In the rank order of the axes (``pod, data, model``) the
+        rows of ``from_local``/``full_tensor`` would land on the wrong
+        ranks."""
+        cache = self.__dict__.setdefault("_device_meshes", {})
+        if device_type not in cache:
+            cache[device_type] = _device_mesh(self, device_type)
+        return cache[device_type]
+
     def replicas(self) -> C.Replicas:
         """The replica ops' view of the mesh's data axes (``Replicas()``
         for pure TP)."""
@@ -160,6 +178,38 @@ class TPMesh:
                 "(and the vertex dim to divide the full device count): "
                 + "; ".join(problems)
                 + ". Use runtime.padded_size.")
+
+
+def _device_mesh(mesh: TPMesh, device_type: str):
+    """:meth:`TPMesh.device_mesh`: dims ``(model, *data_axes)`` over the
+    mesh's groups, the rank grid :func:`hybrid_mesh`'s (rank
+    ``(p·data + d)·model + m``).  Raises when a hand-built mesh's groups
+    do not follow that grid."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    names = (mesh.axis,) + mesh.data_axes
+    groups = [mesh.group_of(a) for a in names]
+    groups = [dist.group.WORLD if g is None else g for g in groups]
+    if len(names) == 1:
+        return DeviceMesh.from_group(groups[0], device_type,
+                                     mesh_dim_names=names)
+    sizes = [mesh.shape[a] for a in names]
+    grid = torch.arange(mesh.n_devices).reshape(sizes[1:] + sizes[:1])
+    grid = grid.movedim(-1, 0)
+    coords = (grid == dist.get_rank()).nonzero()[0].tolist()
+    for dim, (a, g) in enumerate(zip(names, groups)):
+        line = grid[tuple(c if i != dim else slice(None)
+                          for i, c in enumerate(coords))].tolist()
+        if dist.get_process_group_ranks(g) != line:
+            raise ValueError(
+                f"TPMesh axis {a!r}: group ranks "
+                f"{dist.get_process_group_ranks(g)} are not the rank grid "
+                f"line {line} of hybrid_mesh's layout (rank "
+                f"(p·data + d)·model + m)")
+    return DeviceMesh.from_group(groups, device_type, mesh=grid,
+                                 mesh_dim_names=names)
 
 
 def resolve_mesh_shape(n_devices: int, model: int | None = None,

@@ -3,7 +3,9 @@
 The paper's quantitative claim is about wire bytes: TP's gather/split
 moves V·D/N bytes per device whatever the graph's skew (Fig. 8, §3.2).
 Every byte the port moves between ranks goes through
-:mod:`repro_torch.runtime.collectives`, which reports each call here.
+:mod:`repro_torch.runtime.collectives`, which reports each call here —
+but for the constraint backend's reductions, which DTensor runs
+(:func:`repro_torch.runtime.constraint.replicate`; see below).
 
 Usage::
 
@@ -50,6 +52,27 @@ How the port's semantics differ from the reference's:
   psum of 12 bytes per axis group where the reference makes three scalar
   psums of the same bytes: one call on ``psum|model`` and, under hybrid
   DP×TP, one on the replica axes (``psum|data``, ``psum|pod+data``).
+* **Layout transitions (the constraint backend) run, and record, their
+  collectives.**  The reference's partitioner materializes a transition's
+  collectives itself, and :func:`implied_collectives` is what it reports
+  for them at trace time.  The port runs each transition through
+  :mod:`repro_torch.runtime.collectives` (``runtime/constraint.py``), so
+  the records are the choke point's own, made when the collectives run;
+  :func:`implied_collectives` stays the specification they are held to,
+  and :func:`record_transition` adds the transition itself
+  (:class:`TransitionRecord`) to the ledgers.  Under that backend:
+
+  - GAT's two O(V) score all-gathers are run and recorded
+    (``all_gather|model``), as the explicit backend records them; the
+    reference's partitioner makes them unrecorded.
+  - The DP baseline's replica gathers are run and recorded
+    (``all_gather|data``, ``pod``) as the explicit backend's; the
+    reference's constraint DP forward lets the partitioner gather the
+    rows unrecorded.
+  - There are no ``psum`` or ``grad_psum`` entries: the loss sums and the
+    parameter gradients are DTensor's own reductions
+    (``constraint.replicate``), which the ledger does not see and a
+    ``CommDebugMode`` census counts.
 * **A hand-run backward records as one.**  The out-of-core epoch
   (:mod:`repro_torch.core.stream`) runs the split's transpose itself, as
   a gather outside autograd.  The reference's ``mirror_scope`` drops that
@@ -74,8 +97,10 @@ from typing import Iterator, Mapping
 import torch
 
 __all__ = ["CommEntry", "CommLedger", "H2D_OP", "TelemetryError",
-           "active_ledgers", "backward_scope", "collect_comm", "record",
-           "record_h2d", "ring_wire_factor"]
+           "TransitionRecord", "active_ledgers", "backward_scope",
+           "collect_comm", "implied_collectives", "normalize_spec",
+           "record", "record_h2d", "record_transition",
+           "ring_wire_factor"]
 
 
 class TelemetryError(RuntimeError):
@@ -132,6 +157,39 @@ class CommEntry:
         self.mirrored_wire_bytes += other.mirrored_wire_bytes
 
 
+def normalize_spec(spec) -> tuple:
+    """Canonical hashable form of a spec (a tuple of entries, each
+    ``None``, an axis name or a tuple of names): tuple entries stay tuples
+    of ``str``, scalars become ``str``, and trailing ``None`` dims
+    (replicated) are dropped, so ``("model", None)`` and ``("model",)``
+    compare equal."""
+    entries = []
+    for e in tuple(spec):
+        if e is None:
+            entries.append(None)
+        elif isinstance(e, (tuple, list)):
+            entries.append(tuple(str(a) for a in e))
+        else:
+            entries.append(str(e))
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransitionRecord:
+    """One constraint-backend layout transition, as run
+    (``layout_cast``/``note_transition``).  Not serialized by ``as_dict``
+    and not merged by ``merge_from``: ledgers compare counters."""
+
+    shape: tuple        # global shape
+    dtype: str
+    src_spec: tuple     # normalize_spec() form
+    dst_spec: tuple
+    mirror: bool
+    anchored: bool      # True iff layout_cast anchored the source layout
+
+
 def _axis_label(axes) -> str:
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     return "+".join(axes)
@@ -146,6 +204,7 @@ class CommLedger:
 
     def __init__(self) -> None:
         self._entries: dict[tuple[str, str, str], CommEntry] = {}
+        self._transitions: list[TransitionRecord] = []
 
     def add(self, op: str, axes, dtype: str, *, payload: float, wire: float,
             calls: float = 1.0, backward: bool = False) -> None:
@@ -161,6 +220,14 @@ class CommLedger:
             entry.calls += calls
             entry.payload_bytes += payload * calls
             entry.wire_bytes += wire * calls
+
+    def add_transition(self, rec: TransitionRecord) -> None:
+        self._transitions.append(rec)
+
+    def transitions(self) -> tuple[TransitionRecord, ...]:
+        """The layout transitions run while collecting (constraint
+        backend only; empty for the explicit backend)."""
+        return tuple(self._transitions)
 
     def _select(self, op: str | None, axis: str | None):
         for (kop, klabel, _), entry in self._entries.items():
@@ -289,6 +356,85 @@ def record(op: str, axes, x: torch.Tensor, *, group_size: int,
     for ledger in ledgers:
         ledger.add(op, axes, dtype, payload=payload, wire=wire,
                    backward=backward)
+
+
+# ---------------------------------------------------------------------------
+# Constraint-backend layout transitions
+# ---------------------------------------------------------------------------
+
+def _spec_placement(spec, ndim: int) -> dict[str, int]:
+    """axis name → array dim it shards, for one spec."""
+    entries = list(spec) + [None] * (ndim - len(spec))
+    out: dict[str, int] = {}
+    for dim, entry in enumerate(entries):
+        if entry is None:
+            continue
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            out[a] = dim
+    return out
+
+
+def implied_collectives(shape, itemsize: int, src_spec, dst_spec,
+                        axis_sizes: Mapping[str, int]) -> list[tuple]:
+    """The collectives of the layout transition ``src_spec → dst_spec``
+    of a global array, staged as the transitions run:
+
+    * an axis present only in ``src`` → the replica all-gather that drops
+      it, innermost (last-listed) axis first, as ``replica_gather``;
+    * then an axis sharding a different dim on each side → its all-to-all
+      (the paper's gather/split, ``(a, None) ↔ (None, a)``);
+    * an axis present only in ``dst`` → a local slice, free (nothing).
+
+    Returns ``[(op, axis, payload_bytes, wire_bytes), ...]``, bytes per
+    device, in the ring model of :func:`record`."""
+    ndim = len(shape)
+    src = _spec_placement(src_spec, ndim)
+    dst = _spec_placement(dst_spec, ndim)
+    for a in set(src) | set(dst):
+        if a not in axis_sizes:
+            raise TelemetryError(
+                f"layout transition names mesh axis {a!r} but the active "
+                f"mesh only has axes {sorted(axis_sizes)}")
+    total = float(math.prod(shape)) * itemsize
+    current = dict(src)
+    out: list[tuple] = []
+
+    def sharded_by(axes) -> float:
+        return float(math.prod(axis_sizes[a] for a in axes))
+
+    removed = [a for a in src if a not in dst]
+    for a in reversed(removed):
+        del current[a]
+        g = axis_sizes[a]
+        result = total / sharded_by(current)
+        out.append(("all_gather", a, result / g,
+                    ring_wire_factor("all_gather", g) * result))
+    for a in src:
+        if a in dst and src[a] != dst[a]:
+            g = axis_sizes[a]
+            result = total / sharded_by(current)
+            out.append(("all_to_all", a, result,
+                        ring_wire_factor("all_to_all", g) * result))
+    return out
+
+
+def record_transition(shape, dtype: str, src_spec, dst_spec, *,
+                      mirror: bool = True, anchored: bool = False) -> None:
+    """Add a layout transition (a :class:`TransitionRecord`) to every
+    active ledger, one record each time it runs.  Its collectives are not
+    counted here: they record themselves when they run, through
+    :mod:`repro_torch.runtime.collectives` — the forward at the forward
+    call, the backward when autograd runs it, into the ledgers its forward
+    saw.  No-op when no ledger is collecting."""
+    ledgers = _LEDGERS.get()
+    if not ledgers:
+        return
+    rec = TransitionRecord(
+        shape=tuple(shape), dtype=dtype,
+        src_spec=normalize_spec(src_spec), dst_spec=normalize_spec(dst_spec),
+        mirror=mirror, anchored=anchored)
+    for ledger in ledgers:
+        ledger.add_transition(rec)
 
 
 def record_h2d(tensors, *, label: str = "host") -> None:

@@ -360,9 +360,9 @@ def test_streamability_gates(one_rank):
         tST.make_stream_value_and_grad(cfg, t, one_rank, agg="blocksparse")
     with pytest.raises(ValueError, match="dense"):
         tST.make_stream_value_and_grad(cfg, t, one_rank, agg="dense")
-    with pytest.raises(ValueError, match="item 12"):
-        tST.make_stream_value_and_grad(cfg, t, one_rank,
-                                       backend="constraint")
+    with pytest.raises(ValueError, match="stream backend must be "
+                       "'explicit' or 'constraint', got 'xla'"):
+        tST.make_stream_value_and_grad(cfg, t, one_rank, backend="xla")
     two = _bundles("segment", 2)[1]
     with pytest.raises(ValueError, match="n_workers=2"):
         tST.make_stream_value_and_grad(_cfg(two, tsynth, tST), two,
