@@ -108,8 +108,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 11. gat-naive — the same with ``mode="naive"``: per layer ``h @ w``, the
               score all-gathers, α, a split, the aggregation and a gather;
               every all-to-all moves ``h @ w``, so 8 all-to-alls and 8
-              all-gathers a step; step-0 held against a single-device
-              coupled GAT on the card;
+              all-gathers a step; step-0 held against the port's
+              single-device ``coupled_forward`` on the card;
 12. sage, gin — SAGE and GIN decoupled-pipelined on phase 6's blocksparse
               bundle (γ·Â propagation): each 3 warm-up + 10 timed steps
               with finite, falling loss and 16 SpMM launches a step, one
@@ -190,7 +190,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               CUDA-event time beside, its plain version and its bound:
               bytes against three TF32 passes of the needed operations
               at the tensor-core peak (the fp32 FMA figure printed
-              beside).
+              beside);
+20. single  — the single-device trainer (``gnn/train.py::
+              train_full_graph``, no process group) on reddit_like (phase
+              6's graph), hidden 128, 2 layers, AdamW lr 1e-2 wd 5e-4: GCN,
+              SAGE, GIN and GAT, each coupled and decoupled, 13 epochs
+              logging each: finite and falling loss, no SpMM launch (the
+              trainer aggregates by segment sums), the median epoch over
+              epochs 4–13 and the peak memory printed; epoch 1's loss and
+              accuracies and epoch 2's loss held within rtol 1e-4 of the
+              same two epochs on the CPU from the same weights (an
+              accuracy may move one vertex more: a near-tie argmax); one
+              epoch profiled (device busy, idle share, top kernels).  A
+              checkpoint of the trained decoupled GCN saved, restored into
+              a template on the card (leaves bitwise equal, on the card)
+              and its test accuracy unchanged within 1e-6.  R-GCN on
+              ``heterogeneous_sbm(n=23000, num_classes=41,
+              num_edge_types=4, feat_dim=602, avg_degree=64, seed=0)``,
+              coupled and decoupled, the same; then decoupled-pipelined TP
+              on a blocksparse bundle (bs=128, 4 chunks) over a 1-rank
+              NCCL group: 3 warm-up + 10 timed steps, 16 SpMM launches a
+              step, step-0 loss and grads within rtol 1e-4 of the
+              single-device decoupled forward on the bundle, peak memory.
+              Last, ``examples/train_gcn_full_graph_torch.py --epochs 20``
+              in a process of its own: exit code 0 and its checkpoint
+              line.
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  In the summary's
@@ -204,6 +228,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
 import socket
 import statistics
 import subprocess
@@ -680,21 +705,6 @@ def _single_device_vg(fwd, cfg, bundle):
     return vg
 
 
-def _gat_coupled_forward(params, cfg, g, x):
-    """Single-device coupled GAT: per layer ``h @ w``, attention α over the
-    in-edges, the α-weighted sum, ELU but on the last layer — the naive
-    schedule's math without its split, gather and score all-gathers."""
-    from repro_torch.gnn import layers as L
-    from repro_torch.gnn import models as M
-    h = x
-    for i, p in enumerate(params["layers"]):
-        hw, sl, sr = L.gat_edge_scores(p, h)
-        h = L.aggregate(g, hw, M.gat_alpha(g, sl, sr))
-        if i < cfg.num_layers - 1:
-            h = torch.nn.functional.elu(h)
-    return h
-
-
 def gat(bundle, data, dev, mode: str) -> dict:
     """Phases 10–11: GAT in ``mode`` on phase 6's bundle (GAT aggregates
     by segment sums whatever the bundle's backend: no SpMM launch)."""
@@ -726,7 +736,7 @@ def gat(bundle, data, dev, mode: str) -> dict:
                               _param_bytes(params0),
                               all_gather=(2 * layers, 2 * layers * 4 * n))
         others = [("naive vs single-device coupled",
-                   _single_device_vg(_gat_coupled_forward, cfg, bundle))]
+                   _single_device_vg(M.coupled_forward, cfg, bundle))]
     else:
         # phase 6's all-to-alls, and the two score all-gathers of the last
         # layer's (V/N,) scores
@@ -1531,7 +1541,6 @@ def _profile(fn, label: str) -> dict:
     """Device busy time and the top kernels of one call of ``fn`` under
     ``torch.profiler`` (diagnostic: the wall time includes the profiler's
     own cost)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1541,6 +1550,13 @@ def _profile(fn, label: str) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    return _profile_summary(prof, wall_ms, label)
+
+
+def _profile_summary(prof, wall_ms: float, label: str) -> dict:
+    """Print and return the device busy time, idle share and top kernels
+    of the finished profile ``prof`` over ``wall_ms``."""
+    from torch.autograd import DeviceType
     kernels = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                       for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
@@ -2181,6 +2197,271 @@ def lm_timing(dev):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# The single-device trainer, R-GCN, checkpoints, the example (phase 20)
+# ---------------------------------------------------------------------------
+
+SINGLE_EPOCHS = 13
+SINGLE_RUN = dict(lr=1e-2, weight_decay=5e-4, seed=0, log_every=1)
+# the environment a launcher such as torchrun sets: the example must not
+# take this run for one of its ranks
+LAUNCHER_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
+                "MASTER_PORT")
+
+
+def _single_cfg(data, model: str, decoupled: bool):
+    from repro_torch.gnn import models as M
+    return M.GNNConfig(model=model, in_dim=data.features.shape[1],
+                       hidden_dim=128, num_classes=data.num_classes,
+                       num_layers=2, decoupled=decoupled,
+                       num_edge_types=data.num_edge_types)
+
+
+def _profile_second_epoch(run, label: str) -> dict:
+    """Device busy and the top kernels of one epoch: ``run(callback)``
+    trains two epochs and logs both; the profiler opens at epoch 1's log
+    and closes at epoch 2's, so its window is one step and its metrics."""
+    from torch.profiler import ProfilerActivity, profile
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = []
+
+    def callback(log):
+        torch.cuda.synchronize()
+        if log.epoch == 1:
+            prof.start()
+            marks.append(time.perf_counter())
+        else:
+            marks.append(time.perf_counter())
+            prof.stop()
+
+    run(callback)
+    return _profile_summary(prof, (marks[1] - marks[0]) * 1e3, label)
+
+
+def _held_accuracy(name: str, got: float, want: float, n: int) -> None:
+    """Hold an accuracy over ``n`` vertices to ``PATH_RTOL`` relative plus
+    one vertex: a vertex whose two top logits lie within fp32 rounding of
+    each other may take another argmax under the card's order of sums
+    than under the CPU's, which moves the accuracy by 1/n."""
+    err = abs(got - want)
+    ok = err <= PATH_RTOL * abs(want) + 1.0 / n + 1e-12
+    print(f"  {name:<44} |Δ|={err:.3e} ({err * n:.0f} of {n} vertices)  "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: {got} against {want}")
+
+
+def _single_run(data, cfg, dev, label: str):
+    """``train_full_graph`` on the card for 13 epochs, logging each: finite
+    and falling loss, no SpMM launch (the trainer aggregates by segment
+    sums), the median epoch over epochs 4–13 and the peak memory; epoch
+    1's loss and accuracies and epoch 2's loss within ``PATH_RTOL`` of the
+    same two epochs on the CPU from the same weights (``init_params`` of
+    the seed draws on the host; an accuracy within one vertex more,
+    :func:`_held_accuracy`); one epoch profiled.  Returns (trained
+    params, info)."""
+    from repro_torch.gnn import train as TR
+    from repro_torch.kernels.spmm import spmm_csr
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    spmm_csr.launches = 0
+    params, logs = TR.train_full_graph(data, cfg, epochs=SINGLE_EPOCHS,
+                                       device=dev, **SINGLE_RUN)
+    launches = spmm_csr.launches
+    peak = torch.cuda.max_memory_allocated()
+    for lg in logs:
+        print(f"  epoch {lg.epoch:2d} loss {lg.loss:.6f}  train "
+              f"{lg.train_acc:.4f} val {lg.val_acc:.4f} test "
+              f"{lg.test_acc:.4f}  {lg.seconds * 1e3:.2f} ms")
+    losses = [lg.loss for lg in logs]
+    median_ms = statistics.median(lg.seconds for lg in logs[3:]) * 1e3
+    print(f"  {label}: median epoch {median_ms:.2f} ms over epochs 4–"
+          f"{SINGLE_EPOCHS}; peak memory {peak / 2**20:.1f} MiB; spmm_csr "
+          f"launches {launches}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: loss did not fall: {losses[0]} → "
+                             f"{losses[-1]}")
+    if launches:
+        raise AssertionError(f"{label}: {launches} SpMM launches; the "
+                             f"single-device trainer aggregates by segment "
+                             f"sums")
+    _, cpu_logs = TR.train_full_graph(data, cfg, epochs=2, device="cpu",
+                                      **SINGLE_RUN)
+    for got, want in zip(logs[:2], cpu_logs):
+        _held(f"{label} epoch {got.epoch} loss, card vs CPU",
+              torch.tensor(got.loss), torch.tensor(want.loss), PATH_RTOL,
+              0.0)
+    masks = {"train_acc": data.train_mask, "val_acc": data.val_mask,
+             "test_acc": data.test_mask}
+    for f, m in masks.items():
+        _held_accuracy(f"{label} epoch 1 {f}, card vs CPU",
+                       getattr(logs[0], f), getattr(cpu_logs[0], f),
+                       int(m.sum()))
+    profile = _profile_second_epoch(
+        lambda cb: TR.train_full_graph(data, cfg, epochs=2, device=dev,
+                                       callback=cb, **SINGLE_RUN),
+        f"{label} epoch")
+    return params, {"epoch_ms": median_ms, "peak_bytes": peak,
+                    "launches": launches, "losses": losses,
+                    "test_acc": logs[-1].test_acc, "profile": profile}
+
+
+def _checkpoint_on_card(data, cfg, params, dev) -> dict:
+    """Save the trained parameters, restore them into a template on the
+    card: every leaf back on the card and bitwise equal, and the test
+    accuracy (under deterministic algorithms) unchanged within 1e-6."""
+    from repro_torch import checkpoint
+    from repro_torch.gnn import layers as L
+    from repro_torch.gnn import models as M
+    from repro_torch.params import tree_leaves, tree_map
+
+    g = L.edge_list_dev(data.graph, dev)
+    x = torch.from_numpy(data.features).to(dev)
+    labels = torch.from_numpy(data.labels).to(dev)
+    mask = torch.from_numpy(data.test_mask.astype(np.float32)).to(dev)
+
+    def test_acc(p):
+        with torch.no_grad(), _deterministic("checkpoint test accuracy"):
+            return M.accuracy(M.forward(p, cfg, g, x), labels, mask).item()
+
+    path = str(ROOT / "build" / "chip_smoke" / "gcn_single")
+    before = test_acc(params)
+    checkpoint.save(path, params, metadata={"model": cfg.model,
+                                            "test_acc": before})
+    restored = checkpoint.restore(path, tree_map(torch.zeros_like, params))
+    for a, b in zip(tree_leaves(restored), tree_leaves(params)):
+        if a.device != b.device or not torch.equal(a, b):
+            raise AssertionError(f"restored leaf {tuple(a.shape)} on "
+                                 f"{a.device} differs from the saved one")
+    after = test_acc(restored)
+    print(f"  checkpoint {path}.npz: {len(tree_leaves(params))} leaves "
+          f"restored on {dev}, bitwise equal; test accuracy {before:.6f} "
+          f"→ {after:.6f}")
+    if abs(after - before) >= 1e-6:
+        raise AssertionError(f"test accuracy {after} after the round "
+                             f"trip, {before} before")
+    return {"test_acc": before, "restored_test_acc": after}
+
+
+def _rgcn_tp(data, dev) -> dict:
+    """R-GCN decoupled-pipelined TP on a blocksparse bundle (bs=128, 4
+    chunks) over the 1-rank NCCL group: 16 SpMM launches a step, step-0
+    held against the single-device decoupled forward on the bundle."""
+    import dataclasses
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import models as M
+    from repro_torch.runtime import TPMesh
+
+    bundle = D.prepare_bundle(data, n_workers=1, n_chunks=4,
+                              agg="blocksparse", agg_block_size=128,
+                              device=dev)
+    cfg = dataclasses.replace(
+        D.padded_gnn_config(data, bundle, model="rgcn", hidden_dim=128,
+                            num_layers=2),
+        num_edge_types=data.num_edge_types)
+    mesh = TPMesh()
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    opt = optim.adamw(1e-2, weight_decay=5e-4)
+    step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt,
+                                         mode="decoupled_pipelined")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    name = "rgcn decoupled_pipelined"
+    params, state, losses, launches, median_ms = _drive(
+        name, step, evaluate, params0, opt, 16,
+        "2 rounds × 4 chunks × forward and backward")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: peak memory {peak / 2**20:.1f} MiB")
+    profile = _profile(lambda: step(params, state), f"{name} step")
+    mask = bundle.train_mask
+    _hold_same(name, D.make_tp_value_and_grad(
+        cfg, bundle, mesh, mode="decoupled_pipelined")(params0, mask),
+        [("pipelined vs single-device",
+          _single_device_vg(M.decoupled_forward, cfg, bundle)(params0,
+                                                              mask))],
+        losses[0])
+    return {**_path_info(launches, median_ms, profile, None, losses),
+            "peak_bytes": peak}
+
+
+def _run_example() -> dict:
+    """``examples/train_gcn_full_graph_torch.py --epochs 20`` in a process
+    of its own on the card (its own 1-rank NCCL group): exit code 0 and
+    its checkpoint line."""
+    ckpt = ROOT / "build" / "chip_smoke" / "example_gcn"
+    cmd = [sys.executable,
+           str(ROOT / "examples" / "train_gcn_full_graph_torch.py"),
+           "--epochs", "20", "--ckpt", str(ckpt)]
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    t = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    seconds = time.perf_counter() - t
+    for line in res.stdout.splitlines():
+        print(f"    | {line}")
+    lines = res.stdout.splitlines()
+    if res.returncode != 0 or not lines or lines[-1] != (
+            f"checkpoint round-trip OK → {ckpt}.npz"):
+        print(res.stderr[-4000:])
+        raise AssertionError(f"the example exited {res.returncode}")
+    print(f"  example exited 0 in {seconds:.1f} s")
+    return {"seconds": seconds, "last_lines": lines[-3:]}
+
+
+def single(dev) -> dict:
+    """Phase 20: the single-device trainer (``gnn/train.py``) on
+    reddit_like for GCN, SAGE, GIN and GAT, coupled and decoupled; a
+    checkpoint of the trained decoupled GCN round-tripped on the card;
+    R-GCN coupled and decoupled on a heterogeneous SBM of the same size,
+    and its decoupled-pipelined TP step; the training example."""
+    import torch.distributed as dist
+    from repro_torch.graph.synthetic import heterogeneous_sbm, reddit_like
+
+    out, trained = {}, None
+    data = reddit_like(scale=1.0, seed=0)
+    print(f"  graph n={data.graph.n} E={data.graph.e} features="
+          f"{data.features.shape[1]} classes={data.num_classes}")
+    for model in ("gcn", "sage", "gin", "gat"):
+        for decoupled in (False, True):
+            label = f"{model} {'decoupled' if decoupled else 'coupled'}"
+            print(f"  -- {label}")
+            params, out[label] = _single_run(
+                data, _single_cfg(data, model, decoupled), dev, label)
+            if model == "gcn" and decoupled:
+                trained = params
+    out["checkpoint"] = _checkpoint_on_card(
+        data, _single_cfg(data, "gcn", True), trained, dev)
+    del data, trained, params
+    torch.cuda.empty_cache()
+
+    data = heterogeneous_sbm(n=23000, num_classes=41, num_edge_types=4,
+                             feat_dim=602, avg_degree=64, seed=0)
+    print(f"  heterogeneous graph n={data.graph.n} E={data.graph.e} "
+          f"relations={data.num_edge_types}")
+    for decoupled in (False, True):
+        label = f"rgcn {'decoupled' if decoupled else 'coupled'}"
+        print(f"  -- {label}")
+        _, out[label] = _single_run(
+            data, _single_cfg(data, "rgcn", decoupled), dev, label)
+    print("  -- rgcn decoupled-pipelined TP")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        out["rgcn tp"] = _rgcn_tp(data, dev)
+    finally:
+        dist.destroy_process_group()
+    del data
+    torch.cuda.empty_cache()
+    print("  -- examples/train_gcn_full_graph_torch.py --epochs 20")
+    out["example"] = _run_example()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
@@ -2189,7 +2470,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/19] device")
+    print("[1/20] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2203,66 +2484,69 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/19] build")
+    print("[2/20] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/19] spmm kernel against its plain version")
+    print("[3/20] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/19] flash kernel against its plain version")
+    print("[4/20] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/19] ssd kernel against its plain version")
+    print("[5/20] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/19] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/20] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/19] naive TP GCN training (a split and a gather per "
+        print("[7/20] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/19] DP halo-exchange GCN training (k=1)")
+        print("[8/20] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/19] out-of-core streamed GCN training (pinned host "
+        print("[9/20] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/19] GAT decoupled-pipelined TP training (the score "
+        print("[10/20] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/19] GAT naive TP training")
+        print("[11/20] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/19] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/20] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/19] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/20] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/19] the constraint engine backend (DTensor, "
+        print("[14/20] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/19] spmm timing at the GCN paths' shapes")
+        print("[15/20] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/19] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/20] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[17/19] LM main path, scoring: forward + lm_loss")
+    print("[17/20] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[18/19] fp32 cross-check at full width, kernels vs plain")
+    print("[18/20] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[19/19] flash and ssd timing at the LM path's shapes")
+    print("[19/20] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
+    print("[20/20] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+          "coupled and decoupled, checkpoints, R-GCN TP, the example")
+    single_info = single(dev)
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -2275,7 +2559,7 @@ def main() -> int:
                       "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
-                      "card": card}))
+                      "single": single_info, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
@@ -2286,7 +2570,8 @@ def main() -> int:
         + gat_info["launches"] + gat_naive_info["launches"]
         + like_info["sage"]["launches"] + like_info["gin"]["launches"]
         + sum(h["launches"] for h in hybrid_info.values())
-        + sum(c["launches"] for c in constraint_info.values()),
+        + sum(c["launches"] for c in constraint_info.values())
+        + single_info["rgcn tp"]["launches"],
         "launches_by_path": {"decoupled_pipelined": gcn["launches"],
                              "naive": naive_info["launches"],
                              "dp": dp_info["launches"],
@@ -2298,7 +2583,9 @@ def main() -> int:
                              **{f"hybrid_{k}": h["launches"]
                                 for k, h in hybrid_info.items()},
                              **{f"constraint_{k}": c["launches"]
-                                for k, c in constraint_info.items()}},
+                                for k, c in constraint_info.items()},
+                             "rgcn_decoupled_pipelined":
+                                 single_info["rgcn tp"]["launches"]},
         "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

@@ -64,6 +64,7 @@ from ..params import tree_leaves, tree_map, tree_unflatten
 from ..optim.adamw import apply_updates
 from ..runtime import collectives as C
 from ..runtime import constraint as K
+from ..runtime import telemetry as T
 from ..runtime.mesh import TPMesh, padded_size, resolve_bundle_degrees
 from . import agg as AGG
 from . import chunks as CH
@@ -194,14 +195,14 @@ def prepare_bundle(data: GraphData, n_workers: int | None = None,
 
 def padded_gnn_config(data: GraphData, bundle: TPBundle,
                       model: str = "gcn", hidden_dim: int = 64,
-                      num_layers: int = 2,
+                      num_layers: int = 2, decoupled: bool = True,
                       gamma: float = 1.0) -> M.GNNConfig:
     """GNN config whose dims are padded for N-way TP divisibility."""
     return M.GNNConfig(
         model=model, in_dim=bundle.in_dim_padded,
         hidden_dim=padded_size(hidden_dim, bundle.n_workers),
         num_classes=bundle.graph.c_padded, num_layers=num_layers,
-        gamma=gamma)
+        decoupled=decoupled, gamma=gamma)
 
 
 # ---------------------------------------------------------------------------
@@ -281,7 +282,7 @@ def _gat_alpha_tp(p, edges: L.EdgeListDev, h_local, mesh: TPMesh):
     communication, not O(E·D)."""
     sl = C.all_gather(h_local @ p["a_l"], mesh.group, axis=mesh.axis)
     sr = C.all_gather(h_local @ p["a_r"], mesh.group, axis=mesh.axis)
-    return M.gat_alpha(edges, sl, sr)
+    return L.gat_alpha(edges, sl, sr)
 
 
 def _edge_weights_tp(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
@@ -426,7 +427,7 @@ def _edge_weights_constraint(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
         sl, sr = (K.layout_cast(h @ p[k], (None,),
                                 src_spec=(axis,)).to_local()
                   for k in ("a_l", "a_r"))
-        return cfg.gamma * M.gat_alpha(edges, sl, sr)
+        return cfg.gamma * L.gat_alpha(edges, sl, sr)
     return cfg.gamma * edges.weight
 
 
@@ -478,7 +479,7 @@ def tp_naive_forward_constraint(params, cfg: M.GNNConfig, graph: TPGraph,
                                     src_spec=(axis,)).to_local()
                       for k in ("a_l", "a_r"))
             w_chunk = L.rechunk_edge_values(
-                graph.chunked, M.gat_alpha(graph.edges, sl, sr))
+                graph.chunked, L.gat_alpha(graph.edges, sl, sr))
             z = tp.split_constraint(hw, axis)
             z = _aggregate_chunked_constraint(graph, z, w_chunk, axis)
             h = tp.gather_constraint(z, axis, data_axes)
@@ -708,6 +709,56 @@ def make_tp_value_and_grad(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
     return value_and_grad(
         _make_local_loss(cfg, bundle, mesh, mode, agg, backend), mesh,
         backend)
+
+
+class _SumGrads(torch.autograd.Function):
+    """The parameter leaves, each passed through ``wrap`` (a view of it,
+    or a Replicate DTensor of it); their gradients summed over the ranks
+    by ``reduce`` in the backward, recorded into the ledgers the forward
+    saw."""
+
+    @staticmethod
+    def forward(ctx, reduce, wrap, *leaves):
+        ctx.reduce, ctx.ledgers = reduce, T.active_ledgers()
+        return tuple(wrap(t) for t in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        with T.ledgers_scope(ctx.ledgers):
+            return (None, None, *ctx.reduce(list(grads)))
+
+
+def make_tp_loss_fn(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
+                    mode: str = "decoupled_pipelined",
+                    backend: str = "explicit", data_axes=None, agg=None):
+    """Differentiable (params, mask) → scalar loss over every rank's
+    vertices, with ``mask`` over all vertices: the handle to take grads
+    through.  The gradients autograd takes through it are
+    :func:`make_tp_value_and_grad`'s on every rank: a replicated
+    parameter's share from this rank's rows is summed over the ranks in
+    the backward, by :func:`sum_grads` (explicit) or by the constraint
+    backend's :func:`repro_torch.runtime.constraint.reduce_grads` — the
+    sum the reference's ``shard_map`` transpose performs.  The arguments
+    are :func:`make_tp_value_and_grad`'s."""
+    mesh = mesh.for_data_axes(data_axes)
+    loss_and_acc = _make_local_loss(cfg, bundle, mesh, mode, agg, backend)
+    if backend == "constraint":
+        def loss_fn(params, mask):
+            leaves = _SumGrads.apply(
+                lambda gs: K.reduce_grads(gs, mesh),
+                lambda t: K.replicated_params(t, mesh), *tree_leaves(params))
+            with K.mesh_context(mesh):
+                loss, _ = loss_and_acc(tree_unflatten(params, leaves), mask)
+            return loss.to_local()
+    else:
+        def loss_fn(params, mask):
+            leaves = _SumGrads.apply(lambda gs: sum_grads(gs, mesh),
+                                     lambda t: t.view_as(t),
+                                     *tree_leaves(params))
+            loss, _ = loss_and_acc(tree_unflatten(params, leaves), mask)
+            return loss
+
+    return loss_fn
 
 
 def make_tp_train_fns(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,

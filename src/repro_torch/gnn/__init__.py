@@ -1,2 +1,2 @@
-from . import layers, models  # noqa: F401
-from .models import GNNConfig, init_params  # noqa: F401
+from . import layers, models, train  # noqa: F401
+from .models import GNNConfig, forward, init_params  # noqa: F401

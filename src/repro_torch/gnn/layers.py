@@ -11,6 +11,7 @@ import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ..graph.format import ChunkedGraph, Graph
 
@@ -123,12 +124,69 @@ def segment_softmax(scores: torch.Tensor, dst: torch.Tensor,
     return ex / (denom.index_select(0, dst) + 1e-16)
 
 
+def gat_alpha(g: EdgeListDev, sl, sr, negative_slope: float = 0.2):
+    """GAT's attention α over ``g``'s edges from the (V,) score halves."""
+    e = F.leaky_relu(sl.index_select(0, g.src) + sr.index_select(0, g.dst),
+                     negative_slope)
+    return segment_softmax(e, g.dst, sl.shape[0])
+
+
+def gat_attention(params, g: EdgeListDev, h, negative_slope: float = 0.2):
+    """Edge attention coefficients α_uv (eq. 5) and the transformed
+    features ``h @ w``."""
+    hw, sl, sr = gat_edge_scores(params, h)
+    return gat_alpha(g, sl, sr, negative_slope), hw
+
+
+def gat_forward(params, g: EdgeListDev, h):
+    """Coupled single-head GAT layer (reference semantics): ELU of the
+    α-weighted sum."""
+    alpha, hw = gat_attention(params, g, h)
+    return F.elu(aggregate(g, hw, alpha))
+
+
 # ---------------------------------------------------------------------------
-# Updates (the paper's UPDATE) and initializers
+# Updates (the paper's UPDATE), model-specific aggregators, initializers
 # ---------------------------------------------------------------------------
 
 def dense(params, x):
     return x @ params["w"] + params["b"]
+
+
+def gcn_update(params, a, act=torch.relu):
+    return act(dense(params, a))
+
+
+def sage_forward(params, g: EdgeListDev, h):
+    """GraphSAGE (mean aggregator): σ(W·[h_v ‖ mean(h_u)]); the ReLU runs
+    on every layer, the last one included, as in the reference."""
+    neigh = aggregate(g, h)  # weights pre-normalized "mean"
+    return torch.relu(torch.cat([h, neigh], dim=-1) @ params["w"]
+                      + params["b"])
+
+
+def gin_forward(params, g: EdgeListDev, h, eps):
+    """GIN: MLP((1+ε)·h_v + Σ h_u), with no activation after ``l1``."""
+    agg = aggregate(g, h)  # weights must be "none" (plain sum)
+    z = (1.0 + eps) * h + agg
+    return dense(params["l1"], torch.relu(dense(params["l0"], z)))
+
+
+def rgcn_aggregate(g: EdgeListDev, etypes: torch.Tensor, h: torch.Tensor,
+                   rel_weights: torch.Tensor) -> torch.Tensor:
+    """Relation-typed aggregation: out[v] = Σ_{(u,v)∈E} w·(h_u @ W_r(u,v)).
+
+    ``rel_weights``: (R, D, D_out).  The reference transforms every edge's
+    message by every relation, an (E, R, D_out) tensor, and picks its own;
+    here each vertex is transformed once per relation, (R, V, D_out), and
+    each edge gathers its relation's row: the same products, without the
+    E-sized intermediates.  Normalization comes from the graph weights
+    ("mean")."""
+    n, d_out = h.shape[0], rel_weights.shape[-1]
+    hw = torch.einsum("vd,rdo->rvo", h, rel_weights).reshape(-1, d_out)
+    rows = etypes.long() * n + g.src.long()
+    msg = hw.index_select(0, rows) * g.weight[:, None]
+    return h.new_zeros(n, d_out).index_add(0, g.dst, msg)
 
 
 def glorot(shape, generator: torch.Generator) -> torch.Tensor:

@@ -1,9 +1,10 @@
-"""GNN model definitions in their decoupled form (paper §4.1), single
-device: GCN, GAT, GraphSAGE, GIN and R-GCN.
+"""GNN model definitions, coupled (classic) and decoupled (paper §4.1),
+single device: GCN, GAT, GraphSAGE, GIN and R-GCN.
 
 These are the reference semantics the distributed engine
-(:mod:`repro_torch.core.decouple`) is held against.  Parameters are the
-same nested dicts as the JAX package's (GCN ``{"layers": [{"w", "b"},
+(:mod:`repro_torch.core.decouple`) is held against, and what the
+single-device trainer (:mod:`repro_torch.gnn.train`) runs.  Parameters
+are the same nested dicts as the JAX package's (GCN ``{"layers": [{"w", "b"},
 ...]}``, GAT ``{"w", "a_l", "a_r"}`` a layer, GIN ``{"l0", "l1", "eps"}``,
 R-GCN ``{"rel", "self"}``), so :mod:`repro_torch.params` carries them
 across unchanged.
@@ -27,6 +28,7 @@ class GNNConfig:
     hidden_dim: int = 64
     num_classes: int = 8
     num_layers: int = 2         # L — both NN rounds and propagation rounds
+    decoupled: bool = True      # paper's DT mode (see forward)
     gamma: float = 1.0          # propagation edge weight γ ∈ (0,1] (§4.1.3)
     num_edge_types: int = 1     # rgcn only
 
@@ -68,6 +70,41 @@ def init_params(cfg: GNNConfig, generator: torch.Generator,
 
 
 # ---------------------------------------------------------------------------
+# Coupled forward (classic per-layer AGG→UPDATE; eqs. 1–6)
+# ---------------------------------------------------------------------------
+
+def coupled_forward(params, cfg: GNNConfig, g: EdgeListDev, x,
+                    etypes: torch.Tensor | None = None):
+    """Per layer an aggregation and an update.  GCN and R-GCN skip the
+    activation on the last layer, GAT its ELU; SAGE applies its ReLU on
+    every layer and GIN none after ``l1``, as in the reference."""
+    check_model(cfg)
+    if cfg.model == "rgcn" and etypes is None:
+        raise ValueError("the coupled R-GCN forward needs etypes, each "
+                         "edge's relation")
+    h = x
+    n = cfg.num_layers
+    for i in range(n):
+        last = i == n - 1
+        act = (lambda v: v) if last else torch.relu
+        if cfg.model == "gcn":
+            h = L.gcn_update(params["layers"][i], L.aggregate(g, h), act=act)
+        elif cfg.model == "sage":
+            h = L.sage_forward(params["layers"][i], g, h)
+        elif cfg.model == "gin":
+            p = params["layers"][i]
+            h = L.gin_forward(p, g, h, p["eps"])
+        elif cfg.model == "gat":
+            alpha, hw = L.gat_attention(params["layers"][i], g, h)
+            h = L.aggregate(g, hw, alpha)
+            h = h if last else F.elu(h)
+        else:
+            a = L.rgcn_aggregate(g, etypes, h, params["rel"][i])
+            h = act(a + L.dense(params["self"][i], h))
+    return h
+
+
+# ---------------------------------------------------------------------------
 # Decoupled forward (paper §4.1.2): L NN rounds → L propagation rounds
 # ---------------------------------------------------------------------------
 
@@ -96,13 +133,6 @@ def mlp_phase(params, cfg: GNNConfig, x):
     return h
 
 
-def gat_alpha(g: EdgeListDev, sl, sr):
-    """GAT's attention α over ``g``'s edges from the (V,) score halves."""
-    e = F.leaky_relu(sl.index_select(0, g.src) + sr.index_select(0, g.dst),
-                     0.2)
-    return L.segment_softmax(e, g.dst, sl.shape[0])
-
-
 def propagation_edge_weights(params, cfg: GNNConfig, g: EdgeListDev, h):
     """Edge weights of the propagation phase.
 
@@ -112,18 +142,28 @@ def propagation_edge_weights(params, cfg: GNNConfig, g: EdgeListDev, h):
     aggregation, §4.1.1)."""
     if cfg.model == "gat":
         p = params["layers"][-1]
-        return cfg.gamma * gat_alpha(g, h @ p["a_l"], h @ p["a_r"])
+        return cfg.gamma * L.gat_alpha(g, h @ p["a_l"], h @ p["a_r"])
     return cfg.gamma * g.weight
 
 
-def decoupled_forward(params, cfg: GNNConfig, g: EdgeListDev, x):
-    """Reference (single-device) decoupled semantics: eqs. 7–9."""
+def decoupled_forward(params, cfg: GNNConfig, g: EdgeListDev, x,
+                      etypes: torch.Tensor | None = None):
+    """Reference (single-device) decoupled semantics: eqs. 7–9.  ``etypes``
+    is accepted for :func:`forward`'s sake and unused: R-GCN's decoupled
+    path propagates by the structural weights."""
     h = mlp_phase(params, cfg, x)
     w = propagation_edge_weights(params, cfg, g, h)
     z = h
     for _ in range(cfg.num_layers):
         z = L.aggregate(g, z, edge_weight=w)
     return z
+
+
+def forward(params, cfg: GNNConfig, g: EdgeListDev, x,
+            etypes: torch.Tensor | None = None):
+    if cfg.decoupled:
+        return decoupled_forward(params, cfg, g, x, etypes)
+    return coupled_forward(params, cfg, g, x, etypes)
 
 
 def masked_loss_and_acc(logits, labels, mask, num_classes):
@@ -140,3 +180,19 @@ def masked_loss_and_acc(logits, labels, mask, num_classes):
     pred = torch.argmax(logits, dim=-1)
     correct = torch.sum((pred == labels).to(logits.dtype) * mask)
     return loss_sum, correct, torch.sum(mask)
+
+
+def cross_entropy(logits, labels, mask):
+    """Mean NLL over the vertices of ``mask`` (0 for an empty mask)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, 1, labels[:, None].long())[:, 0]
+    mask = mask.to(logits.dtype)
+    return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+
+
+def accuracy(logits, labels, mask):
+    """Share of the vertices of ``mask`` whose argmax is their label."""
+    pred = torch.argmax(logits, dim=-1)
+    mask = mask.to(torch.float32)
+    correct = (pred == labels).to(torch.float32) * mask
+    return correct.sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,4 +1,5 @@
-"""AdamW over parameter trees, with the JAX package's exact update rule.
+"""AdamW and SGD over parameter trees, with the JAX package's exact
+update rules.
 
 ``opt = adamw(lr); state = opt.init(params); updates, state =
 opt.update(grads, state, params); params = apply_updates(params, updates)``.
@@ -63,6 +64,27 @@ def adamw(lr: float | Callable = 1e-3, b1: float = 0.9, b2: float = 0.999,
 
         updates = tree_map(upd, mu, nu, params if params is not None else mu)
         return updates, OptState(count=count, mu=mu, nu=nu)
+
+    return Optimizer(init=init, update=update)
+
+
+def sgd(lr: float | Callable = 1e-2, momentum: float = 0.0) -> Optimizer:
+    """SGD, with heavy-ball momentum ``mu = momentum·mu + g`` where
+    ``momentum`` is non-zero; ``state.nu`` is None."""
+    def init(params):
+        return OptState(count=0, mu=tree_map(torch.zeros_like, params),
+                        nu=None)
+
+    def update(grads, state: OptState, params=None):
+        count = state.count + 1
+        lr_t = _lr_at(lr, count)
+        if momentum:
+            mu = tree_map(lambda m, g: momentum * m + g, state.mu, grads)
+            updates = tree_map(lambda m: -lr_t * m, mu)
+        else:
+            mu = state.mu
+            updates = tree_map(lambda g: -lr_t * g, grads)
+        return updates, OptState(count=count, mu=mu, nu=None)
 
     return Optimizer(init=init, update=update)
 

@@ -306,6 +306,18 @@ def active_ledgers() -> tuple[CommLedger, ...]:
 
 
 @contextlib.contextmanager
+def ledgers_scope(ledgers: tuple[CommLedger, ...]) -> Iterator[None]:
+    """Collect into exactly ``ledgers`` inside the block: for a backward,
+    which autograd runs on a thread of its own for CUDA tensors, with the
+    ledgers its forward saw (:func:`active_ledgers`)."""
+    token = _LEDGERS.set(tuple(ledgers))
+    try:
+        yield
+    finally:
+        _LEDGERS.reset(token)
+
+
+@contextlib.contextmanager
 def backward_scope() -> Iterator[None]:
     """Record the collectives run inside the block as backward calls of
     their keys (``mirrored_calls`` and ``mirrored_wire_bytes``).

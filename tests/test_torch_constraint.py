@@ -5,7 +5,7 @@ CPU over gloo.
   ``normalize_spec`` and ``_spec_placement`` against the reference's on a
   table of (shape, src, dst, axis sizes), hybrid and three axes included.
 * One rank, in process: GCN × {decoupled, decoupled_pipelined, naive} ×
-  {segment, blocksparse} and DP × {segment, blocksparse} under
+  {segment, blocksparse}, GAT naive and DP × {segment, blocksparse} under
   ``backend="constraint"`` — loss and grads of one step against the
   reference's constraint backend and the port's explicit one, the ledger's
   all-to-all and all-gather entries against both; the streamed epoch
@@ -75,6 +75,7 @@ CHUNKS, BS, HIDDEN, GAMMA = 3, 32, 8, 0.8
 ONE_RANK = ([("gcn", mode, agg)
              for mode in ("decoupled", "decoupled_pipelined", "naive")
              for agg in ("segment", "blocksparse")]
+            + [("gat", "naive", "segment")]
             + [("dp", "dp", "segment"), ("dp", "dp", "blocksparse")])
 MESHES = {"model4": dict(model=4),
           "data2-model2": dict(model=2, data=2),

@@ -1,5 +1,6 @@
-"""The port stands alone: nothing under src/repro_torch/ and nothing in
-chip_smoke.py imports jax or the JAX package ``repro``."""
+"""The port stands alone: nothing under src/repro_torch/, nothing in
+chip_smoke.py and nothing in the port's examples (examples/*_torch.py)
+imports jax or the JAX package ``repro``."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_roots(path: Path):
