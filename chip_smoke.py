@@ -52,7 +52,12 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               share); one more step's collective ledger held to the
               schedule (16 all-to-alls, 8 forward and 8 backward, payload
               from the shapes, one loss psum of 12 bytes, one gradient
-              all-reduce of the parameters' bytes, 0 wire bytes at N=1);
+              all-reduce of the parameters' bytes, 0 wire bytes at N=1)
+              and audited: the collectives the step issued, counted by
+              ``torch.profiler`` below the choke point
+              (``analysis/audit.py``: 8 all-to-alls forward and 8 backward,
+              the backward's on autograd's own thread, and 2 all-reduces),
+              held against the ledger with no finding and printed;
               then the step-0 loss and grads recomputed with the plain
               version on the card and with the segment backend, each held
               within rtol 1e-4 (per tensor, max|Δ| ≤ 1e-4·max|ref|);
@@ -60,13 +65,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               split, one aggregation round and a gather per layer; 12 SpMM
               launches a step (layer 0 forward only, its input features
               carry no gradient; layer 1 forward and backward) and
-              4L−2 = 6 all-to-alls;
+              4L−2 = 6 all-to-alls, the ledgered step audited as phase 6's
+              (phases 10–11 and 13 too);
 8. dp       — the same for the DP halo-exchange baseline,
               ``prepare_dp_bundle(k=1, agg="blocksparse")`` and
               ``make_dp_train_fns`` on the same graph: 3 SpMM launches a
               step on the rectangular per-worker plan and L+(L−1) = 3 halo
-              all-to-alls; the kernel held against the plain version on
-              that plan at both layers' widths;
+              all-to-alls, the step audited; the kernel held against the
+              plain version on that plan at both layers' widths;
 9. stream   — the out-of-core streamed step (``core.stream``) on the same
               graph: ``prepare_stream_bundle(n_chunks=4, n_stripes=16,
               agg="blocksparse", bs=128)`` keeps the features (16× a
@@ -144,7 +150,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               Held: 16 / 12 / 3 / 0 / 16 / 16 SpMM launches a step; one
               step's all-to-all, all-gather and h2d entries equal to the
               explicit twin's, and no psum or grad_psum entries (those
-              reductions are DTensor's); step-0 loss and grads within
+              reductions are DTensor's), each backend's step audited (the
+              streamed epoch's with both passes together: it runs its
+              split's transpose by hand); step-0 loss and grads within
               rtol 1e-6 of the twin's under deterministic algorithms; a
               ``CommDebugMode`` census of one step (forward and the
               reductions: the backward runs on autograd's thread, which
@@ -214,7 +222,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               single-device decoupled forward on the bundle, peak memory.
               Last, ``examples/train_gcn_full_graph_torch.py --epochs 20``
               in a process of its own: exit code 0 and its checkpoint
-              line.
+              line;
+21. multihost — ``runtime/distributed.py`` on the card: ``initialize()``
+              opens a 1-rank NCCL group; (a) phase 6's bundle through
+              ``prepare_bundle(mesh=TPMesh())`` (each rank keeps its own
+              rows: all of them at N=1, so its resident node-array bytes
+              equal the unplaced bundle's, printed), 3 warm-up + 5 timed
+              steps with 16 SpMM launches a step (and the unplaced bundle
+              the same, its median printed beside), step-0 loss and grads
+              within rtol 1e-6 of the unplaced bundle's under
+              deterministic algorithms; a host DP bundle placed slab by
+              slab (``place_dp_bundle_streamed``, 4 slabs: 20 ``h2d``
+              entries) bitwise equal to ``place_dp_bundle``'s; (b) ``python
+              -m repro_torch.launch.multihost`` in a child process under the
+              env contract (``COORDINATOR_ADDRESS=127.0.0.1:<port>``,
+              ``NUM_PROCESSES=1``, ``PROCESS_ID=0``) at phase 6's widths,
+              three times (GCN decoupled-pipelined, ``--mode dp``, ``--model
+              gat --backend constraint``): exit 0, one ``RESULT`` line
+              with ``processes: 1``, finite and falling losses, the first
+              within rtol 1e-5 of the same first step computed in this
+              process from the same seed; each median epoch printed.
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  In the summary's
@@ -470,11 +497,15 @@ def _hold_ledger(name, step, params, state, a2a_calls: int,
     their payload from the shapes, one stacked loss psum of 12 bytes, one
     gradient all-reduce of the parameters' bytes, and no wire bytes (the
     ring factor is 0 at N=1).  ``all_gather=(calls, payload)``: GAT's
-    score all-gathers, each with its backward."""
-    from repro_torch.runtime.telemetry import collect_comm
-    with collect_comm() as ledger:
-        step(params, state)
-    torch.cuda.synchronize()
+    score all-gathers, each with its backward.  The same step is audited
+    (:func:`_audited_step`); its backward's collectives must have run on
+    autograd's own thread, not the caller's."""
+    ledger, census = _audited_step(name, step, params, state)
+    if a2a_mirrored and set(census.threads.get("backward", ())) & set(
+            census.threads.get("forward", ())):
+        raise AssertionError(
+            f"{name}: backward collectives on the caller's thread "
+            f"{census.threads}: autograd runs a CUDA backward on its own")
 
     def entry(calls, payload, mirrored=0):
         return {"calls": float(calls), "payload_bytes": float(payload),
@@ -501,6 +532,21 @@ def _hold_ledger(name, step, params, state, a2a_calls: int,
           f"{a2a_payload:.0f} payload bytes{gathers}, 0 wire bytes at N=1  "
           f"ok")
     return got
+
+
+def _audited_step(name, step, *args, by_pass: bool = True):
+    """One call of ``step`` with its collective ledger and the census of
+    the collectives it issued (``torch.profiler``, below the choke point,
+    forward and backward on every thread): the audit must be clean.
+    Returns (ledger, census)."""
+    from repro_torch.analysis import audit as A
+    from repro_torch.runtime.telemetry import collect_comm
+    with collect_comm() as ledger:
+        _, census = A.census(step, *args)
+    A.assert_clean(census, ledger, tag=name, by_pass=by_pass)
+    print(f"  {name} audit clean: census {json.dumps(census.as_dict())}; "
+          f"threads {census.threads}")
+    return ledger, census
 
 
 def _hold_same(name, got, others, first_loss: float) -> None:
@@ -853,7 +899,6 @@ def hybrid(bundle, data, dev, pure: dict, card: str) -> dict:
     from repro_torch.gnn import dp_baseline as DP
     from repro_torch.gnn import models as M
     from repro_torch.runtime import TPMesh, hybrid_mesh
-    from repro_torch.runtime.telemetry import collect_comm
 
     mesh, pure_mesh = hybrid_mesh(model=1, data=1), TPMesh()
     print(f"  mesh {mesh.shape}: data axes {mesh.data_axes}, "
@@ -929,9 +974,7 @@ def hybrid(bundle, data, dev, pure: dict, card: str) -> dict:
         want["psum|data|float32"] = {
             "calls": 1.0, "payload_bytes": 12.0, "wire_bytes": 0.0,
             "mirrored_calls": 0.0, "mirrored_wire_bytes": 0.0}
-        with collect_comm() as ledger:
-            step(params, state)
-        torch.cuda.synchronize()
+        ledger, _ = _audited_step(label, step, params, state)
         got = ledger.as_dict()
         print(f"  ledger of one {label} step: {json.dumps(got)}")
         if got != want:
@@ -1050,11 +1093,13 @@ def constraint(bundle, data, dev, card: str) -> dict:
                 why, timed=5)
             profile = _profile(lambda: step(params, state),
                                f"{backend} {name} step")
-            with collect_comm() as ledger:
-                step(params, state)
-            torch.cuda.synchronize()
+            # the streamed epoch runs its split's transpose by hand
+            ledger, census = _audited_step(
+                f"{backend} {name}", step, params, state,
+                by_pass=name != "stream")
             runs[backend] = _path_info(launches, median_ms, profile,
                                        ledger.as_dict(), losses)
+            runs[backend]["audit_census"] = census.as_dict()
         got, want = runs["constraint"]["ledger"], runs["explicit"]["ledger"]
         print(f"  ledger of one {label} step: {json.dumps(got)}")
         if set(got) != set(_moved(got)) or _moved(got) != _moved(want):
@@ -2203,10 +2248,12 @@ def lm_timing(dev):
 
 SINGLE_EPOCHS = 13
 SINGLE_RUN = dict(lr=1e-2, weight_decay=5e-4, seed=0, log_every=1)
-# the environment a launcher such as torchrun sets: the example must not
-# take this run for one of its ranks
+# the environment a launcher such as torchrun sets, and the env contract of
+# repro_torch.runtime.distributed: a child must not take this run for one
+# of its ranks
 LAUNCHER_ENV = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR",
-                "MASTER_PORT")
+                "MASTER_PORT", "COORDINATOR_ADDRESS", "NUM_PROCESSES",
+                "PROCESS_ID", "DIST_INIT_TIMEOUT")
 
 
 def _single_cfg(data, model: str, decoupled: bool):
@@ -2462,6 +2509,172 @@ def single(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Multihost: per-rank placement and the launcher (phase 21)
+# ---------------------------------------------------------------------------
+
+MULTIHOST_RTOL = 1e-5     # the launcher's first loss against this process's
+MULTIHOST_ARGS = ["--n", "23000", "--feat-dim", "602", "--classes", "41",
+                  "--hidden", "128", "--layers", "2", "--chunks", "4",
+                  "--epochs", "5"]
+MULTIHOST_RUNS = {"gcn decoupled_pipelined": [],
+                  "gcn dp": ["--mode", "dp"],
+                  "gat constraint": ["--model", "gat", "--backend",
+                                     "constraint"]}
+
+
+def _placed(dev, card) -> dict:
+    """Phase 21(a): phase 6's bundle placed on the 1-rank mesh
+    (``prepare_bundle(mesh=...)``), trained 3 + 5 steps; step 0 against
+    the unplaced bundle's under deterministic algorithms."""
+    from repro_torch import optim
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import dp_baseline as DP
+    from repro_torch.gnn import models as M
+    from repro_torch.graph.synthetic import reddit_like
+    from repro_torch.runtime import TPMesh
+    from repro_torch.runtime.telemetry import collect_comm
+
+    data, mesh = reddit_like(scale=1.0, seed=0), TPMesh()
+    t0 = time.perf_counter()
+    kw = dict(n_chunks=4, agg="blocksparse", agg_block_size=128, device=dev)
+    whole = D.prepare_bundle(data, n_workers=1, **kw)
+    placed = D.prepare_bundle(data, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    sizes = D.node_array_bytes(placed), D.node_array_bytes(whole)
+    print(f"  placed bundle block {placed.block}: node arrays "
+          f"{sizes[0]} bytes resident against {sizes[1]} unplaced (equal at "
+          f"N=1; 1/N of them at N ranks); both prepared in "
+          f"{time.perf_counter() - t0:.1f} s")
+    if sizes[0] != sizes[1] or placed.block != (0, 1):
+        raise AssertionError(f"placed bundle at N=1: {sizes}, "
+                             f"{placed.block}")
+    # the DP bundle placed slab by slab through the staging prefetcher,
+    # from a host bundle: bitwise the direct placement, one h2d entry a slab
+    host = DP.prepare_dp_bundle(data, k=1, device="cpu")
+    with collect_comm() as led:
+        streamed = DP.place_dp_bundle_streamed(host, mesh, n_slabs=4,
+                                               device=dev)
+    direct = DP.place_dp_bundle(host, mesh, device=dev)
+    h2d = led.as_dict()
+    slabs = sum(e["calls"] for k, e in h2d.items()
+                if k.startswith("h2d|dp_rows|"))
+    if slabs != 4 * len(D.NODE_ARRAYS) or not all(
+            torch.equal(getattr(streamed, f), getattr(direct, f))
+            for f in D.NODE_ARRAYS):
+        raise AssertionError(f"streamed DP placement: {h2d}")
+    print(f"  DP bundle placed slab by slab: {slabs:.0f} h2d entries of "
+          f"{D.node_array_bytes(streamed)} bytes, bitwise the direct "
+          f"placement  ok")
+    del host, streamed, direct
+    cfg = D.padded_gnn_config(data, placed, hidden_dim=128, num_layers=2)
+    params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+    runs = {}
+    # the unplaced bundle in the same phase: the host's pace changes
+    # over the script, so only this pair compares
+    for label, bundle in (("placed", placed), ("unplaced", whole)):
+        opt = optim.adamw(1e-2, weight_decay=5e-4)
+        step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt,
+                                             mode="decoupled_pipelined")
+        runs[label] = _drive(
+            f"multihost {label}", step, evaluate, params0, opt, 16,
+            "2 rounds × 4 chunks × forward and backward", timed=5)
+    _, _, losses, launches, median_ms = runs["placed"]
+    with _deterministic("multihost placed"):
+        want = D.make_tp_value_and_grad(cfg, whole, mesh)(params0,
+                                                          whole.train_mask)
+        diff = _hold_equal(
+            "multihost placed",
+            D.make_tp_value_and_grad(cfg, placed, mesh)(params0,
+                                                        placed.train_mask),
+            want, "placed vs unplaced bundle")
+    print(f"  multihost placed: median step {median_ms:.2f} ms (unplaced "
+          f"{runs['unplaced'][4]:.2f} ms); largest step-0 difference from "
+          f"the unplaced bundle {diff:.3e} (deterministic algorithms); "
+          f"{card}")
+    return {"launches": launches, "step_ms": median_ms,
+            "unplaced_launches": runs["unplaced"][3],
+            "unplaced_step_ms": runs["unplaced"][4],
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "resident_bytes": sizes[0], "unplaced_bytes": sizes[1],
+            "max_diff_vs_unplaced": diff}
+
+
+def _launcher_run(extra: list, want_first: float, card: str) -> dict:
+    """Phase 21(b): ``python -m repro_torch.launch.multihost`` in a child
+    process under the env contract (one process, NCCL): exit 0, one
+    ``RESULT`` line, finite and falling losses, the first loss within
+    ``MULTIHOST_RTOL`` of this process's."""
+    env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
+    env.update(PYTHONPATH=str(ROOT / "src"),
+               COORDINATOR_ADDRESS=f"127.0.0.1:{_free_port()}",
+               NUM_PROCESSES="1", PROCESS_ID="0")
+    cmd = [sys.executable, "-m", "repro_torch.launch.multihost",
+           *MULTIHOST_ARGS, *extra]
+    t = time.perf_counter()
+    res = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    seconds = time.perf_counter() - t
+    lines = res.stdout.splitlines()
+    for line in lines:
+        print(f"    | {line}")
+    results = [ln for ln in lines if ln.startswith("RESULT ")]
+    if res.returncode != 0 or len(results) != 1:
+        print(res.stderr[-4000:])
+        raise AssertionError(f"the launcher exited {res.returncode} with "
+                             f"{len(results)} RESULT lines")
+    result = json.loads(results[0][len("RESULT "):])
+    rows = [ln.split(",") for ln in lines if ln.startswith("epoch,")]
+    losses = [float(r[2]) for r in rows]
+    epoch_ms = [float(r[3].removesuffix("ms")) for r in rows]
+    got = result["loss_first"]
+    if result["processes"] != 1 or len(losses) != 5 or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"launcher run {extra}: {result}, {losses}")
+    if abs(got - want_first) > MULTIHOST_RTOL * abs(want_first):
+        raise AssertionError(f"launcher run {extra}: loss_first {got} but "
+                             f"{want_first} in this process")
+    median_ms = statistics.median(epoch_ms[1:])
+    print(f"  exit 0 in {seconds:.1f} s; loss_first {got:.7f} against "
+          f"{want_first:.7f} here (|Δ| {abs(got - want_first):.2e}); median "
+          f"epoch {median_ms:.2f} ms (epochs 1–4); {card}")
+    return {"result": result, "seconds": seconds, "median_epoch_ms":
+            median_ms, "loss_first_here": want_first}
+
+
+def multihost(dev, card: str) -> dict:
+    """Phase 21: the multihost runtime on one card — the placed bundle
+    (a), then the launcher three times under the env contract (b), each
+    first step also computed here from the same seed."""
+    from repro_torch.launch import multihost as MH
+    from repro_torch.runtime import TPMesh
+    from repro_torch.runtime import distributed as RD
+
+    t0 = time.perf_counter()
+    ctx = RD.initialize(device=str(dev))
+    print(f"  initialize(): {ctx.num_processes} process, {ctx.device}, a "
+          f"{torch.distributed.get_backend()} group of one rank")
+    try:
+        out = {"placed": _placed(dev, card)}
+        torch.cuda.empty_cache()
+        firsts = {}
+        for name, extra in MULTIHOST_RUNS.items():
+            args = MH.parse_args(MULTIHOST_ARGS + extra
+                                 + ["--device", str(dev)])
+            step, _, params, opt = MH.build(args, TPMesh(), str(dev))
+            firsts[name] = step(params, opt.init(params))[2].item()
+            del step, params
+            torch.cuda.empty_cache()
+    finally:
+        RD.shutdown()
+    for name, extra in MULTIHOST_RUNS.items():
+        print(f"  -- launcher: {name} ({' '.join(extra) or 'the default'})")
+        out[name] = _launcher_run(extra, firsts[name], card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 21 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
@@ -2470,7 +2683,7 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/20] device")
+    print("[1/21] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2484,69 +2697,72 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
 
-    print("[2/20] build")
+    print("[2/21] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/20] spmm kernel against its plain version")
+    print("[3/21] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/20] flash kernel against its plain version")
+    print("[4/21] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/20] ssd kernel against its plain version")
+    print("[5/21] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/20] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/21] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/20] naive TP GCN training (a split and a gather per "
+        print("[7/21] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/20] DP halo-exchange GCN training (k=1)")
+        print("[8/21] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/20] out-of-core streamed GCN training (pinned host "
+        print("[9/21] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/20] GAT decoupled-pipelined TP training (the score "
+        print("[10/21] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/20] GAT naive TP training")
+        print("[11/21] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/20] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/21] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/20] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/21] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/20] the constraint engine backend (DTensor, "
+        print("[14/21] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/20] spmm timing at the GCN paths' shapes")
+        print("[15/21] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/20] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/21] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info = serve(dev)
-    print("[17/20] LM main path, scoring: forward + lm_loss")
+    print("[17/21] LM main path, scoring: forward + lm_loss")
     score_info = score(cfg, params, batch, dev)
-    print("[18/20] fp32 cross-check at full width, kernels vs plain")
+    print("[18/21] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch, dev)
     del params
     torch.cuda.empty_cache()
-    print("[19/20] flash and ssd timing at the LM path's shapes")
+    print("[19/21] flash and ssd timing at the LM path's shapes")
     lm_rows = lm_timing(dev)
-    print("[20/20] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    print("[20/21] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
+    print("[21/21] multihost: the placed bundle, the launcher under the env "
+          "contract")
+    multihost_info = multihost(dev, card)
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -2559,7 +2775,8 @@ def main() -> int:
                       "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
-                      "single": single_info, "card": card}))
+                      "single": single_info, "multihost": multihost_info,
+                      "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
@@ -2571,7 +2788,9 @@ def main() -> int:
         + like_info["sage"]["launches"] + like_info["gin"]["launches"]
         + sum(h["launches"] for h in hybrid_info.values())
         + sum(c["launches"] for c in constraint_info.values())
-        + single_info["rgcn tp"]["launches"],
+        + single_info["rgcn tp"]["launches"]
+        + multihost_info["placed"]["launches"]
+        + multihost_info["placed"]["unplaced_launches"],
         "launches_by_path": {"decoupled_pipelined": gcn["launches"],
                              "naive": naive_info["launches"],
                              "dp": dp_info["launches"],
@@ -2585,7 +2804,11 @@ def main() -> int:
                              **{f"constraint_{k}": c["launches"]
                                 for k, c in constraint_info.items()},
                              "rgcn_decoupled_pipelined":
-                                 single_info["rgcn tp"]["launches"]},
+                                 single_info["rgcn tp"]["launches"],
+                             "multihost_placed":
+                                 multihost_info["placed"]["launches"],
+                             "multihost_unplaced": multihost_info[
+                                 "placed"]["unplaced_launches"]},
         "max_abs_err": max(spmm_err, path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],

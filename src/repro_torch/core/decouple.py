@@ -21,9 +21,12 @@ by an all-gather (the paper's generalized decoupling, §4.1.1), and GAT
 aggregates by segment sums on any bundle.
 
 Every rank builds the same host-side bundle (:func:`prepare_bundle`) and
-takes its own vertex rows of it.  Parameters are replicated: the backward
-runs through the mirrored all-to-alls, and the factories sum the
-parameter gradients across ranks (``runtime.collectives`` says why).
+keeps its own vertex rows of it: with ``mesh=`` only those rows reach its
+device (:func:`place_bundle`, V/N rows a rank, as the reference's global
+arrays); without, the bundle holds every row and each step reads its own.
+Parameters are replicated: the backward runs through the mirrored
+all-to-alls, and the factories sum the parameter gradients across ranks
+(``runtime.collectives`` says why).
 
 Hybrid DP×TP (a :func:`repro_torch.runtime.hybrid_mesh`, ``data_axes``
 non-empty): the vertex dim shards over every rank, model-major (rank
@@ -64,6 +67,7 @@ from ..params import tree_leaves, tree_map, tree_unflatten
 from ..optim.adamw import apply_updates
 from ..runtime import collectives as C
 from ..runtime import constraint as K
+from ..runtime import distributed as dist
 from ..runtime import telemetry as T
 from ..runtime.mesh import TPMesh, padded_size, resolve_bundle_degrees
 from . import agg as AGG
@@ -98,15 +102,17 @@ class TPGraph:
 
 @dataclasses.dataclass(frozen=True)
 class TPBundle:
-    """Training bundle: replicated graph + node arrays over all vertices
-    (each rank reads its own rows)."""
+    """Training bundle: replicated graph + node arrays, over all vertices
+    (each step reads its rank's rows) or, placed (:func:`place_bundle`),
+    over this rank's block ``block = (index, count)`` of them only."""
 
     graph: TPGraph
-    features: torch.Tensor        # (n_padded, in_dim_padded)
+    features: torch.Tensor        # (n_padded, in_dim_padded) or its block
     labels: torch.Tensor          # (n_padded,) int64 (pad 0)
     train_mask: torch.Tensor      # (n_padded,) f32
     val_mask: torch.Tensor
     test_mask: torch.Tensor
+    block: tuple[int, int] | None = None
 
     @property
     def n_padded(self):
@@ -134,6 +140,31 @@ def _pad_graph(g: gf.Graph, n_padded: int) -> gf.Graph:
                     indptr=indptr)
 
 
+NODE_ARRAYS = ("features", "labels", "train_mask", "val_mask", "test_mask")
+
+
+def node_array_bytes(bundle) -> int:
+    """Bytes of a bundle's node arrays (features, labels, the three
+    masks): what placement divides by the rank count."""
+    return sum(getattr(bundle, f).numel() * getattr(bundle, f).element_size()
+               for f in NODE_ARRAYS)
+
+
+def place_bundle(bundle: TPBundle, mesh: TPMesh, device=None) -> TPBundle:
+    """This rank's share of ``bundle`` on ``device``: its vertex block
+    (:func:`repro_torch.core.tp.vertex_block`; V/(N·R) rows under hybrid
+    DP×TP) of the node arrays, through
+    :func:`repro_torch.runtime.distributed.put_global`.  The graph
+    structure and the comm plans stay replicated, as in the reference's
+    ``place_bundle``."""
+    vspec = tp.vertex_spec(mesh.axis, mesh.data_axes)
+    return dataclasses.replace(
+        bundle, block=tp.vertex_block(mesh),
+        **{f: dist.put_global(getattr(bundle, f), mesh,
+                              vspec[:getattr(bundle, f).dim()], device)
+           for f in NODE_ARRAYS})
+
+
 def prepare_bundle(data: GraphData, n_workers: int | None = None,
                    n_chunks: int = 4, n_replicas: int | None = None,
                    mesh: TPMesh | None = None, agg: str = "segment",
@@ -141,8 +172,10 @@ def prepare_bundle(data: GraphData, n_workers: int | None = None,
     """Host-side prep for ``n_workers`` TP ranks, placed on ``device``.
     Under a hybrid mesh ``n_replicas`` is the replica count, so the vertex
     dim pads to a multiple of every rank (``n_workers·n_chunks·
-    n_replicas``).  ``mesh=`` derives both degrees from the mesh; explicit
-    ones must match it.
+    n_replicas``).  ``mesh=`` derives both degrees from the mesh (explicit
+    ones must match it) and returns the bundle placed on it
+    (:func:`place_bundle`): only this rank's rows of the node arrays reach
+    ``device``.  Without a mesh the bundle holds every row.
 
     ``agg`` selects the default aggregation backend
     (:data:`repro_torch.core.agg.AGG_BACKENDS`) and builds its per-chunk
@@ -173,10 +206,14 @@ def prepare_bundle(data: GraphData, n_workers: int | None = None,
     labels = np.zeros((n_padded,), np.int64)
     labels[: g.n] = data.labels
 
+    # with a mesh the node arrays stay on the host until placed: only this
+    # rank's rows are copied to the device
+    node_dev = "cpu" if mesh is not None else device
+
     def pad_mask(m):
         out = np.zeros((n_padded,), np.float32)
         out[: g.n] = m.astype(np.float32)
-        return torch.from_numpy(out).to(device)
+        return torch.from_numpy(out).to(node_dev)
 
     graph = TPGraph(
         edges=L.edge_list_dev(gp, device), chunked=L.chunked_dev(cg, device),
@@ -184,13 +221,14 @@ def prepare_bundle(data: GraphData, n_workers: int | None = None,
         n=g.n, n_padded=n_padded, n_workers=n_workers,
         num_classes=data.num_classes, c_padded=c_padded,
         in_dim_padded=in_dim_padded, agg=agg, bsp=bsp, dense_adj=dense_adj)
-    return TPBundle(
+    bundle = TPBundle(
         graph=graph,
-        features=torch.from_numpy(feats).to(device),
-        labels=torch.from_numpy(labels).to(device),
+        features=torch.from_numpy(feats).to(node_dev),
+        labels=torch.from_numpy(labels).to(node_dev),
         train_mask=pad_mask(data.train_mask),
         val_mask=pad_mask(data.val_mask),
         test_mask=pad_mask(data.test_mask))
+    return bundle if mesh is None else place_bundle(bundle, mesh, device)
 
 
 def padded_gnn_config(data: GraphData, bundle: TPBundle,
@@ -424,8 +462,8 @@ def _edge_weights_constraint(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
     all-gather's backward sums."""
     if cfg.model == "gat":
         p = params["layers"][-1]
-        sl, sr = (K.layout_cast(h @ p[k], (None,),
-                                src_spec=(axis,)).to_local()
+        sl, sr = (K.layout_cast(h @ p[k], (None,), src_spec=(axis,),
+                                mirror=True).to_local()
                   for k in ("a_l", "a_r"))
         return cfg.gamma * L.gat_alpha(edges, sl, sr)
     return cfg.gamma * edges.weight
@@ -445,7 +483,7 @@ def tp_decoupled_forward_constraint(params, cfg: M.GNNConfig,
     vspec = tp.vertex_spec(axis, data_axes)
     h = K.constrain(M.mlp_phase(params, cfg, x), vspec)
     if data_axes:
-        h = K.layout_cast(h, (axis, None), src_spec=vspec)
+        h = K.layout_cast(h, (axis, None), src_spec=vspec, mirror=True)
     w_chunk = None
     if agg == "segment":
         w_flat = _edge_weights_constraint(params, cfg, graph.edges, h, axis)
@@ -474,9 +512,10 @@ def tp_naive_forward_constraint(params, cfg: M.GNNConfig, graph: TPGraph,
         if cfg.model == "gat":
             hw = K.constrain(h @ p["w"], vspec)
             if data_axes:
-                hw = K.layout_cast(hw, (axis, None), src_spec=vspec)
-            sl, sr = (K.layout_cast(hw @ p[k], (None,),
-                                    src_spec=(axis,)).to_local()
+                hw = K.layout_cast(hw, (axis, None), src_spec=vspec,
+                                   mirror=True)
+            sl, sr = (K.layout_cast(hw @ p[k], (None,), src_spec=(axis,),
+                                    mirror=True).to_local()
                       for k in ("a_l", "a_r"))
             w_chunk = L.rechunk_edge_values(
                 graph.chunked, L.gat_alpha(graph.edges, sl, sr))
@@ -603,24 +642,45 @@ def _check_bundle_fits(bundle: TPBundle, mesh: TPMesh) -> None:
             f"mesh's model degree (and n_replicas={replicas})")
 
 
-def _local_rows(bundle: TPBundle, mesh: TPMesh) -> slice:
-    """This rank's vertex rows: block ``m·R + r`` of V/(N·R)."""
+def local_rows(n_padded: int, mesh: TPMesh, block=None):
+    """(rows → this rank's rows) for arrays over the vertex dim of
+    ``n_padded``: block ``m·R + r`` of V/(N·R) is sliced out of an array
+    over all vertices, and an array of one block's rows — a placed
+    bundle's, whose ``block`` must be this rank's — is taken as it is."""
     idx, count = tp.vertex_block(mesh)
-    shard = bundle.n_padded // count
-    return slice(idx * shard, (idx + 1) * shard)
+    if block is not None and tuple(block) != (idx, count):
+        raise ValueError(
+            f"bundle placed for vertex block {block[0]} of {block[1]} but "
+            f"this rank's execution takes block {idx} of {count} — place "
+            f"it on the execution's mesh (prepare_bundle(mesh=...)) or "
+            f"prepare it without mesh=")
+    shard = n_padded // count
+    rows = slice(idx * shard, (idx + 1) * shard)
+
+    def mine(a):
+        if a.shape[0] == n_padded:
+            return a[rows]
+        if a.shape[0] == shard:
+            return a
+        raise ValueError(
+            f"a node array of {a.shape[0]} rows is neither over all "
+            f"{n_padded} vertices nor one rank's {shard}")
+
+    return mine
 
 
 def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
                      mode: str, agg, backend: str):
     """(params, mask) → (loss, acc) on this rank's rows of the bundle, with
-    ``mask`` over all vertices.  Under the constraint backend the rows
-    enter as the shards of global DTensors laid out ``vertex_spec``."""
+    ``mask`` over all vertices or this rank's rows (:func:`local_rows`).
+    Under the constraint backend the rows enter as the shards of global
+    DTensors laid out ``vertex_spec``."""
     _check_bundle_fits(bundle, mesh)
     body = _make_tp_loss_and_acc(cfg, mesh, mode,
                                  AGG.resolve_choice(bundle.graph, agg),
                                  backend)
-    rows = _local_rows(bundle, mesh)
-    x, labels = bundle.features[rows], bundle.labels[rows]
+    mine = local_rows(bundle.n_padded, mesh, bundle.block)
+    x, labels = mine(bundle.features), mine(bundle.labels)
     if backend == "constraint":
         vspec = tp.vertex_spec(mesh.axis, mesh.data_axes)
         x = K.from_local(x, vspec, mesh)
@@ -628,12 +688,12 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
 
         def global_loss(params, mask):
             return body(params, bundle.graph, x, labels,
-                        K.from_local(mask[rows], vspec[:1], mesh))
+                        K.from_local(mine(mask), vspec[:1], mesh))
 
         return global_loss
 
     def loss_and_acc(params, mask):
-        return body(params, bundle.graph, x, labels, mask[rows])
+        return body(params, bundle.graph, x, labels, mine(mask))
 
     return loss_and_acc
 

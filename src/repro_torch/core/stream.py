@@ -77,6 +77,7 @@ from ..graph.synthetic import GraphData
 from ..kernels import spmm as SP
 from ..params import tree_leaves, tree_map, tree_unflatten
 from ..runtime import constraint as K
+from ..runtime import distributed as dist
 from ..runtime import streaming as RS
 from ..runtime import telemetry as T
 from ..runtime.mesh import TPMesh, padded_size
@@ -99,8 +100,10 @@ class StreamBundle:
     The big members (``store``, ``chunked``, ``half_plans``,
     ``dense_rows``) stay on the host, pinned when ``device`` is a card;
     the epoch stages them one item at a time.  Only the O(V) label and
-    mask vectors are placed on ``device`` up front (over all vertices;
-    each rank reads its rows, as in the in-memory bundle)."""
+    mask vectors are placed on ``device`` up front: over all vertices
+    (each rank reads its rows, as in the in-memory bundle) or, prepared
+    with ``mesh=``, this rank's block ``block = (index, count)`` of
+    them."""
 
     store: gf.HostFeatureStore     # (n_padded, in_dim_padded) host f32
     chunked: gf.ChunkedGraph       # host numpy per-chunk edge arrays
@@ -120,6 +123,7 @@ class StreamBundle:
     c_padded: int
     in_dim_padded: int
     agg: str
+    block: tuple[int, int] | None = None
 
     @property
     def chunk_size(self) -> int:
@@ -134,12 +138,17 @@ class StreamBundle:
                 "test": self.test_mask}
 
 
-def prepare_stream_bundle(data: GraphData, n_workers: int,
+def prepare_stream_bundle(data: GraphData, n_workers: int | None = None,
                           n_chunks: int = 4, n_stripes: int | None = None,
                           agg: str = "segment", agg_block_size: int = 128,
-                          device="cuda") -> StreamBundle:
+                          device="cuda", mesh: TPMesh | None = None
+                          ) -> StreamBundle:
     """Host-side prep for streaming on ``n_workers`` TP ranks: pad, chunk,
-    build the host stores (pinned when ``device`` is a card).
+    build the host stores (pinned when ``device`` is a card).  ``mesh=``
+    derives ``n_workers`` from a pure-TP mesh (a hybrid one raises the
+    reference's gate) and places the labels and masks per rank, as the
+    reference's ``P(axis)`` placement does; the host feature store stays
+    host-side either way.
 
     ``n_stripes`` (default ``n_chunks``) slices the NN phase; the vertex
     dim pads to a multiple of ``n_workers · lcm(n_chunks, n_stripes)`` so
@@ -148,6 +157,23 @@ def prepare_stream_bundle(data: GraphData, n_workers: int,
     backend's per-chunk data: half plans of block size
     ``agg_block_size`` (``"blocksparse"``, one chunk's tiles at a time,
     compressed on the host) or dense rows (``"dense"``)."""
+    if mesh is not None:
+        if mesh.data_axes:
+            raise ValueError(
+                f"prepare_stream_bundle: hybrid DP×TP meshes (data axes "
+                f"{mesh.data_axes}) are not streamable — the stripe "
+                f"slicing contract is pure-TP vertex-sharded.  Use a "
+                f"pure-TP mesh (runtime.TPMesh()) or the in-memory "
+                f"prepare_bundle path.")
+        if n_workers is None:
+            n_workers = mesh.size
+        elif n_workers != mesh.size:
+            raise ValueError(
+                f"prepare_stream_bundle: n_workers={n_workers} but the "
+                f"mesh model degree is {mesh.size}")
+    elif n_workers is None:
+        raise TypeError("prepare_stream_bundle needs n_workers= (or mesh= "
+                        "to derive it)")
     n_stripes = n_chunks if n_stripes is None else n_stripes
     if n_stripes < 1 or n_chunks < 1:
         raise ValueError("n_chunks and n_stripes must be >= 1")
@@ -179,22 +205,27 @@ def prepare_stream_bundle(data: GraphData, n_workers: int,
     labels = np.zeros((n_padded,), np.int64)
     labels[: g.n] = data.labels
 
+    def place(a):
+        if mesh is None:
+            return torch.from_numpy(a).to(device)
+        return dist.put_global(a, mesh, (mesh.axis,), device)
+
     def pad_mask(m):
         out = np.zeros((n_padded,), np.float32)
         out[: g.n] = m.astype(np.float32)
-        return torch.from_numpy(out).to(device)
+        return place(out)
 
     return StreamBundle(
         store=store, chunked=cg, half_plans=half_plans,
-        dense_rows=dense_rows,
-        labels=torch.from_numpy(labels).to(device),
+        dense_rows=dense_rows, labels=place(labels),
         train_mask=pad_mask(data.train_mask),
         val_mask=pad_mask(data.val_mask),
         test_mask=pad_mask(data.test_mask), device=device,
         n=g.n, n_padded=n_padded, n_workers=n_workers,
         n_chunks=n_chunks, n_stripes=n_stripes,
         num_classes=data.num_classes, c_padded=c_padded,
-        in_dim_padded=in_dim_padded, agg=agg)
+        in_dim_padded=in_dim_padded, agg=agg,
+        block=None if mesh is None else (mesh.index, mesh.size))
 
 
 def stream_gnn_config(data: GraphData, sb: StreamBundle,
@@ -388,8 +419,8 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
     V, N, cs, rs = sb.n_padded, sb.n_workers, sb.chunk_size, sb.stripe_rows
     cp, width = cfg.num_classes, cfg.num_classes // sb.n_workers
     scale = 1.0 if agg == "segment" else cfg.gamma
-    rows = slice(rank * (V // N), (rank + 1) * (V // N))
-    labels = sb.labels[rows]
+    mine = DC.local_rows(V, mesh, sb.block)
+    labels = mine(sb.labels)
     fwd_in = RS.pinned(_chunk_inputs(sb, agg, False, cfg.gamma), dev)
     bwd_in = RS.pinned(_chunk_inputs(sb, agg, True, cfg.gamma), dev)
     copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
@@ -407,7 +438,7 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
 
     if backend == "constraint":
         return _constraint_value_and_grad(cfg, sb, mesh, agg, stripes,
-                                          chunks, fwd_in, bwd_in)
+                                          chunks, fwd_in, bwd_in, mine)
 
     def value_and_grad_fn(params, mask):
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
@@ -430,7 +461,7 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
         # 4. gather + loss; dL/dz through the gather's autograd mirror
         z = RS.sync_for_collectives(z).requires_grad_()
         loss, _ = DC.global_loss_and_acc(tp.gather(z, mesh), labels,
-                                         mask[rows], sb.num_classes, mesh)
+                                         mine(mask), sb.num_classes, mesh)
         (ct,) = torch.autograd.grad(loss, z)
         del z
         with torch.no_grad():
@@ -466,19 +497,19 @@ def make_stream_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
 
 def _constraint_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
                                mesh: TPMesh, agg: str, stripes, chunks,
-                               fwd_in, bwd_in):
+                               fwd_in, bwd_in, mine):
     """The epoch of :func:`make_stream_value_and_grad` on the constraint
     backend: the same seven steps, the same staging (``stripes``,
     ``chunks``) and buffers, with the stripes, H and the loss as global
-    DTensors (module docstring)."""
-    dev, rank = sb.device, mesh.index
+    DTensors (module docstring).  ``mine`` takes this rank's rows of a
+    vertex array (:func:`repro_torch.core.decouple.local_rows`)."""
+    dev = sb.device
     V, N, cs, rs = sb.n_padded, sb.n_workers, sb.chunk_size, sb.stripe_rows
     cp, width = cfg.num_classes, cfg.num_classes // sb.n_workers
     scale = 1.0 if agg == "segment" else cfg.gamma
     axis = mesh.axis
     vspec, zspec = (axis, None), (None, axis)
-    rows = slice(rank * (V // N), (rank + 1) * (V // N))
-    labels = K.from_local(sb.labels[rows], (axis,), mesh)
+    labels = K.from_local(mine(sb.labels), (axis,), mesh)
 
     def value_and_grad_fn(params, mask):
         p = K.replicated_params(params, mesh, requires_grad=True)
@@ -507,7 +538,7 @@ def _constraint_value_and_grad(cfg: M.GNNConfig, sb: StreamBundle,
         with K.mesh_context(mesh):
             loss, _ = DC.global_loss_and_acc_constraint(
                 tp.gather_constraint(K.from_local(z, zspec), axis), labels,
-                K.from_local(mask[rows], (axis,)), sb.num_classes)
+                K.from_local(mine(mask), (axis,)), sb.num_classes)
         (ct,) = torch.autograd.grad(loss, z)
         del z
         with K.mesh_context(mesh), torch.no_grad():

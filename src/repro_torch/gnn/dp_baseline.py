@@ -12,7 +12,10 @@ The halo exchange is a static, rectangular all-to-all built from
 to the max across workers and stacked on a leading worker axis.  Every rank
 builds the same bundle and takes its own partition (index ``mesh.index``):
 one process per worker, L halo all-to-alls forward and L−1 backward (layer
-0's input features carry no gradient).
+0's input features carry no gradient).  With ``mesh=`` only that
+partition's node arrays reach the rank's device (:func:`place_dp_bundle`,
+or slab by slab through the staging prefetcher,
+:func:`place_dp_bundle_streamed`).
 
 On a hybrid (data, model) mesh the partitions stay on the model axis
 (halo all-to-alls unchanged) while each partition's rows also shard over
@@ -41,6 +44,8 @@ from ..graph.synthetic import GraphData
 from ..kernels import spmm as SP
 from ..runtime import collectives as C
 from ..runtime import constraint as K
+from ..runtime import distributed as dist
+from ..runtime import streaming as RS
 from ..runtime.mesh import TPMesh, resolve_bundle_degrees
 from . import layers as L
 from . import models as M
@@ -71,6 +76,10 @@ class DPGraph:
 
 @dataclasses.dataclass(frozen=True)
 class DPBundle:
+    """Node arrays over every partition, (k, n_local_max, ·), or, placed,
+    over this rank's block ``block = (partition, replica, replicas)``
+    only: (1, n_local_max / replicas, ·)."""
+
     graph: DPGraph
     features: torch.Tensor     # (k, n_local_max, d)
     labels: torch.Tensor       # (k, n_local_max) int64
@@ -79,10 +88,80 @@ class DPBundle:
     test_mask: torch.Tensor
     num_classes: int
     comm_rows_per_worker: np.ndarray  # analysis: rows each worker receives
+    block: tuple[int, int, int] | None = None
 
     def masks(self) -> dict:
         return {"train": self.train_mask, "val": self.val_mask,
                 "test": self.test_mask}
+
+
+def _dp_block(mesh: TPMesh) -> tuple[int, int, int]:
+    """(partition, replica index, replica count) of this rank."""
+    rep = mesh.replicas()
+    return mesh.index, C.replica_index(rep), C.replica_size(rep)
+
+
+def _rank_spec(a: torch.Tensor, mesh: TPMesh) -> tuple:
+    """The stacked layout's spec for node array ``a``: partitions on the
+    model axis, rows over the data axes."""
+    return _dp_row_spec(mesh.axis, mesh.data_axes, a.dim() - 2)
+
+
+def place_dp_bundle(bundle: DPBundle, mesh: TPMesh, device=None) -> DPBundle:
+    """This rank's share of ``bundle`` on ``device``: its partition of the
+    node arrays, and under hybrid DP×TP its data-axis block of that
+    partition's rows (:func:`repro_torch.runtime.distributed.put_global`
+    in the stacked layout).  The graph structure stays replicated, as in
+    the reference's ``place_dp_bundle``."""
+    return dataclasses.replace(
+        bundle, block=_dp_block(mesh),
+        **{f: dist.put_global(getattr(bundle, f), mesh,
+                              _rank_spec(getattr(bundle, f), mesh), device)
+           for f in D.NODE_ARRAYS})
+
+
+def place_dp_bundle_streamed(bundle: DPBundle, mesh: TPMesh, *,
+                             n_slabs: int = 4, depth: int = 2,
+                             device=None) -> DPBundle:
+    """Streamed drop-in for :func:`place_dp_bundle`: this rank's rows of
+    each node array reach ``device`` slab by slab (contiguous row ranges)
+    through the double-buffered prefetcher
+    (:func:`repro_torch.runtime.streaming.prefetched` and ``stage``), each
+    slab recorded as one ``h2d`` ledger entry call (label ``dp_rows``), the
+    graph structure as one (``dp_graph``).
+
+    As in the reference, DP residency is already V/k rows a worker, so
+    this does not shrink the footprint: it bounds the staging — no copy
+    larger than one slab is in flight — and makes the placement's bytes
+    measured ``h2d`` entries.  Call with the host-side bundle of
+    ``prepare_dp_bundle(device="cpu")``."""
+    device = torch.device(dist.rank_device() if device is None else device)
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
+        else None
+
+    def stage(tree, label):
+        return RS.stage(RS.pinned(tree, device), device, label=label,
+                        copy_stream=copy_stream)
+
+    graph = stage(bundle.graph, "dp_graph").take()
+    placed = {}
+    for f in D.NODE_ARRAYS:
+        host = getattr(bundle, f)
+        host = host[dist.shard_slices(host.shape, mesh,
+                                      _rank_spec(host, mesh))]
+        n_rows = host.shape[1]
+        slab = -(-n_rows // max(1, min(n_slabs, n_rows)))
+        buf = RS.global_zeros(host.shape, device, host.dtype)
+        slabs = [(lo, host[:, lo:lo + slab].contiguous())
+                 for lo in range(0, n_rows, slab)]
+        for lo, staged in RS.prefetched(
+                slabs, lambda item: (item[0], stage(item[1], "dp_rows")),
+                depth=depth):
+            rows = staged.take()
+            buf[:, lo:lo + rows.shape[1]] = rows
+        placed[f] = buf
+    return dataclasses.replace(bundle, graph=graph, block=_dp_block(mesh),
+                               **placed)
 
 
 def prepare_dp_bundle(data: GraphData, k: int | None = None,
@@ -94,8 +173,9 @@ def prepare_dp_bundle(data: GraphData, k: int | None = None,
     """``k`` graph partitions (the model axis), placed on ``device``; under
     a hybrid mesh ``n_replicas`` pads each partition's row count to a
     multiple of it, so the local rows also shard over the data axes.
-    ``mesh=`` derives both counts from the mesh; explicit ones must match
-    it.
+    ``mesh=`` derives both counts from the mesh (explicit ones must match
+    it) and returns the bundle placed on it (:func:`place_dp_bundle`):
+    only this rank's partition reaches ``device``.
 
     ``agg`` selects the default aggregation backend
     (:data:`repro_torch.core.agg.AGG_BACKENDS`): ``"blocksparse"`` builds
@@ -167,6 +247,12 @@ def prepare_dp_bundle(data: GraphData, k: int | None = None,
     def dev(a):
         return torch.from_numpy(a).to(device)
 
+    # with a mesh the node arrays stay on the host until placed
+    node_dev = "cpu" if mesh is not None else device
+
+    def node(a):
+        return torch.from_numpy(a).to(node_dev)
+
     graph = DPGraph(
         send_idx_local=dev(send_local), recv_pos=dev(plan.recv_pos),
         src=dev(src), dst=dev(dst), weight=dev(wgt), valid_rows=dev(valid),
@@ -175,13 +261,14 @@ def prepare_dp_bundle(data: GraphData, k: int | None = None,
         bsp=(SP.block_sparse_plan_dev(gf.stack_plans(worker_plans), device)
              if worker_plans is not None else None),
         dense_adj=dev(dense_rows) if dense_rows is not None else None)
-    return DPBundle(graph=graph, features=dev(feats), labels=dev(labels),
-                    train_mask=dev(masks["train"]),
-                    val_mask=dev(masks["val"]),
-                    test_mask=dev(masks["test"]),
-                    num_classes=data.num_classes,
-                    comm_rows_per_worker=(plan.send_idx >= 0).sum(
-                        axis=(0, 2)))
+    bundle = DPBundle(graph=graph, features=node(feats),
+                      labels=node(labels), train_mask=node(masks["train"]),
+                      val_mask=node(masks["val"]),
+                      test_mask=node(masks["test"]),
+                      num_classes=data.num_classes,
+                      comm_rows_per_worker=(plan.send_idx >= 0).sum(
+                          axis=(0, 2)))
+    return bundle if mesh is None else place_dp_bundle(bundle, mesh, device)
 
 
 # ---------------------------------------------------------------------------
@@ -353,8 +440,9 @@ def _resolve_dp_axes(bundle: DPBundle, mesh: TPMesh, data_axes) -> TPMesh:
 def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
                      agg, backend: str):
     """(params, mask) → (loss, acc) on this rank's rows of its partition,
-    with ``mask`` over every partition, (k, n_local_max); global-view
-    under the constraint backend."""
+    with ``mask`` over every partition, (k, n_local_max), or over this
+    rank's block, as a placed bundle holds it; global-view under the
+    constraint backend."""
     if cfg.model != "gcn":
         raise ValueError(
             f"the DP halo-exchange baseline trains GCN only, as the "
@@ -363,9 +451,20 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
     g = bundle.graph
     agg = AGG.resolve_choice(g, agg)
     i, rep = mesh.index, mesh.replicas()
+    block = _dp_block(mesh)
+    if bundle.block is not None and bundle.block != block:
+        raise ValueError(
+            f"DP bundle placed for (partition, replica, replicas) "
+            f"{bundle.block} but this rank's execution takes {block} — "
+            f"place it on the execution's mesh (prepare_dp_bundle(mesh=...)) "
+            f"or prepare it without mesh=")
+    rows = (1, g.n_local_max // block[2])
 
     def mine(a):
-        """This rank's rows of partition i of a (k, n_local_max, ...)."""
+        """This rank's rows of partition i of a (k, n_local_max, ...), or
+        of its placed block (1, n_local_max / replicas, ...)."""
+        if tuple(a.shape[:2]) == rows:
+            return a[0]
         return C.replica_slice(a[i], rep)
 
     x, labels = mine(bundle.features), mine(bundle.labels)

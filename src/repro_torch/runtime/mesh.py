@@ -19,6 +19,7 @@ import dataclasses
 from typing import Any
 
 from . import collectives as C
+from . import distributed
 
 DEFAULT_AXIS = "model"
 
@@ -281,7 +282,7 @@ def hybrid_mesh(model: int | None = None, data: int = 1,
     world, rank = dist.get_world_size(), dist.get_rank()
     pod, data, model = resolve_mesh_shape(
         world, model=model, data=data, pod=pod,
-        note=f" (world size {world})")
+        note=f" (world size {world})" + distributed.topology_note())
 
     def r(p, d, m):
         return (p * data + d) * model + m

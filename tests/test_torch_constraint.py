@@ -503,12 +503,16 @@ def _port_rank(rank, world, init, params, out_dir):
                         model, mode, agg, mesh, params[f"{name}/{model}"],
                         backend)
             res[f"{name}/transitions"] = _transition_ledgers(mesh)
-            # the vertex layout's rows, reassembled by DTensor itself
+            # the vertex layout's rows — the placed bundle's, this rank's
+            # block only — reassembled by DTensor itself into the whole
             _, bundle = _port_setup("gcn", "segment", mesh)
-            x = K.from_local(bundle.features[tD._local_rows(bundle, mesh)],
+            whole = tD.prepare_bundle(
+                tsynth.sbm_power_law(**GRAPH), n_workers=mesh.size,
+                n_chunks=CHUNKS, n_replicas=mesh.data_size, device="cpu")
+            x = K.from_local(bundle.features,
                              ttp.vertex_spec("model", mesh.data_axes), mesh)
             res[f"{name}/rows"] = bool(torch.equal(x.full_tensor(),
-                                                   bundle.features))
+                                                   whole.features))
         mesh = tmesh.TPMesh()
         data = tsynth.sbm_power_law(**GRAPH)
         sb = tST.prepare_stream_bundle(data, world, n_chunks=CHUNKS,
