@@ -27,7 +27,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               every bf16 case through the tensor-core kernel and every fp32
               case through the FMA kernel (launch counts per variant), GQA
               groups g ∈ {1, 2, 4, 8}, causal and not, window, softcap,
-              ragged Sq ≠ Skv, hd ∈ {36, 64, 80, 128, 256}, hdv ≠ hd; fp32
+              ragged Sq ≠ Skv, hd ∈ {36, 64, 80, 128, 192, 256}, hdv ≠ hd,
+              gemma2's local layer cut to 4 heads (hd 256, g=2, window
+              4096, softcap 50, 4608 tokens: past the window) and MLA's
+              hd 192 / hdv 128, each in both dtypes; fp32
               held to 1e-5·(1 + max|ref|), bf16 per element to |Δ| ≤
               2^-7·|ref| + 1e-3 (both round the same fp32 math to bf16
               once, so they differ by at most one bf16 ulp);
@@ -170,35 +173,46 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               time of a call, the plain version and the bound of these
               inputs (nonzeros, row pointers, h once, output once);
 16. serve   — the LM main path: Zamba2-2.7B at full width and depth
-              (2.06 B parameters, random weights from seed 0 drawn on the
-              card), bf16, ``attn_impl="flash"``, ``ssm_impl="fused"``:
-              ``generate`` of 2 prompts × 2048 tokens from
-              ``SyntheticLM(32000, seed=0)`` + 32 greedy steps, 9 flash
-              launches in prefill (all of the tensor-core kernel) and none
-              in decode; then prefill and
-              decode timed (medians) and one prefill profiled;
+              (2.06 B parameters, random fp32 weights from seed 0 drawn on
+              the card), bf16 compute, ``attn_impl="flash"``,
+              ``ssm_impl="fused"``: ``generate`` of 2 prompts × 2048 tokens
+              from ``SyntheticLM(32000, seed=0)`` + 32 greedy steps, 9
+              flash launches in prefill (all of the tensor-core kernel)
+              and none in decode; then prefill and decode timed (medians),
+              one of each profiled, peak memory;
 17. score   — ``forward`` + ``lm_loss`` on 2 × 2048 tokens with targets
               under ``torch.no_grad()``: 9 flash (tensor-core) and 45 SSD
-              launches, a
-              finite loss; timed and profiled;
+              launches, a finite loss; timed and profiled;
 18. fp32    — the same weights in fp32 on a 1 × 512 prompt: the kernel
-              path against the same path with both plain versions patched
-              in on the card — prefill logits within 1e-4·max|ref|,
-              identical greedy tokens over 8 steps, scoring loss within
-              1e-5 relative; and the bf16 scoring loss of phase 17 beside
-              its plain-version twin (printed, not gated);
-19. lm-t    — the flash kernel at (2, 32, 2048, 80) causal held against
-              its plain version in fp32 (1e-5·(1 + max|ref|)) and in bf16
-              (per element, as phase 4); one bf16 launch there timed beside
-              its plain version, ``scaled_dot_product_attention`` on the
-              same tensors (held for agreement to 1e-2·(1 + max|ref|): it
-              rounds the softmax weights to bf16; timed only, never on the
-              path) and its bound; one SSD launch at (2, 2048, 80, 64),
-              N=64, Q=256, device time (``torch.profiler``) with its
-              CUDA-event time beside, its plain version and its bound:
-              bytes against three TF32 passes of the needed operations
-              at the tensor-core peak (the fp32 FMA figure printed
-              beside);
+              path (9 + 9 fp32 flash launches, 45 SSD) against the same
+              path with both plain versions patched in on the card (no
+              launch) — prefill logits within 1e-4·max|ref|, identical
+              greedy tokens over 8 steps, scoring loss within 1e-5
+              relative; and the bf16 scoring loss of phase 17 beside its
+              plain-version twin (printed, not gated);
+19. lm-t    — one bf16 flash launch at each LM path's shape, held against
+              its plain version (per element, as phase 4) and timed beside
+              it, the library yardstick on the same tensors — held for
+              agreement to 1e-2·(1 + max|ref|) (it rounds the softmax
+              weights to bf16), timed, never on the path:
+              ``scaled_dot_product_attention`` (K/V repeated over the
+              groups) where there is no softcap and no window, else the
+              compiled ``flex_attention`` (the softcap its score_mod, the
+              causal window its block mask, ``enable_gqa``; SDPA has no
+              softcap; inductor's and Triton's caches under ``build/``) —
+              and its bound: the
+              bf16 operations 2·(hd + hdv) per visible pair per head at
+              the tensor-core peak against q, k, v and the output once:
+              Zamba2's (2, 32, 2048, 80) (also held in fp32,
+              1e-5·(1 + max|ref|)), gemma2's global (1, 16, 8192, 256)
+              g=2 softcap 50, its local layer (the same, window 4096) and
+              DeepSeek's MLA (2, 16, 2048, 192/128); one SSD launch at
+              Zamba2's (2, 2048, 80, 64) N=64 and at Mamba2-1.3B's (2,
+              2048, 64, 64) N=128, Q=256, device time
+              (``torch.profiler``) with its CUDA-event time beside, its
+              plain version and its bound: bytes against three TF32
+              passes of the needed operations at the tensor-core peak
+              (the fp32 FMA figure printed beside);
 20. single  — the single-device trainer (``gnn/train.py::
               train_full_graph``, no process group) on reddit_like (phase
               6's graph), hidden 128, 2 layers, AdamW lr 1e-2 wd 5e-4: GCN,
@@ -243,9 +257,47 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               within rtol 1e-5 of the same first step computed in this
               process from the same seed; each median epoch printed.
 
+22. gemma2  — gemma2-9b at full width and depth (42 layers, local and
+              global alternating, 9.24 B parameters, bf16 weights from seed
+              0, norms fp32), ``attn_impl="flash"``: ``generate`` of 1 ×
+              8192 ``SyntheticLM`` tokens (its full context, twice the
+              window) + 32 greedy steps with ``long_context=True`` (ring
+              caches on the local layers), then with dense caches; 42 flash
+              launches per prefill, all of the tensor-core kernel, none per
+              decode step; each flash launch counted by case where the
+              wrapper launches it (``launches_by_case``): 21 global (hd
+              256, softcap 50) and 21 local (window 4096 too) per prefill;
+              prefill and decode timed (medians of 3 and 32) and profiled;
+              ``forward`` + ``lm_loss`` on the same tokens: the same 21 +
+              21 launches, a finite loss; peak memory of each;
+23. deepseek — deepseek-v2-lite-16b at full width and depth (1 dense +
+              26 MoE layers, MLA, 15.7 B parameters, bf16 weights, router
+              and norms fp32): ``generate`` of 2 × 2048 + 32 steps, 27
+              flash launches per prefill (hd 192 / hdv 128), none per
+              decode step; the assignments MoE drops at prefill's capacity
+              (T·k against E·C, each layer); scoring: 27 launches, finite
+              loss and aux loss; timed and profiled;
+24. mamba2  — mamba2-1.3b at full width and depth (48 mamba2 layers, N=128,
+              64 heads, fp32 weights), ``ssm_impl="fused"``: scoring 2 ×
+              2048, 48 SSD launches; ``generate`` 2 × 2048 + 32 steps, no
+              SSD launch (the prefill runs the plain ``ssd_chunked``, as
+              the reference's); timed and profiled;
+25. lm-x    — phase 18's fp32 cross-check, under deterministic algorithms
+              (MoE's ``index_add_`` and ``index_put_`` then sum in a fixed
+              order), on gemma2 at full width and 4 layers over 1 × 4608
+              tokens (past the window) with ring and with dense caches,
+              DeepSeek at full width and 3 layers (1 dense + 2 MoE), Mamba2
+              at full width and 4 layers, both on 1 × 512, and granite-moe,
+              minitron, internlm2 and qwen1.5 reduced on 1 × 512: the kernel
+              path's launches counted (fp32 flash, SSD), the plain path's 0.
+
 The last lines are a JSON summary of the kernels, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  In the summary's
-``kernels`` line, ``ms_by`` says how each row's ``ms`` and ``library_ms``
+power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
+has one entry per kernel and shape: the flash kernel at Zamba2's shape,
+gemma2's global and local layers' and MLA's, the SSD kernel at Zamba2's
+and Mamba2-1.3B's, each with its path's launches (each flash shape's its
+own case's count from the main-path runs).
+In it, ``ms_by`` says how each row's ``ms`` and ``library_ms``
 were timed: ``"profiler"`` (device time from ``torch.profiler``) or
 ``"events"`` (CUDA events over back-to-back calls); ``plain_ms`` and the
 SpMM's ``event_ms`` are always CUDA events.
@@ -1797,6 +1849,12 @@ FLASH_CASES = (
     (1, 4, 4, 130, 70, 64, 64, torch.bfloat16, True, None, None),
     (1, 4, 2, 100, 100, 36, 20, torch.bfloat16, True, None, None),
     (1, 8, 1, 257, 257, 256, 256, torch.bfloat16, True, None, None),
+    # gemma2's local layers (hd 256, GQA 2, window 4096, softcap 50) past
+    # the window, heads cut to 4; MLA's hd 192 (128 + 64 rope) / hd_v 128
+    (1, 4, 2, 4608, 4608, 256, 256, torch.float32, True, 4096, 50.0),
+    (1, 4, 2, 4608, 4608, 256, 256, torch.bfloat16, True, 4096, 50.0),
+    (2, 16, 16, 300, 300, 192, 128, torch.float32, True, None, None),
+    (2, 16, 16, 300, 300, 192, 128, torch.bfloat16, True, None, None),
 )
 
 SSD_CASES = (
@@ -1975,6 +2033,36 @@ def _read_lm_counts():
     return fl.launches, ssd_intra_chunk.launches
 
 
+def _flash_case(hd, hdv, window, softcap, variant="mma_bf16") -> str:
+    """The name of one key of ``flash_attention_bhsd.launches_by_case``."""
+    return f"{variant} hd={hd} hdv={hdv} window={window} softcap={softcap}"
+
+
+def _flash_case_counts() -> dict:
+    """Flash launches since the last zeroing, by case, as counted where
+    the wrapper launches its kernel."""
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd as fl
+    return {_flash_case(hd, hdv, w, c, v): n
+            for (v, hd, hdv, w, c), n in fl.launches_by_case.items()}
+
+
+def _lm_flash_cases(cfg) -> dict:
+    """The flash launches one bf16 prefill or scoring forward of ``cfg``
+    makes, by case: one per attention layer, windowed on gemma2's local
+    layers, at MLA's hd + rope_hd / hdv on DeepSeek's."""
+    out = {}
+    for kind in cfg.layer_kinds():
+        if kind == "mamba":
+            continue
+        hd = hdv = cfg.head_dim
+        if cfg.use_mla:
+            hd += cfg.rope_head_dim
+        key = _flash_case(hd, hdv, cfg.sliding_window if kind == "local"
+                          else None, cfg.attn_softcap)
+        out[key] = out.get(key, 0) + 1
+    return out
+
+
 def _plain_lm_kernels():
     """Both LM kernels' plain versions patched in on the card (the
     cross-check only; no entry point falls back to them)."""
@@ -1997,63 +2085,97 @@ def _expect(what: str, got, want) -> None:
         raise AssertionError(f"{what}: expected {want}, got {got}")
 
 
-def serve(dev):
-    """Phase 15: Zamba2-2.7B full width, bf16, generate + timing."""
+LM_STEPS = 32          # greedy decode steps of every serving cell
+LM_RUNS = 3            # timed prefills and scoring forwards of each cell
+LM_XCHECK_STEPS = 8    # greedy steps of the fp32 cross-checks
+
+
+def _lm_model(arch: str, dev, dtype=torch.float32, **over):
+    """``arch`` at full width with the kernels' impls and ``over`` applied,
+    random weights from seed 0 drawn on the card in ``dtype`` (norms, the
+    MoE router and mamba2's decay rates fp32, as the reference keeps
+    them)."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
     from repro_torch.models.transformer import init_transformer
     from repro_torch.params import tree_leaves
+
+    cfg = dataclasses.replace(get_config(arch), attn_impl="flash",
+                              ssm_impl="fused", **over)
+    t0 = time.perf_counter()
+    params = init_transformer(cfg, seed=0, device=dev, dtype=dtype)
+    torch.cuda.synchronize()
+    leaves = tree_leaves(params)
+    n = sum(t.numel() for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    kinds = cfg.layer_kinds()
+    by_kind = ", ".join(f"{kinds.count(k)} {k}" for k in dict.fromkeys(kinds))
+    print(f"  {cfg.name}: {cfg.num_layers} layers ({by_kind}), "
+          f"d={cfg.d_model}, {n} parameters, {nbytes / 1e9:.2f} GB on the "
+          f"card ({str(dtype)[6:]}"
+          f"{'' if dtype == torch.float32 else ', norms/router/decay fp32'}"
+          f"), initialised in {time.perf_counter() - t0:.1f} s; compute "
+          f"{cfg.dtype}")
+    return cfg, params, n
+
+
+def _attn_layers(cfg) -> int:
+    """Flash launches of one prefill or scoring forward: one per attention
+    layer (mamba layers have none)."""
+    return sum(k != "mamba" for k in cfg.layer_kinds())
+
+
+def _serve_cell(cfg, params, prompt, dev, *,
+                long_context: bool = False) -> tuple[np.ndarray, dict]:
+    """``generate`` of ``prompt`` + ``LM_STEPS`` greedy steps, the main
+    path's run, with its launches held (one flash launch per attention
+    layer in prefill, all of the tensor-core kernel; none in decode; no
+    SSD launch: the reference's prefill runs the plain ``ssd_chunked``);
+    then prefill and decode timed (medians), one of each profiled, and
+    the peak memory."""
     from repro_torch.serve import generate, make_serve_fns
 
-    cfg = dataclasses.replace(get_config("zamba2-2.7b"), attn_impl="flash",
-                              ssm_impl="fused")
-    t0 = time.perf_counter()
-    params = init_transformer(cfg, seed=0, device=dev)
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    print(f"  {cfg.name}: {cfg.num_layers} layers "
-          f"({cfg.layer_kinds().count('mamba')} mamba2, "
-          f"{cfg.layer_kinds().count('shared_attn')} shared attention), "
-          f"d={cfg.d_model}, {n_params} parameters (fp32 on the card), "
-          f"initialised in {time.perf_counter() - t0:.1f} s; compute "
-          f"{cfg.dtype}")
-    n_attn = cfg.layer_kinds().count("shared_attn")   # 9 flash launches
-    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
-    prompt, steps = batch["tokens"], 32
-
+    b, s = prompt.shape
+    steps, n_attn = LM_STEPS, _attn_layers(cfg)
+    lc = " (long_context: ring caches)" if long_context else ""
     torch.cuda.reset_peak_memory_stats()
     _zero_lm_counts()
     t = time.perf_counter()
-    res = generate(params, cfg, prompt, steps, device=dev)
+    res = generate(params, cfg, prompt, steps, long_context=long_context,
+                   device=dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
-    counts = _read_lm_counts()
-    print(f"  generate 2 × 2048 + {steps} greedy steps in {gen_s:.2f} s; "
-          f"launches flash {counts[0]}, ssd {counts[1]}")
+    counts, cases = _read_lm_counts(), _flash_case_counts()
+    print(f"  generate {b} × {s} + {steps} greedy steps{lc} in {gen_s:.2f} "
+          f"s; launches flash {counts[0]} ({cases}), ssd {counts[1]}")
     _expect("generate launches (flash, ssd)", counts, (n_attn, 0))
-    if res.tokens.shape != (2, 2048 + steps) or \
+    _expect("generate flash launches by case", cases, _lm_flash_cases(cfg))
+    if res.tokens.shape != (b, s + steps) or \
             not torch.isfinite(res.prefill_logits).all():
         raise AssertionError("generate: bad token shape or non-finite "
                              "prefill logits")
-    print(f"  generated tokens {res.tokens[:, 2048:2048 + 8].tolist()} …")
+    tokens_out = res.tokens
+    del res
+    print(f"  generated tokens {tokens_out[:, s:s + 8].tolist()} …")
 
-    prefill_fn, decode_fn = make_serve_fns(cfg)
+    prefill_fn, decode_fn = make_serve_fns(cfg, long_context=long_context)
     tokens = torch.as_tensor(prompt, device=dev)
+    max_len = s + steps + 1
     pre_ms, dec_ms = [], []
     with torch.no_grad():
-        for _ in range(3):
+        for _ in range(LM_RUNS):
+            logits = caches = None
             _zero_lm_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            logits, caches = prefill_fn(params, tokens,
-                                        max_len=2048 + steps + 1)
+            logits, caches = prefill_fn(params, tokens, max_len=max_len)
             torch.cuda.synchronize()
             pre_ms.append((time.perf_counter() - t) * 1e3)
             _expect("prefill launches (flash, ssd)", _read_lm_counts(),
                     (n_attn, 0))
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        logits = None
         _zero_lm_counts()
         for _ in range(steps):
             torch.cuda.synchronize()
@@ -2063,162 +2185,281 @@ def serve(dev):
                 torch.int32)
             torch.cuda.synchronize()
             dec_ms.append((time.perf_counter() - t) * 1e3)
-        _expect("decode launches over 32 steps (flash, ssd)",
+        _expect(f"decode launches over {steps} steps (flash, ssd)",
                 _read_lm_counts(), (0, 0))
         prof_dec = _profile(lambda: decode_fn(params, tok, caches),
                             "decode step")
-        prof = _profile(lambda: prefill_fn(params, tokens,
-                                           max_len=2048 + steps), "prefill")
+        caches = None
+        prof = _profile(lambda: prefill_fn(params, tokens, max_len=max_len),
+                        "prefill")
     peak = torch.cuda.max_memory_allocated()
     pre, dec = statistics.median(pre_ms), statistics.median(dec_ms)
-    tok_s = 2 * steps / (sum(dec_ms) / 1e3)
+    tok_s = b * steps / (sum(dec_ms) / 1e3)
     print(f"  prefill {pre:.2f} ms (median of {pre_ms}); decode "
           f"{dec:.3f} ms per step (median of {steps}); {tok_s:.1f} "
-          f"tokens/s over the decode steps (batch 2); prefill "
-          f"{2 * 2048 / (pre / 1e3):.0f} tokens/s; peak memory "
+          f"tokens/s over the decode steps (batch {b}); prefill "
+          f"{b * s / (pre / 1e3):.0f} tokens/s; peak memory "
           f"{peak / 2**30:.2f} GiB")
-    return cfg, params, batch, {
-        "params": n_params, "generate_s": gen_s, "prefill_ms": pre,
-        "prefill_ms_runs": pre_ms, "decode_ms": dec, "decode_ms_runs": dec_ms,
+    return tokens_out, {
+        "generate_s": gen_s, "prefill_ms": pre, "prefill_ms_runs": pre_ms,
+        "decode_ms": dec, "decode_ms_runs": dec_ms,
         "decode_tokens_per_s": tok_s, "peak_bytes": peak,
-        "launches": {"flash": counts[0], "ssd": counts[1]}, "profile": prof,
-        "profile_decode": prof_dec}
+        "launches": {"flash": counts[0], "ssd": counts[1],
+                     "flash_by_case": cases},
+        "profile": prof, "profile_decode": prof_dec}
 
 
-def score(cfg, params, batch, dev):
-    """Phase 16: forward + lm_loss on 2 × 2048, under no_grad."""
+def _score_cell(cfg, params, batch, dev, *,
+                plain_twin: bool = False) -> dict:
+    """``forward`` + ``lm_loss`` on the batch under no_grad, the main path's
+    run: one flash launch per attention layer and one SSD launch per mamba
+    layer, a finite loss (and aux loss); timed, profiled, peak memory;
+    with ``plain_twin`` the bf16 loss with both plain versions patched in
+    beside it (not gated)."""
     from repro_torch.models import transformer as T
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
+    b, s = tokens.shape
 
     def run():
-        logits, _ = T.forward(params, cfg, tokens)
-        return T.lm_loss(logits, targets)
+        logits, aux = T.forward(params, cfg, tokens)
+        return T.lm_loss(logits, targets), aux
 
+    torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         _zero_lm_counts()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        loss = run().item()
+        loss, aux = (v.item() for v in run())
         first_ms = (time.perf_counter() - t) * 1e3
-        counts = _read_lm_counts()
+        counts, cases = _read_lm_counts(), _flash_case_counts()
         print(f"  scoring loss {loss:.6f} (log V = "
-              f"{math.log(cfg.vocab_size):.4f}); launches flash "
-              f"{counts[0]}, ssd {counts[1]}; first call {first_ms:.1f} ms")
-        kinds = cfg.layer_kinds()
+              f"{math.log(cfg.vocab_size):.4f}), aux loss {aux:.6f}; "
+              f"launches flash {counts[0]} ({cases}), ssd {counts[1]}; "
+              f"first call {first_ms:.1f} ms")
         _expect("scoring launches (flash, ssd)", counts,
-                (kinds.count("shared_attn"), kinds.count("mamba")))
-        if not math.isfinite(loss):
-            raise AssertionError(f"scoring loss not finite: {loss}")
+                (_attn_layers(cfg), cfg.layer_kinds().count("mamba")))
+        _expect("scoring flash launches by case", cases,
+                _lm_flash_cases(cfg))
+        if not (math.isfinite(loss) and math.isfinite(aux)) or \
+                (aux > 0) != cfg.moe:
+            raise AssertionError(f"scoring loss {loss} / aux {aux}: not "
+                                 f"finite, or an aux loss where no MoE "
+                                 f"layer is (or none where one is)")
         ms = []
-        for _ in range(3):
+        for _ in range(LM_RUNS):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            run().item()
+            run()[0].item()
             ms.append((time.perf_counter() - t) * 1e3)
         prof = _profile(run, "scoring forward")
-        with _plain_lm_kernels():
-            loss_plain = run().item()
-    print(f"  scoring {statistics.median(ms):.2f} ms (median of {ms}); "
-          f"{2 * 2048 / (statistics.median(ms) / 1e3):.0f} tokens/s; bf16 "
-          f"loss kernel vs plain versions |Δ|={abs(loss - loss_plain):.3e} "
-          f"(plain {loss_plain:.6f}; not gated)")
-    return {"loss": loss, "loss_plain": loss_plain, "ms": statistics.median(ms),
-            "ms_runs": ms, "launches": {"flash": counts[0], "ssd": counts[1]},
-            "profile": prof}
+        out = {}
+        if plain_twin:
+            with _plain_lm_kernels():
+                out["loss_plain"] = run()[0].item()
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(ms)
+    print(f"  scoring {med:.2f} ms (median of {ms}); "
+          f"{b * s / (med / 1e3):.0f} tokens/s; peak memory "
+          f"{peak / 2**30:.2f} GiB"
+          + (f"; bf16 loss kernel vs plain versions |Δ|="
+             f"{abs(loss - out['loss_plain']):.3e} (plain "
+             f"{out['loss_plain']:.6f}; not gated)" if plain_twin else ""))
+    return {"loss": loss, "aux": aux, "ms": med, "ms_runs": ms,
+            "peak_bytes": peak,
+            "launches": {"flash": counts[0], "ssd": counts[1],
+                         "flash_by_case": cases},
+            "profile": prof, **out}
 
 
-def cross_check_fp32(cfg, params, batch, dev) -> float:
-    """Phase 17: the kernel path against the plain versions, fp32."""
+def serve(dev):
+    """Phases 16–17: Zamba2-2.7B full width, bf16 compute on fp32 weights:
+    generate + timing, then scoring."""
+    from repro_torch.data import SyntheticLM
+    cfg, params, n_params = _lm_model("zamba2-2.7b", dev)
+    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
+    _, info = _serve_cell(cfg, params, batch["tokens"], dev)
+    print("[17/25] LM main path, scoring: forward + lm_loss")
+    score_info = _score_cell(cfg, params, batch, dev, plain_twin=True)
+    return cfg, params, batch, {"params": n_params, **info}, score_info
+
+
+def cross_check_fp32(cfg, params, prompt, targets, dev, *,
+                     long_contexts=(False,)) -> float:
+    """The kernel path against the same path with both plain versions
+    patched in, on the card, in fp32: ``generate`` of ``prompt`` +
+    ``LM_XCHECK_STEPS`` greedy steps at each of ``long_contexts`` — prefill
+    logits within 1e-4·max|ref|, identical tokens — and the scoring loss
+    within 1e-5 relative.  The kernel path must launch the kernels (fp32:
+    the FMA flash kernel) and the plain one none.  Returns the largest
+    logits max|Δ|."""
     import dataclasses
 
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd as fl
+    from repro_torch.kernels.ssd import ssd_intra_chunk
     from repro_torch.models import transformer as T
     from repro_torch.serve import generate
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    prompt = batch["tokens"][:1, :512]
+    b, s = prompt.shape
     tokens = torch.as_tensor(prompt, device=dev)
-    targets = torch.as_tensor(batch["targets"][:1, :512], device=dev)
+    targets = torch.as_tensor(targets, device=dev)
 
     def run():
-        res = generate(params, cfg32, prompt, 8, device=dev)
+        _zero_lm_counts()
+        res = [generate(params, cfg32, prompt, LM_XCHECK_STEPS,
+                        long_context=lc, device=dev) for lc in long_contexts]
         with torch.no_grad():
             logits, _ = T.forward(params, cfg32, tokens)
             loss = T.lm_loss(logits, targets).item()
-        return res, loss
+        return res, loss, (fl.launches_by_variant["fma_fp32"],
+                           ssd_intra_chunk.launches)
 
-    res_k, loss_k = run()
+    res_k, loss_k, ran_k = run()
     with _plain_lm_kernels():
-        res_p, loss_p = run()
-    err = _held("fp32 prefill logits 1×512, kernels vs plain",
-                res_k.prefill_logits, res_p.prefill_logits, PATH_RTOL, 0.0)
-    if not np.array_equal(res_k.tokens, res_p.tokens):
-        raise AssertionError(f"fp32 greedy tokens differ: "
-                             f"{res_k.tokens[:, 512:]} vs "
-                             f"{res_p.tokens[:, 512:]}")
-    print(f"  fp32 greedy tokens identical over 8 steps: "
-          f"{res_k.tokens[0, 512:].tolist()}")
+        res_p, loss_p, ran_p = run()
+    n_attn, n_mamba = _attn_layers(cfg), cfg.layer_kinds().count("mamba")
+    _expect(f"{cfg.name} fp32 kernel-path launches (flash fp32, ssd)", ran_k,
+            ((len(long_contexts) + 1) * n_attn, n_mamba))
+    _expect(f"{cfg.name} plain-path launches", ran_p, (0, 0))
+    err = 0.0
+    for lc, rk, rp in zip(long_contexts, res_k, res_p):
+        tag = f"{cfg.name} fp32 {b}×{s}{' long_context' if lc else ''}"
+        err = max(err, _held(f"{tag} prefill logits, kernels vs plain",
+                             rk.prefill_logits, rp.prefill_logits,
+                             PATH_RTOL, 0.0))
+        if not np.array_equal(rk.tokens, rp.tokens):
+            raise AssertionError(f"{tag} greedy tokens differ: "
+                                 f"{rk.tokens[:, s:]} vs {rp.tokens[:, s:]}")
+        print(f"  {tag} greedy tokens identical over {LM_XCHECK_STEPS} "
+              f"steps: {rk.tokens[0, s:].tolist()}")
     rel = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"  fp32 scoring loss 1×512: kernels {loss_k:.7f}, plain "
-          f"{loss_p:.7f}, relative |Δ| {rel:.2e}  "
+    print(f"  {cfg.name} fp32 scoring loss {b}×{s}: kernels {loss_k:.7f}, "
+          f"plain {loss_p:.7f}, relative |Δ| {rel:.2e}  "
           f"{'ok' if rel <= 1e-5 else 'FAIL'}")
     if rel > 1e-5:
-        raise AssertionError(f"fp32 scoring loss differs by {rel:.2e}")
+        raise AssertionError(f"{cfg.name} fp32 scoring loss differs by "
+                             f"{rel:.2e}")
     return err
 
 
-def lm_timing(dev):
-    """Phase 18: one flash and one SSD launch at the LM path's shapes."""
+def _flash_bound(b, hq, hkv, s, hd, hdv, window) -> dict:
+    """Least time for one bf16 causal flash call: q, k, v read once and the
+    output written once, against 2·(hd + hd_v) operations per visible
+    (query, key) pair per query head at the bf16 tensor-core peak (the
+    fp32 peak's time beside).  A causal row i sees min(i + 1, window)
+    keys."""
+    w = window or s
+    pairs = w * (w + 1) // 2 + (s - w) * w if s > w else s * (s + 1) // 2
+    flops = 2 * (hd + hdv) * pairs * hq * b
+    nbytes = 2 * (b * hq * s * hd + b * hkv * s * (hd + hdv)
+                  + b * hq * s * hdv)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_bf16 = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_bf16),
+            "bound_by": "bytes" if t_bytes >= t_bf16 else "operations",
+            "bytes": nbytes, "flops": flops, "pairs": pairs,
+            "t_bytes_ms": t_bytes,
+            "bound_fp32_ms": flops / PEAK_FP32_FLOP_PER_S * 1e3}
+
+
+def _flex_attention(q, k, v, *, window, softcap, scale):
+    """``flex_attention`` compiled, computing the flash kernel's function:
+    ``softcap·tanh(s/softcap)`` as its score_mod, the causal (and window)
+    mask as its block mask, GQA by ``enable_gqa``.  The library yardstick
+    of the softcapped and windowed shapes (SDPA has no softcap); the port
+    never calls it."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    s = q.shape[2]
+
+    def visible(b, h, qi, ki):
+        if window:
+            return (ki <= qi) & (ki > qi - window)
+        return ki <= qi
+
+    def capped(score, b, h, qi, ki):
+        return softcap * torch.tanh(score / softcap)
+
+    mask = create_block_mask(visible, None, None, s, s, device=q.device)
+    flex = torch.compile(flex_attention, dynamic=False)
+    return lambda: flex(q, k, v, score_mod=capped if softcap else None,
+                        block_mask=mask, scale=scale, enable_gqa=True)
+
+
+def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
+               softcap=None, scale=None, fp32_hold=False) -> dict:
+    """One bf16 flash launch at a path's shape: held against the plain
+    version (and in fp32 with ``fp32_hold``), timed (CUDA events, two
+    runs) beside the plain version and the library yardstick on the same
+    tensors — ``scaled_dot_product_attention``, or with a softcap or a
+    window the compiled ``flex_attention`` — held for agreement to
+    1e-2·(1 + max|ref|) and timed, never on the path."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
-    from repro_torch.kernels.ssd import ssd_intra_chunk, ssd_intra_chunk_ref
-    gen = torch.Generator(device=dev).manual_seed(4)
-    rows = {}
-
-    b, h, s, hd = 2, 32, 2048, 80
-    q32, k32, v32 = (torch.randn(b, h, s, hd, generator=gen, device=dev)
-                     for _ in range(3))
-    err = _held("flash at (2,32,2048,80) fp32 causal vs plain",
-                flash_attention_bhsd(q32, k32, v32), flash_ref(q32, k32, v32))
+    q32 = torch.randn(b, hq, s, hd, generator=gen, device=dev)
+    k32 = torch.randn(b, hkv, s, hd, generator=gen, device=dev)
+    v32 = torch.randn(b, hkv, s, hdv, generator=gen, device=dev)
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    name = (f"flash ({b},{hq},{s},{hd}{f'/{hdv}' if hdv != hd else ''}) "
+            f"g={hq // hkv}{f' win={window}' if window else ''}"
+            f"{f' cap={softcap:g}' if softcap else ''}")
+    err = 0.0
+    if fp32_hold:
+        err = _held(f"{name} fp32 causal vs plain",
+                    flash_attention_bhsd(q32, k32, v32, **kw),
+                    flash_ref(q32, k32, v32, **kw))
     q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
     del q32, k32, v32
-    err = max(err, _held_bf16("flash at (2,32,2048,80) bf16 causal vs plain",
-                              flash_attention_bhsd(q, k, v),
-                              flash_ref(q, k, v)))
-    lib_err = _held("  scaled_dot_product_attention vs kernel",
-                    F.scaled_dot_product_attention(q, k, v, is_causal=True)
-                    .float(), flash_attention_bhsd(q, k, v).float(),
+    got = flash_attention_bhsd(q, k, v, **kw)
+    err = max(err, _held_bf16(f"{name} bf16 causal vs plain", got,
+                              flash_ref(q, k, v, **kw)))
+    if softcap is None and window is None:
+        g = hq // hkv
+        ke, ve = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
+        library, lib_name = (lambda: F.scaled_dot_product_attention(
+            q, ke, ve, is_causal=True, scale=scale)), "SDPA"
+    else:
+        library, lib_name = _flex_attention(q, k, v, window=window,
+                                            softcap=softcap, scale=scale), \
+            "flex_attention"
+    t = time.perf_counter()
+    lib_out = library()
+    torch.cuda.synchronize()
+    lib_first_s = time.perf_counter() - t     # flex_attention: its compile
+    lib_err = _held(f"  {lib_name} vs kernel", lib_out.float(), got.float(),
                     SDPA_TOL)
-    pairs = s * (s + 1) // 2
-    flops = b * h * pairs * 2 * (hd + hd)
-    nbytes = 2 * 4 * b * h * s * hd
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_bf16 = flops / PEAK_BF16_FLOP_PER_S * 1e3
-    t_fp32 = flops / PEAK_FP32_FLOP_PER_S * 1e3
-    k_ms = _time_ms(lambda: flash_attention_bhsd(q, k, v), 10)
-    p_ms = _time_ms(lambda: flash_ref(q, k, v), 3)
-    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), 20)
-    k_ms2 = _time_ms(lambda: flash_attention_bhsd(q, k, v), 10)
-    bound = max(t_bytes, t_bf16)
-    rows["flash"] = dict(
-        ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2], plain_ms=p_ms,
-        library_ms=l_ms, bound_ms=bound,
-        bound_by="bytes" if t_bytes >= t_bf16 else "operations",
-        bytes=nbytes, flops=flops, bound_fp32_ms=t_fp32, max_abs_err=err,
-        library_err=lib_err)
-    print(f"  flash (2,32,2048,80) bf16 causal: kernel {k_ms:.4f} / "
-          f"{k_ms2:.4f} ms, plain {p_ms:.4f} ms, SDPA {l_ms:.4f} ms; "
-          f"bound {bound:.4f} ms by operations at the bf16 tensor-core "
-          f"peak ({flops / 1e9:.2f} GFLOP; {t_fp32:.4f} ms at the fp32 "
-          f"peak; bytes {nbytes / 1e6:.1f} MB, {t_bytes:.4f} ms)")
+    del lib_out, got
+    bd = _flash_bound(b, hq, hkv, s, hd, hdv, window)
+    k_ms = _time_ms(lambda: flash_attention_bhsd(q, k, v, **kw), 10)
+    p_ms = _time_ms(lambda: flash_ref(q, k, v, **kw), 3)
+    l_ms = _time_ms(library, 20)
+    k_ms2 = _time_ms(lambda: flash_attention_bhsd(q, k, v, **kw), 10)
+    row = dict(shape=[b, hq, hkv, s, hd, hdv], window=window,
+               softcap=softcap, ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2],
+               plain_ms=p_ms, library_ms=l_ms, library=lib_name,
+               library_first_s=lib_first_s, max_abs_err=err,
+               library_err=lib_err, **bd)
+    print(f"  {name} bf16 causal: kernel {k_ms:.4f} / {k_ms2:.4f} ms, "
+          f"plain {p_ms:.4f} ms, {lib_name} {l_ms:.4f} ms (first call "
+          f"{lib_first_s:.1f} s); bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({bd['flops'] / 1e9:.2f} GFLOP over "
+          f"{bd['pairs']} visible pairs a head at the bf16 tensor-core "
+          f"peak, {bd['bound_fp32_ms']:.4f} ms at the fp32 peak; "
+          f"{bd['bytes'] / 1e6:.1f} MB, {bd['t_bytes_ms']:.4f} ms)")
+    return row
 
-    bsz, s, h, p, n, qc = 2, 2048, 80, 64, 64, 256
+
+def _ssd_row(gen, dev, bsz, s, h, p, n, qc) -> dict:
+    """One SSD launch at a path's shape held against the plain version,
+    device time (``torch.profiler``, two runs) with its CUDA-event time
+    beside, the plain version and the bound."""
+    from repro_torch.kernels.ssd import ssd_intra_chunk, ssd_intra_chunk_ref
     args = _ssd_inputs(bsz, s, h, p, n, gen, dev)
+    name = f"ssd ({bsz},{s},{h},{p}) N={n} Q={qc}"
     y, st = ssd_intra_chunk(*args, chunk=qc)
     y_r, st_r = ssd_intra_chunk_ref(*args, chunk=qc)
-    err = max(_held("ssd at (2,2048,80,64) N=64 Q=256 y_intra vs plain", y,
-                    y_r, SSD_TOL),
+    err = max(_held(f"{name} y_intra vs plain", y, y_r, SSD_TOL),
               _held("  states vs plain", st, st_r, SSD_TOL))
     del y, st, y_r, st_r
 
@@ -2229,17 +2470,161 @@ def lm_timing(dev):
     ev_ms = _time_ms(kern, 10)
     p_ms = _time_ms(lambda: ssd_intra_chunk_ref(*args, chunk=qc), 3)
     bd = _ssd_bound(bsz, s, h, p, n, qc)
-    rows["ssd"] = dict(ms=min(k_ms), ms_runs=k_ms, event_ms=ev_ms,
-                       plain_ms=p_ms, library_ms=None, max_abs_err=err, **bd)
-    print(f"  ssd (2,2048,80,64) N=64 Q=256: kernel {k_ms[0]:.4f} / "
-          f"{k_ms[1]:.4f} ms device time ({ev_ms:.4f} ms a call by CUDA "
-          f"events), plain {p_ms:.4f} ms; bound {bd['bound_ms']:.4f} ms by "
-          f"{bd['bound_by']} ({bd['bytes'] / 1e6:.1f} MB, "
-          f"{bd['t_bytes_ms']:.4f} ms; {bd['flops'] / 1e9:.3f} GFLOP in the "
-          f"lower-triangular products, the states and the scores, as three "
-          f"TF32 passes {bd['t_tf32x3_ms']:.4f} ms, in fp32 FMA "
+    print(f"  {name}: kernel {k_ms[0]:.4f} / {k_ms[1]:.4f} ms device time "
+          f"({ev_ms:.4f} ms a call by CUDA events), plain {p_ms:.4f} ms; "
+          f"bound {bd['bound_ms']:.4f} ms by {bd['bound_by']} "
+          f"({bd['bytes'] / 1e6:.1f} MB, {bd['t_bytes_ms']:.4f} ms; "
+          f"{bd['flops'] / 1e9:.3f} GFLOP in the lower-triangular products, "
+          f"the states and the scores, as three TF32 passes "
+          f"{bd['t_tf32x3_ms']:.4f} ms, in fp32 FMA "
           f"{bd['bound_fp32_ms']:.4f} ms)")
+    return dict(shape=[bsz, s, h, p, n, qc], ms=min(k_ms), ms_runs=k_ms,
+                event_ms=ev_ms, plain_ms=p_ms, library_ms=None,
+                max_abs_err=err, **bd)
+
+
+def lm_timing(dev):
+    """Phase 19: one flash launch at each LM path's shape — Zamba2's
+    (2, 32, 2048, 80), gemma2's global (1, 16, 8192, 256) softcap 50 and
+    local (the same, window 4096) layers, DeepSeek's MLA (2, 16, 2048,
+    192/128) — and one SSD launch at Zamba2's (2, 2048, 80, 64) N=64 and
+    Mamba2-1.3B's (2, 2048, 64, 64) N=128."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = {"flash": _flash_row(gen, dev, 2, 32, 32, 2048, 80, 80,
+                                fp32_hold=True)}
+    for key, win in (("flash_gemma2_global", None),
+                     ("flash_gemma2_local", 4096)):
+        rows[key] = _flash_row(gen, dev, 1, 16, 8, 8192, 256, 256,
+                               window=win, softcap=50.0)
+        torch.cuda.empty_cache()
+    rows["flash_mla"] = _flash_row(gen, dev, 2, 16, 16, 2048, 192, 128,
+                                   scale=192 ** -0.5)
+    rows["ssd"] = _ssd_row(gen, dev, 2, 2048, 80, 64, 64, 256)
+    rows["ssd_n128"] = _ssd_row(gen, dev, 2, 2048, 64, 64, 128, 256)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# Gemma2-9B, DeepSeek-V2-Lite, Mamba2-1.3B and the fp32 cross-checks
+# (phases 22–25)
+# ---------------------------------------------------------------------------
+
+def _lm_free() -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def gemma2(dev) -> dict:
+    """Phase 22: gemma2-9b at full width and depth, bf16 weights."""
+    from repro_torch.data import SyntheticLM
+    cfg, params, n = _lm_model("gemma2-9b", dev, torch.bfloat16)
+    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(1, 8192))
+    out = {"params": n}
+    for lc in (True, False):
+        out[f"serve_long_context_{lc}"] = _serve_cell(
+            cfg, params, batch["tokens"], dev, long_context=lc)[1]
+    out["score"] = _score_cell(cfg, params, batch, dev)
+    del params
+    _lm_free()
+    return out
+
+
+def _moe_drops(cfg, params, tokens) -> dict:
+    """Assignments MoE drops in one prefill at the capacity factor: each
+    MoE layer's routing of its input against the capacity (an expert keeps
+    its first C assignments)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.nn import moe as moe_lib
+    seen = []
+    apply = moe_lib.moe_apply
+
+    def counting(p, cfg_, x, **kw):
+        xf = x.reshape(-1, x.shape[-1])
+        top_e = moe_lib.route(p, cfg_, xf)[2]
+        per_expert = torch.bincount(top_e.reshape(-1),
+                                    minlength=cfg_.num_experts)
+        cap = moe_lib.capacity(cfg_, xf.shape[0])
+        seen.append((int((per_expert - cap).clamp_min(0).sum()),
+                     top_e.numel()))
+        return apply(p, cfg_, x, **kw)
+
+    with torch.no_grad(), mock.patch.object(moe_lib, "moe_apply", counting):
+        T.prefill(params, cfg, tokens, max_len=tokens.shape[1])
+    t = tokens.numel()
+    cap = moe_lib.capacity(cfg, t)
+    lost = sum(d for d, _ in seen)
+    total = sum(a for _, a in seen)
+    print(f"  MoE at prefill ({len(seen)} layers): T·k = "
+          f"{t * cfg.num_experts_per_tok} assignments a layer against E·C "
+          f"= {cfg.num_experts} × {cap} = {cfg.num_experts * cap} slots "
+          f"(capacity factor {cfg.moe_capacity_factor}); dropped {lost} of "
+          f"{total} ({lost / total:.4%}), by layer {[d for d, _ in seen]}")
+    return {"capacity": cap, "dropped": lost, "assignments": total,
+            "by_layer": [d for d, _ in seen]}
+
+
+def deepseek(dev) -> dict:
+    """Phase 23: deepseek-v2-lite-16b at full width and depth, bf16
+    weights."""
+    from repro_torch.data import SyntheticLM
+    cfg, params, n = _lm_model("deepseek-v2-lite-16b", dev, torch.bfloat16)
+    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
+    out = {"params": n}
+    out["serve"] = _serve_cell(cfg, params, batch["tokens"], dev)[1]
+    out["moe"] = _moe_drops(cfg, params,
+                            torch.as_tensor(batch["tokens"], device=dev))
+    out["score"] = _score_cell(cfg, params, batch, dev)
+    del params
+    _lm_free()
+    return out
+
+
+def mamba2(dev) -> dict:
+    """Phase 24: mamba2-1.3b at full width and depth (fp32 weights, bf16
+    compute, as Zamba2's)."""
+    from repro_torch.data import SyntheticLM
+    cfg, params, n = _lm_model("mamba2-1.3b", dev)
+    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
+    out = {"params": n}
+    out["score"] = _score_cell(cfg, params, batch, dev)
+    out["serve"] = _serve_cell(cfg, params, batch["tokens"], dev)[1]
+    del params
+    _lm_free()
+    return out
+
+
+# arch, overrides, prompt length, long_context settings
+LM_XCHECKS = (
+    ("gemma2-9b", dict(num_layers=4), 4608, (True, False)),
+    ("deepseek-v2-lite-16b", dict(num_layers=3), 512, (False,)),
+    ("mamba2-1.3b", dict(num_layers=4), 512, (False,)),
+    ("granite-moe-1b-a400m-reduced", {}, 512, (False,)),
+    ("minitron-8b-reduced", {}, 512, (False,)),
+    ("internlm2-1.8b-reduced", {}, 512, (False,)),
+    ("qwen1.5-4b-reduced", {}, 512, (False,)),
+)
+
+
+def lm_cross_checks(dev) -> dict:
+    """Phase 25: the fp32 kernels-vs-plain cross-check (phase 18's) on the
+    new configs, under deterministic algorithms (MoE's ``index_add_`` and
+    ``index_put_`` then sum in a fixed order)."""
+    from repro_torch.data import SyntheticLM
+    out = {}
+    with _deterministic("phase 25"):
+        for arch, over, s, lcs in LM_XCHECKS:
+            cfg, params, _ = _lm_model(arch, dev, **over)
+            batch = next(SyntheticLM(cfg.vocab_size, seed=1).batches(1, s))
+            torch.cuda.reset_peak_memory_stats()
+            out[cfg.name] = cross_check_fp32(
+                cfg, params, batch["tokens"], batch["targets"], dev,
+                long_contexts=lcs)
+            print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                  f" GiB")
+            del params
+            _lm_free()
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2675,6 +3060,43 @@ def multihost(dev, card: str) -> dict:
     return out
 
 
+def _flash_paths(lm_rows, gemma_info, deepseek_info):
+    """(phase 19 row, path, launches on that path) of the new flash
+    shapes: each row's launches are its own case's counts (variant, head
+    dims, window, softcap) from the path's main-path runs."""
+    def launches(row, cells):
+        shape = row["shape"]
+        key = _flash_case(shape[4], shape[5], row["window"], row["softcap"])
+        return sum(c["launches"]["flash_by_case"].get(key, 0) for c in cells)
+
+    gemma = [gemma_info[k] for k in ("serve_long_context_True",
+                                     "serve_long_context_False", "score")]
+    deep = [deepseek_info["serve"], deepseek_info["score"]]
+    return tuple((key, path, launches(lm_rows[key], cells))
+                 for key, path, cells in (
+                     ("flash_gemma2_global", "gemma2-9b (global layers)",
+                      gemma),
+                     ("flash_gemma2_local", "gemma2-9b (local layers)",
+                      gemma),
+                     ("flash_mla", "deepseek-v2-lite-16b", deep)))
+
+
+def _flash_entry(row, path, launches, case_err) -> dict:
+    """The ``kernels`` line's entry of one flash shape."""
+    return {"name": "flash_attention_bhsd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                      "flash_attention_mma.cu",
+            "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+            "held_against": "ref.flash_ref", "shape": row["shape"],
+            "window": row["window"], "softcap": row["softcap"],
+            "path": path, "launches": launches,
+            "max_abs_err": max(case_err, row["max_abs_err"]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "library": row["library"],
+            "ms_by": "events"}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
@@ -2683,7 +3105,8 @@ def main() -> int:
     import torch.distributed as dist
     from repro_torch.kernels import build as kbuild
 
-    print("[1/21] device")
+    t_start = time.perf_counter()
+    print("[1/25] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2696,73 +3119,92 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # phase 19's compiled yardstick (flex_attention) caches in the checkout
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "torchinductor"),
+                     ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    print("[2/21] build")
+    print("[2/25] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/21] spmm kernel against its plain version")
+    print("[3/25] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/21] flash kernel against its plain version")
+    print("[4/25] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/21] ssd kernel against its plain version")
+    print("[5/25] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/21] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/25] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/21] naive TP GCN training (a split and a gather per "
+        print("[7/25] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/21] DP halo-exchange GCN training (k=1)")
+        print("[8/25] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/21] out-of-core streamed GCN training (pinned host "
+        print("[9/25] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/21] GAT decoupled-pipelined TP training (the score "
+        print("[10/25] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/21] GAT naive TP training")
+        print("[11/25] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/21] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/25] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/21] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/25] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/21] the constraint engine backend (DTensor, "
+        print("[14/25] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/21] spmm timing at the GCN paths' shapes")
+        print("[15/25] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/21] LM main path, serving: Zamba2-2.7B generate")
-    cfg, params, batch, serve_info = serve(dev)
-    print("[17/21] LM main path, scoring: forward + lm_loss")
-    score_info = score(cfg, params, batch, dev)
-    print("[18/21] fp32 cross-check at full width, kernels vs plain")
-    fp32_err = cross_check_fp32(cfg, params, batch, dev)
+    print("[16/25] LM main path, serving: Zamba2-2.7B generate")
+    cfg, params, batch, serve_info, score_info = serve(dev)
+    print("[18/25] fp32 cross-check at full width, kernels vs plain")
+    fp32_err = cross_check_fp32(cfg, params, batch["tokens"][:1, :512],
+                                batch["targets"][:1, :512], dev)
     del params
-    torch.cuda.empty_cache()
-    print("[19/21] flash and ssd timing at the LM path's shapes")
+    _lm_free()
+    print("[19/25] flash and ssd timing at the LM paths' shapes")
+    t = time.perf_counter()
     lm_rows = lm_timing(dev)
-    print("[20/21] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    _lm_free()
+    print(f"  phase 19 took {time.perf_counter() - t:.1f} s")
+    print("[20/25] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
-    print("[21/21] multihost: the placed bundle, the launcher under the env "
+    print("[21/25] multihost: the placed bundle, the launcher under the env "
           "contract")
     multihost_info = multihost(dev, card)
+    _lm_free()
+    print("[22/25] gemma2-9b at full width and depth: generate 1 × 8192 "
+          "with ring caches and with dense caches, scoring")
+    gemma_info = gemma2(dev)
+    print("[23/25] deepseek-v2-lite-16b at full width and depth: generate "
+          "2 × 2048 (MLA, MoE), scoring")
+    deepseek_info = deepseek(dev)
+    print("[24/25] mamba2-1.3b at full width and depth: scoring, generate")
+    mamba_info = mamba2(dev)
+    print("[25/25] fp32 cross-checks of the new configs, kernels vs plain")
+    xcheck_errs = lm_cross_checks(dev)
+    script_s = time.perf_counter() - t_start
+    print(f"  phases 1–25 took {script_s:.1f} s")
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -2776,7 +3218,10 @@ def main() -> int:
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
                       "single": single_info, "multihost": multihost_info,
-                      "card": card}))
+                      "gemma2": gemma_info, "deepseek": deepseek_info,
+                      "mamba2": mamba_info,
+                      "fp32_xcheck_logits_err": xcheck_errs,
+                      "script_s": script_s, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
         "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
@@ -2822,24 +3267,40 @@ def main() -> int:
         "source": "src/repro_torch/kernels/flash_attn/csrc/"
                   "flash_attention_mma.cu",
         "replaces": "src/repro/kernels/flash_attn/flash.py:105",
-        "held_against": "ref.flash_ref",
+        "held_against": "ref.flash_ref", "shape": fl["shape"],
+        "path": "zamba2-2.7b",
         "launches": serve_info["launches"]["flash"]
         + score_info["launches"]["flash"],
         "max_abs_err": max(flash_err, fl["max_abs_err"]),
         "ms": fl["ms"], "plain_ms": fl["plain_ms"],
         "bound_ms": fl["bound_ms"], "bound_by": fl["bound_by"],
-        "library_ms": fl["library_ms"], "ms_by": "events"}, {
+        "library_ms": fl["library_ms"], "ms_by": "events"},
+        *[_flash_entry(lm_rows[key], path, launches, flash_err)
+          for key, path, launches in _flash_paths(lm_rows, gemma_info,
+                                                  deepseek_info)], {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:61",
-        "held_against": "ref.ssd_intra_chunk_ref",
+        "held_against": "ref.ssd_intra_chunk_ref", "shape": sd["shape"],
+        "path": "zamba2-2.7b",
         "launches": serve_info["launches"]["ssd"]
         + score_info["launches"]["ssd"],
         "max_abs_err": max(ssd_err, sd["max_abs_err"]),
         "ms": sd["ms"], "plain_ms": sd["plain_ms"],
         "bound_ms": sd["bound_ms"], "bound_by": sd["bound_by"],
         "library_ms": None, "ms_by": "profiler",
-        "event_ms": sd["event_ms"]}]}))
+        "event_ms": sd["event_ms"]}, {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:61",
+        "held_against": "ref.ssd_intra_chunk_ref",
+        "shape": lm_rows["ssd_n128"]["shape"], "path": "mamba2-1.3b",
+        "launches": mamba_info["serve"]["launches"]["ssd"]
+        + mamba_info["score"]["launches"]["ssd"],
+        "max_abs_err": max(ssd_err, lm_rows["ssd_n128"]["max_abs_err"]),
+        **{k: lm_rows["ssd_n128"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "event_ms")}, "ms_by": "profiler"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

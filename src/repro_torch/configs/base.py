@@ -2,16 +2,17 @@
 ``ArchConfig``, field for field and value for value.
 
 ``reduced()`` gives the CPU smoke variant (a few layers, d_model ≤ 256)
-of the same family.  The port runs ``attn_impl`` ``"naive" | "flash"``
-and ``ssm_impl`` ``"jnp" | "fused"`` (the names are the reference's:
-``"jnp"`` is the plain-torch chunked SSD here); any other value raises.
+of the same family.  The port runs ``attn_impl`` ``"naive" | "blockwise"
+| "flash"`` and ``ssm_impl`` ``"jnp" | "fused"`` (the names are the
+reference's: ``"jnp"`` is the plain-torch chunked SSD here); any other
+value raises.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-ATTN_IMPLS = ("naive", "flash")
+ATTN_IMPLS = ("naive", "blockwise", "flash")
 SSM_IMPLS = ("jnp", "fused")
 
 
@@ -73,10 +74,10 @@ class ArchConfig:
     dtype: str = "bfloat16"
 
     # implementation knobs
-    attn_impl: str = "naive"           # naive | flash (CUDA kernel)
+    attn_impl: str = "naive"           # naive | blockwise | flash (CUDA)
     ssm_impl: str = "jnp"              # jnp | fused (CUDA SSD kernel)
-    attn_block_q: int = 512            # TPU tile sizes; the CUDA kernel
-    attn_block_kv: int = 1024          # picks its own and ignores these
+    attn_block_q: int = 512            # blockwise's query and KV block
+    attn_block_kv: int = 1024          # (the CUDA flash kernel picks its own)
     moe_impl: str = "gather"
     explicit_a2a: bool = False
 
@@ -88,9 +89,8 @@ class ArchConfig:
                                self.d_model // self.num_heads)
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(
-                f"{self.name}: attn_impl={self.attn_impl!r} is not ported; "
-                f"the port runs {ATTN_IMPLS} ('blockwise' is ROADMAP queue 1 "
-                f"item 19)")
+                f"{self.name}: attn_impl={self.attn_impl!r} is not one of "
+                f"{ATTN_IMPLS}")
         if self.ssm_impl not in SSM_IMPLS:
             raise ValueError(
                 f"{self.name}: ssm_impl={self.ssm_impl!r} is not one of "

@@ -38,9 +38,10 @@ def _kernel(variant: str):
 
 
 def reset_launches() -> None:
-    """Set the launch counts (total and per variant) to 0."""
+    """Set the launch counts (total, per variant and per case) to 0."""
     flash_attention_bhsd.launches = 0
     flash_attention_bhsd.launches_by_variant = dict.fromkeys(_ENTRIES, 0)
+    flash_attention_bhsd.launches_by_case = {}
 
 
 def _launch(q, k, v, out, *, causal, window, softcap, scale,
@@ -60,6 +61,9 @@ def _launch(q, k, v, out, *, causal, window, softcap, scale,
             f"hdv={hdv}, {q.dtype})")
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.launches_by_variant[variant] += 1
+    case = (variant, hd, hdv, window, softcap)
+    by_case = flash_attention_bhsd.launches_by_case
+    by_case[case] = by_case.get(case, 0) + 1
 
 
 def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -73,8 +77,10 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     contiguous, on one CUDA device, with Hq % Hkv == 0 and hd, hdv ≤ 256.
     Any Sq and Skv: the kernels mask the ragged edges themselves.  Returns
     (B, Hq, Sq, hdv) in q.dtype (fp32 accumulation and softmax).  Adds one
-    to ``flash_attention_bhsd.launches`` and to its variant's entry of
-    ``flash_attention_bhsd.launches_by_variant`` per kernel launch.
+    to ``flash_attention_bhsd.launches``, to its variant's entry of
+    ``flash_attention_bhsd.launches_by_variant`` and to its case's entry
+    of ``flash_attention_bhsd.launches_by_case`` (keyed by ``(variant,
+    hd, hdv, window, softcap)``) per kernel launch.
     """
     if q.device.type != "cuda":
         raise ValueError(

@@ -1,12 +1,17 @@
 """Per-layer blocks and layer grouping for the decoder: the port of
-``repro/models/blocks.py`` for the kinds ``mamba``, ``dense`` and
-``shared_attn``.
+``repro/models/blocks.py``.
 
-A config's layers are grouped into repeating *units* (zamba2: unit
-("mamba",)*5 + ("shared_attn",) × 9 groups, the shared_attn parameters
-weight-tied across groups); the model loops over the repeats.  The kinds
-``moe``, ``local``/``global`` and the ``post_norm`` branches raise until
-ported (ROADMAP queue 1 items 21 and 23).
+A config's layers are grouped into repeating *units*; the model loops over
+the repeats:
+
+  dense archs     → unit ("dense",) × L           (gemma2: ("local","global"))
+  deepseek        → 1 dense layer + unit ("moe",) × 26
+  mamba2          → unit ("mamba",) × 48
+  zamba2          → unit ("mamba",)*5 + ("shared_attn",) × 9 groups, the
+                    shared_attn parameters weight-tied across groups
+
+``post_norm`` (gemma2) adds norms after attention and after the MLP, and
+makes every norm of the block scale by (1 + w).
 """
 from __future__ import annotations
 
@@ -17,9 +22,8 @@ import torch
 from ..configs.base import ArchConfig
 from ..nn import attention as attn
 from ..nn import layers as nl
+from ..nn import moe as moe_lib
 from ..nn import ssm as ssm_lib
-
-KINDS = ("mamba", "dense", "shared_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,60 +55,93 @@ def layer_groups(cfg: ArchConfig) -> list[GroupSpec]:
     return groups
 
 
-def _check(cfg: ArchConfig, kind: str) -> None:
-    if kind not in KINDS:
-        raise NotImplementedError(
-            f"{cfg.name}: block kind {kind!r} is not ported (moe: ROADMAP "
-            f"queue 1 item 21; local/global: item 23)")
-    if cfg.post_norm:
-        raise NotImplementedError(
-            f"{cfg.name}: post_norm blocks are not ported (ROADMAP queue 1 "
-            f"item 23)")
-
-
 # ---------------------------------------------------------------------------
 # Block init / apply
 # ---------------------------------------------------------------------------
 
-def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str) -> dict:
-    _check(cfg, kind)
+def init_block(gen: torch.Generator, cfg: ArchConfig, kind: str,
+               dtype=torch.float32) -> dict:
     if kind == "mamba":
         return {"norm": nl.init_rms_norm(gen, cfg.d_model),
-                "mixer": ssm_lib.init_mamba2(gen, cfg)}
-    return {"attn_norm": nl.init_rms_norm(gen, cfg.d_model),
-            "attn": attn.init_attention(gen, cfg),
-            "mlp_norm": nl.init_rms_norm(gen, cfg.d_model),
-            "mlp": nl.init_mlp(gen, cfg.d_model, cfg.d_ff)}
+                "mixer": ssm_lib.init_mamba2(gen, cfg, dtype)}
+    p = {"attn_norm": nl.init_rms_norm(gen, cfg.d_model,
+                                       plus_one=cfg.post_norm),
+         "attn": attn.init_attention(gen, cfg, dtype),
+         "mlp_norm": nl.init_rms_norm(gen, cfg.d_model,
+                                      plus_one=cfg.post_norm)}
+    if cfg.post_norm:   # gemma2: extra post-block norms
+        p["attn_post_norm"] = nl.init_rms_norm(gen, cfg.d_model,
+                                               plus_one=True)
+        p["mlp_post_norm"] = nl.init_rms_norm(gen, cfg.d_model,
+                                              plus_one=True)
+    if kind == "moe":
+        p["moe"] = moe_lib.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = nl.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def _norm(w, x, cfg: ArchConfig):
     return nl.rms_norm(x, w.float(), cfg.norm_eps, plus_one=cfg.post_norm)
 
 
+def _window(cfg: ArchConfig, kind: str):
+    return cfg.sliding_window if kind == "local" else None
+
+
+def _attn_out(p: dict, cfg: ArchConfig, x, a):
+    """The residual after attention output ``a`` (post-normed under
+    ``post_norm``)."""
+    if cfg.post_norm:
+        a = _norm(p["attn_post_norm"], a, cfg)
+    return x + a
+
+
+def _ffn(p: dict, cfg: ArchConfig, kind: str, x, *, dropless=False):
+    """The MLP or MoE half of a block on the residual x.  Returns (x,
+    aux_loss)."""
+    h = _norm(p["mlp_norm"], x, cfg)
+    aux = x.new_zeros((), dtype=torch.float32)
+    if kind == "moe":
+        m, aux = moe_lib.moe_apply(p["moe"], cfg, h, dropless=dropless)
+    else:
+        m = nl.mlp(p["mlp"], h, cfg.act)
+    if cfg.post_norm:
+        m = _norm(p["mlp_post_norm"], m, cfg)
+    return x + m, aux
+
+
 def apply_block(p: dict, cfg: ArchConfig, kind: str, x, positions):
-    """Full-sequence block application (scoring).  Returns x."""
-    _check(cfg, kind)
+    """Full-sequence block application (scoring).  Returns (x, aux_loss)."""
     if kind == "mamba":
         return x + ssm_lib.mamba2_forward(p["mixer"], cfg,
-                                          _norm(p["norm"], x, cfg))
-    x = x + attn.gqa_attention(p["attn"], cfg, _norm(p["attn_norm"], x, cfg),
-                               positions)
-    return x + nl.mlp(p["mlp"], _norm(p["mlp_norm"], x, cfg), cfg.act)
+                                          _norm(p["norm"], x, cfg)), \
+            x.new_zeros((), dtype=torch.float32)
+    h = _norm(p["attn_norm"], x, cfg)
+    if cfg.use_mla:
+        a = attn.mla_attention(p["attn"], cfg, h, positions)
+    else:
+        a = attn.gqa_attention(p["attn"], cfg, h, positions,
+                               window=_window(cfg, kind))
+    return _ffn(p, cfg, kind, _attn_out(p, cfg, x, a))
 
 
 def apply_block_prefill(p: dict, cfg: ArchConfig, kind: str, x, positions,
-                        max_len: int):
+                        max_len: int, *, long_context: bool = False):
     """Full-sequence block that also materializes the decode cache.
     Returns (x, cache)."""
-    _check(cfg, kind)
     if kind == "mamba":
         y, cache = ssm_lib.mamba2_prefill(p["mixer"], cfg,
                                           _norm(p["norm"], x, cfg))
         return x + y, cache
-    a, cache = attn.gqa_prefill(p["attn"], cfg, _norm(p["attn_norm"], x, cfg),
-                                positions, max_len)
-    x = x + a
-    return x + nl.mlp(p["mlp"], _norm(p["mlp_norm"], x, cfg), cfg.act), cache
+    h = _norm(p["attn_norm"], x, cfg)
+    if cfg.use_mla:
+        a, cache = attn.mla_prefill(p["attn"], cfg, h, positions, max_len)
+    else:
+        a, cache = attn.gqa_prefill(p["attn"], cfg, h, positions, max_len,
+                                    window=_window(cfg, kind),
+                                    long_context=long_context)
+    return _ffn(p, cfg, kind, _attn_out(p, cfg, x, a))[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -112,21 +149,33 @@ def apply_block_prefill(p: dict, cfg: ArchConfig, kind: str, x, positions,
 # ---------------------------------------------------------------------------
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
-                     dtype=torch.float32, device="cuda"):
-    _check(cfg, kind)
+                     dtype=torch.float32, device="cuda",
+                     long_context: bool = False):
+    """Cache of one block.  ``long_context`` puts gemma2's local layers on
+    the O(window) ring buffer."""
     if kind == "mamba":
         return ssm_lib.init_ssm_cache(cfg, batch, dtype, device)
+    if cfg.use_mla:
+        return attn.init_mla_cache(cfg, batch, max_len, dtype, device)
+    if kind == "local" and long_context and cfg.sliding_window:
+        return attn.init_window_cache(cfg, batch, dtype, device)
     return attn.init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
 def apply_block_decode(p: dict, cfg: ArchConfig, kind: str, x, cache):
-    """One-token step.  Returns (x, new_cache)."""
-    _check(cfg, kind)
+    """One-token step.  Returns (x, new_cache).  A local layer on the dense
+    cache attends to every cached token, with no window: the reference's
+    decode does the same."""
     if kind == "mamba":
         y, cache = ssm_lib.mamba2_decode(p["mixer"], cfg,
                                          _norm(p["norm"], x, cfg), cache)
         return x + y, cache
-    a, cache = attn.gqa_decode(p["attn"], cfg, _norm(p["attn_norm"], x, cfg),
-                               cache)
-    x = x + a
-    return x + nl.mlp(p["mlp"], _norm(p["mlp_norm"], x, cfg), cfg.act), cache
+    h = _norm(p["attn_norm"], x, cfg)
+    if cfg.use_mla:
+        a, cache = attn.mla_decode(p["attn"], cfg, h, cache)
+    elif isinstance(cache, attn.WindowKVCache):
+        a, cache = attn.gqa_decode_windowed(p["attn"], cfg, h, cache)
+    else:
+        a, cache = attn.gqa_decode(p["attn"], cfg, h, cache)
+    x = _attn_out(p, cfg, x, a)
+    return _ffn(p, cfg, kind, x, dropless=True)[0], cache

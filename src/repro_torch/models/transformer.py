@@ -1,6 +1,6 @@
 """Decoder-only LM: the port of ``repro/models/transformer.py`` for the
-configs the port runs (zamba2: mamba2 blocks and one weight-tied
-attention + MLP block).
+text configs (every block kind: dense, moe, local/global, mamba2 and
+zamba2's weight-tied shared attention block).
 
 The parameter tree is the reference's value tree: ``{"embed",
 "final_norm", "head", "shared_block", "groups"}``, ``groups`` one list per
@@ -13,7 +13,9 @@ does not, and relies on the in-block casts, as the reference.
 
 Decode caches mirror the group structure; :func:`decode_step` writes the
 new token's state into the cache tensors in place (see
-``nn/attention.py``) and returns caches with the advanced length.
+``nn/attention.py``) and returns caches with the advanced length.  A
+cache's tensor fields are stacked over a group's repeats; its other fields
+(``length``, a ring cache's ``window``) are shared by the repeats.
 """
 from __future__ import annotations
 
@@ -35,24 +37,30 @@ def compute_dtype(cfg: ArchConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def init_transformer(cfg: ArchConfig, seed: int = 0,
-                     device="cuda") -> dict:
-    """fp32 parameters drawn on ``device`` from a ``torch.Generator`` seeded
-    with ``seed``, in the reference's tree layout."""
+def init_transformer(cfg: ArchConfig, seed: int = 0, device="cuda",
+                     dtype=torch.float32) -> dict:
+    """Parameters drawn on ``device`` from a ``torch.Generator`` seeded with
+    ``seed``, in the reference's tree layout, in ``dtype`` but for the
+    leaves the reference keeps fp32 (norms, the MoE router, mamba2's decay
+    rates and skip).  A repeated block is drawn one repeat at a time into
+    its stacked leaves."""
     if cfg.modality:
         raise NotImplementedError(
             f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
             f"item 22)")
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict = {
-        "embed": nl.init_embedding(gen, cfg.padded_vocab, cfg.d_model),
+        "embed": nl.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
+                                   dtype),
         "final_norm": nl.init_rms_norm(gen, cfg.d_model,
                                        plus_one=cfg.post_norm),
     }
     if not cfg.tie_embeddings:
-        params["head"] = nl.param(gen, (cfg.d_model, cfg.padded_vocab))
+        params["head"] = nl.param(gen, (cfg.d_model, cfg.padded_vocab),
+                                  dtype=dtype)
     if cfg.hybrid_attn_every:
-        params["shared_block"] = B.init_block(gen, cfg, "shared_attn")
+        params["shared_block"] = B.init_block(gen, cfg, "shared_attn",
+                                              dtype)
     groups = []
     for g in B.layer_groups(cfg):
         unit = []
@@ -60,9 +68,16 @@ def init_transformer(cfg: ArchConfig, seed: int = 0,
             if kind == "shared_attn":
                 unit.append({})          # weight-tied → placeholder
                 continue
-            reps = [B.init_block(gen, cfg, kind) for _ in range(g.repeats)]
-            unit.append(reps[0] if g.repeats == 1 else
-                        tree_map(lambda *ls: torch.stack(ls), *reps))
+            first = B.init_block(gen, cfg, kind, dtype)
+            if g.repeats == 1:
+                unit.append(first)
+                continue
+            stacked = tree_map(
+                lambda t: t.new_empty((g.repeats,) + t.shape), first)
+            for r in range(g.repeats):
+                blk = first if r == 0 else B.init_block(gen, cfg, kind, dtype)
+                tree_map(lambda dst, src: dst[r].copy_(src), stacked, blk)
+            unit.append(stacked)
         groups.append(unit)
     params["groups"] = groups
     return params
@@ -97,8 +112,14 @@ def assemble_inputs(params, cfg: ArchConfig,
         raise NotImplementedError(
             f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
             f"item 22)")
-    x = nl.embed(params["embed"].float(), tokens)
-    return x * math.sqrt(float(cfg.d_model))
+    return _embed(params, tokens) * math.sqrt(float(cfg.d_model))
+
+
+def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    """fp32 rows of the table (gathered first, then widened: the same
+    values as the reference's widen-then-gather, without an fp32 copy of
+    the table)."""
+    return nl.embed(params["embed"], tokens).float()
 
 
 def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
@@ -117,44 +138,64 @@ def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """Full-sequence forward (scoring).  Returns (logits (B,S,V), aux_loss);
-    aux_loss is 0 (it comes from MoE layers, ROADMAP queue 1 item 21)."""
+    """Full-sequence forward (scoring).  Returns (logits (B,S,V), aux_loss),
+    aux_loss the sum of the MoE layers' load-balance losses (fp32)."""
     dtype = compute_dtype(cfg)
     x = assemble_inputs(params, cfg, tokens).to(dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    aux_total = x.new_zeros((), dtype=torch.float32)
     for kind, p_blk in _layers(params, cfg, dtype):
-        x = B.apply_block(p_blk, cfg, kind, x, positions)
+        x, aux = B.apply_block(p_blk, cfg, kind, x, positions)
+        aux_total = aux_total + aux
     x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(params, cfg, x), x.new_zeros((), dtype=torch.float32)
+    return unembed(params, cfg, x), aux_total
 
 
 def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """fp32 logits, softcapped and with the padded ids masked, both in
+    place (the (B, S, V) buffer is the largest of a long prefill)."""
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = x @ params["head"].to(x.dtype)
-    logits = nl.softcap(logits.float(), cfg.logit_softcap)
+    logits = logits.float()
+    if cfg.logit_softcap is not None:      # nl.softcap's ops, in place
+        logits.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         # pad ids can never be predicted or contribute to the lse
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
             cfg.vocab_size
-        logits = logits.masked_fill(pad, -1e30)
+        logits.masked_fill_(pad, -1e30)
     return logits
+
+
+def _tensor_fields(cache) -> list[str]:
+    """The cache's tensor fields (not ``length``, nor a ring's ``window``)."""
+    return [f.name for f in dataclasses.fields(cache)
+            if torch.is_tensor(getattr(cache, f.name))]
 
 
 def _stack_caches(caches: list):
     """One cache of a repeated unit position from its per-repeat caches."""
     first = caches[0]
     return dataclasses.replace(first, **{
-        f.name: torch.stack([getattr(c, f.name) for c in caches])
-        for f in dataclasses.fields(first) if f.name != "length"})
+        name: torch.stack([getattr(c, name) for c in caches])
+        for name in _tensor_fields(first)})
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, max_len: int):
-    """Run the prompt through the stack, materializing decode caches.
-    Returns (logits (B,S,V), caches)."""
+def _rep_cache(stacked, r: int):
+    """Repeat ``r`` of a stacked cache (views of its tensors)."""
+    return dataclasses.replace(stacked, **{
+        name: getattr(stacked, name)[r] for name in _tensor_fields(stacked)})
+
+
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, max_len: int,
+            long_context: bool = False):
+    """Run the prompt through the stack, materializing decode caches (at
+    ``long_context``, ring caches on gemma2's local layers).  Returns
+    (logits (B,S,V), caches)."""
     dtype = compute_dtype(cfg)
     x = assemble_inputs(params, cfg, tokens).to(dtype)
     b, s = x.shape[:2]
@@ -168,7 +209,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, max_len: int):
             for _kind in gspec.unit:
                 kind, p_blk = next(layers)
                 x, c = B.apply_block_prefill(p_blk, cfg, kind, x, positions,
-                                             max_len)
+                                             max_len,
+                                             long_context=long_context)
                 unit_caches.append(c)
             per_rep.append(unit_caches)
         caches.append(per_rep[0] if gspec.repeats == 1 else
@@ -180,13 +222,15 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, max_len: int):
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
-                dtype=torch.float32, device="cuda"):
+                dtype=torch.float32, device="cuda",
+                long_context: bool = False):
     """Empty caches mirroring the group structure."""
     caches = []
     for g in B.layer_groups(cfg):
         unit_caches = []
         for kind in g.unit:
-            one = B.init_block_cache(cfg, kind, batch, max_len, dtype, device)
+            one = B.init_block_cache(cfg, kind, batch, max_len, dtype, device,
+                                     long_context)
             unit_caches.append(one if g.repeats == 1 else
                                _stack_caches([one] * g.repeats))
         caches.append(unit_caches)
@@ -196,10 +240,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int,
 def _set_rep(stacked, r: int, new) -> None:
     """Write repeat ``r``'s new cache into the stacked cache (tensors the
     block updated in place through a view are already there)."""
-    for f in dataclasses.fields(stacked):
-        if f.name == "length":
-            continue
-        dst, src = getattr(stacked, f.name)[r], getattr(new, f.name)
+    for name in _tensor_fields(stacked):
+        dst, src = getattr(stacked, name)[r], getattr(new, name)
         if src.data_ptr() != dst.data_ptr():
             dst.copy_(src)
 
@@ -211,8 +253,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches):
     reference.  The cache tensors are updated in place: the caches passed
     in are consumed."""
     dtype = compute_dtype(cfg)
-    x = nl.embed(params["embed"].float(), token)
-    x = (x * math.sqrt(float(cfg.d_model))).to(dtype)
+    x = (_embed(params, token) * math.sqrt(float(cfg.d_model))).to(dtype)
     new_caches = []
     for gspec, gp, gc in zip(B.layer_groups(cfg), params["groups"], caches):
         new_gc = list(gc)
@@ -226,10 +267,8 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches):
                     x, new_gc[u] = B.apply_block_decode(p_blk, cfg, kind, x,
                                                         gc[u])
                     continue
-                c_r = dataclasses.replace(gc[u], **{
-                    f.name: getattr(gc[u], f.name)[r]
-                    for f in dataclasses.fields(gc[u]) if f.name != "length"})
-                x, c_new = B.apply_block_decode(p_blk, cfg, kind, x, c_r)
+                x, c_new = B.apply_block_decode(p_blk, cfg, kind, x,
+                                                _rep_cache(gc[u], r))
                 _set_rep(gc[u], r, c_new)
         if gspec.repeats > 1:
             new_gc = [dataclasses.replace(c, length=c.length + 1)

@@ -1,15 +1,22 @@
-"""Attention: grouped-query attention (GQA) for training-free full-sequence
-use, prefill and decode — the subset of the JAX package's
-``repro/nn/attention.py`` that the port runs.
+"""Attention: grouped-query attention (GQA, with biases, softcap and a
+sliding window) and DeepSeek's multi-head latent attention (MLA) for
+scoring, prefill and decode — the port of ``repro/nn/attention.py``.
 
-MLA, the sliding-window ring cache and ``attention_blockwise`` are ROADMAP
-queue 1 items 19 and 20; the sharding hooks of the reference are dropped
-(the port runs the LM on one card).
+Full-sequence attention runs naive (dense scores), ``blockwise`` (an
+online-softmax scan over KV blocks, plain torch) or ``flash`` (the CUDA
+kernel, :mod:`..kernels.flash_attn`).  The sharding hooks of the reference
+are dropped (the port runs the LM on one card).
 
-Decode cache: :class:`KVCache`, dense (B, S_max, H_kv, hd) k/v.  Decode
-writes the new token's k/v into the cache tensors in place (JAX returns
-new arrays; in place saves a copy of the whole cache per step) and returns
-a cache with the advanced length that shares those tensors.
+Decode caches:
+  * :class:`KVCache`        — dense (B, S_max, H_kv, hd) k/v;
+  * :class:`WindowKVCache`  — a ring buffer of the sliding window (gemma2
+                              local layers at long context);
+  * :class:`MLACache`       — compressed: (B, S_max, kv_lora) latents and
+                              the shared rope key (B, S_max, rope_hd).
+Decode writes the new token's entries into the cache tensors in place (JAX
+returns new arrays; in place saves a copy of the whole cache per step) —
+the ring cache at slot ``pos % window`` — and returns a cache with the
+advanced length that shares those tensors.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels.flash_attn.ops import flash_attention
@@ -27,21 +35,30 @@ from . import layers as nl
 # Parameter init
 # ---------------------------------------------------------------------------
 
-def init_attention(gen: torch.Generator, cfg: ArchConfig) -> dict:
-    if cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported (ROADMAP queue 1 item "
-            f"20)")
+def init_attention(gen: torch.Generator, cfg: ArchConfig,
+                   dtype=torch.float32) -> dict:
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
         cfg.head_dim
-    p = {"wq": nl.param(gen, (d, hq, hd)),
-         "wk": nl.param(gen, (d, hkv, hd)),
-         "wv": nl.param(gen, (d, hkv, hd)),
-         "wo": nl.param(gen, (hq, hd, d))}
+    if cfg.use_mla:
+        r, rhd = cfg.kv_lora_rank, cfg.rope_head_dim
+        return {
+            # queries (Lite: no q-lora): per-head nope + rope parts
+            "wq": nl.param(gen, (d, hq, hd + rhd), dtype=dtype),
+            # compressed kv latent + shared rope key
+            "wkv_a": nl.param(gen, (d, r + rhd), dtype=dtype),
+            "kv_norm": nl.init_rms_norm(gen, r),
+            # up-projections from the latent
+            "wk_b": nl.param(gen, (r, hq, hd), dtype=dtype),
+            "wv_b": nl.param(gen, (r, hq, hd), dtype=dtype),
+            "wo": nl.param(gen, (hq, hd, d), dtype=dtype)}
+    p = {"wq": nl.param(gen, (d, hq, hd), dtype=dtype),
+         "wk": nl.param(gen, (d, hkv, hd), dtype=dtype),
+         "wv": nl.param(gen, (d, hkv, hd), dtype=dtype),
+         "wo": nl.param(gen, (hq, hd, d), dtype=dtype)}
     if cfg.qkv_bias:
-        p["bq"] = nl.param(gen, (hq, hd), init="zeros")
-        p["bk"] = nl.param(gen, (hkv, hd), init="zeros")
-        p["bv"] = nl.param(gen, (hkv, hd), init="zeros")
+        p["bq"] = nl.param(gen, (hq, hd), init="zeros", dtype=dtype)
+        p["bk"] = nl.param(gen, (hkv, hd), init="zeros", dtype=dtype)
+        p["bv"] = nl.param(gen, (hkv, hd), init="zeros", dtype=dtype)
     return p
 
 
@@ -60,6 +77,68 @@ def _window_mask(sq: int, skv: int, q_offset, window: int,
     qi = q_offset + torch.arange(sq, device=device)[:, None]
     kj = torch.arange(skv, device=device)[None, :]
     return (kj <= qi) & (kj > qi - window)
+
+
+def attention_blockwise(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, q_offset=0,
+                        softcap: Optional[float] = None,
+                        scale: Optional[float] = None,
+                        block_q: int = 512, block_kv: int = 1024
+                        ) -> torch.Tensor:
+    """Memory-efficient attention: for each query block, a scan over the KV
+    blocks with a running (max, sum, acc); the S×S score matrix is never
+    materialized.  q: (B,Sq,Hq,hd); k/v: (B,Skv,Hkv,hd[_v]); queries sit
+    at positions ``q_offset + i``.  Returns (B,Sq,Hq,hd_v) in v.dtype,
+    fp32 math, step for step the reference's scan (a fully masked block
+    scores -1e30, so a later visible one wipes it through alpha = 0)."""
+    b, sq, hq, hd = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    hdv = v.shape[-1]
+    scale = scale if scale is not None else hd ** -0.5
+    q_pad, kv_pad = (-sq) % block_q, (-skv) % block_kv
+    qp = F.pad(q, (0, 0, 0, 0, 0, q_pad))
+    kp = F.pad(k, (0, 0, 0, 0, 0, kv_pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, kv_pad))
+    nq, nkv = qp.shape[1] // block_q, kp.shape[1] // block_kv
+
+    qb = qp.reshape(b, nq, block_q, hkv, g, hd).float() * scale
+    kb = kp.reshape(b, nkv, block_kv, hkv, hd).float()
+    vb = vp.reshape(b, nkv, block_kv, hkv, hdv).float()
+    q_pos = q_offset + torch.arange(nq * block_q, device=q.device).reshape(
+        nq, block_q)
+    k_pos = torch.arange(nkv * block_kv, device=q.device).reshape(
+        nkv, block_kv)
+    k_valid = k_pos < skv
+
+    outs = []
+    for qi in range(nq):
+        q_i, pos_i = qb[:, qi], q_pos[qi]
+        m_run = q.new_full((b, hkv, g, block_q), -torch.inf,
+                           dtype=torch.float32)
+        l_run = torch.zeros_like(m_run)
+        acc = m_run.new_zeros((b, hkv, g, block_q, hdv))
+        for kj in range(nkv):
+            s = torch.einsum("bqkgh,btkh->bkgqt", q_i, kb[:, kj])
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            msk = k_valid[kj][None, :]
+            if causal:
+                msk = msk & (k_pos[kj][None, :] <= pos_i[:, None])
+            if window is not None:
+                msk = msk & (k_pos[kj][None, :] > pos_i[:, None] - window)
+            s = torch.where(msk, s, -1e30)
+            m_new = torch.maximum(m_run, s.amax(dim=-1))
+            alpha = torch.exp(m_run - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l_run = l_run * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqt,btkh->bkgqh", p, vb[:, kj])
+            m_run = m_new
+        outs.append(acc / l_run.clamp_min(1e-30)[..., None])
+    out = torch.stack(outs, dim=1)                   # (B,nq,hkv,g,bq,hdv)
+    out = out.permute(0, 1, 4, 2, 3, 5).reshape(b, nq * block_q, hq, hdv)
+    return out[:, :sq].to(v.dtype)
 
 
 def attention_core(q, k, v, mask, *, softcap: Optional[float] = None,
@@ -113,10 +192,16 @@ def gqa_project_qkv(p, cfg: ArchConfig, x, positions):
 def _mixing_attention(cfg: ArchConfig, q, k, v, *,
                       window: Optional[int] = None,
                       scale: Optional[float] = None):
-    """Causal full-sequence attention, naive or through the flash kernel."""
+    """Causal full-sequence attention: naive, blockwise or through the
+    flash kernel."""
     if cfg.attn_impl == "flash":
         return flash_attention(q, k, v, causal=True, window=window,
                                softcap=cfg.attn_softcap, scale=scale)
+    if cfg.attn_impl == "blockwise":
+        return attention_blockwise(q, k, v, causal=True, window=window,
+                                   softcap=cfg.attn_softcap, scale=scale,
+                                   block_q=cfg.attn_block_q,
+                                   block_kv=cfg.attn_block_kv)
     sq = q.shape[1]
     mask = (_window_mask(sq, sq, 0, window, q.device) if window
             else _causal_mask(sq, sq, 0, q.device))[None]
@@ -140,11 +225,15 @@ class KVCache:
 
 
 def gqa_prefill(p, cfg: ArchConfig, x, positions, max_len: int, *,
-                window: Optional[int] = None):
-    """Full-sequence attention that also materializes the decode cache."""
+                window: Optional[int] = None, long_context: bool = False):
+    """Full-sequence attention that also materializes the decode cache: the
+    window's ring cache for a windowed layer at ``long_context``, else the
+    dense one."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     out = _mixing_attention(cfg, q, k, v, window=window)
     y = _out_proj(out, p["wo"])
+    if window and long_context:
+        return y, _fill_window_cache(k, v, window)
     b, sq = x.shape[:2]
     kc = k.new_zeros((b, max_len) + k.shape[2:])
     vc = v.new_zeros((b, max_len) + v.shape[2:])
@@ -176,3 +265,156 @@ def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache):
                          softcap=cfg.attn_softcap)
     y = _out_proj(out, p["wo"])
     return y, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+
+
+# ---- sliding-window ring cache --------------------------------------------
+
+@dataclasses.dataclass
+class WindowKVCache:
+    k: torch.Tensor     # (B, window, H_kv, hd) ring buffer
+    v: torch.Tensor
+    length: int         # total tokens seen
+    window: int
+
+
+def _fill_window_cache(k, v, window: int) -> WindowKVCache:
+    """The last ``window`` positions scattered into their ring slots."""
+    b, s = k.shape[:2]
+    start = max(0, s - window)
+    slots = torch.arange(start, s, device=k.device) % window
+    kr = k.new_zeros((b, window) + k.shape[2:])
+    vr = v.new_zeros((b, window) + v.shape[2:])
+    kr[:, slots] = k[:, start:s]
+    vr[:, slots] = v[:, start:s]
+    return WindowKVCache(k=kr, v=vr, length=s, window=window)
+
+
+def init_window_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
+                      device="cuda") -> WindowKVCache:
+    w = cfg.sliding_window
+    shape = (batch, w, cfg.num_kv_heads, cfg.head_dim)
+    return WindowKVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                         v=torch.zeros(shape, dtype=dtype, device=device),
+                         length=0, window=w)
+
+
+def gqa_decode_windowed(p, cfg: ArchConfig, x, cache: WindowKVCache):
+    """One-token decode against the O(window) ring cache; writes the token's
+    k/v into slot ``pos % window`` in place."""
+    pos, w = cache.length, cache.window
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    q, k_new, v_new = gqa_project_qkv(p, cfg, x, positions)
+    slot = pos % w
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    # a slot is valid iff it holds one of the last `window` tokens <= pos
+    age = (slot - torch.arange(w, device=x.device)) % w    # 0 = newest
+    mask = (age <= min(pos, w - 1))[None, None]             # (1, 1, w)
+    out = attention_core(q, cache.k, cache.v, mask,
+                         softcap=cfg.attn_softcap)
+    y = _out_proj(out, p["wo"])
+    return y, WindowKVCache(k=cache.k, v=cache.v, length=pos + 1, window=w)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2): compressed-latent attention
+# ---------------------------------------------------------------------------
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return (cfg.head_dim + cfg.rope_head_dim) ** -0.5
+
+
+def _mla_q(p, cfg: ArchConfig, x, positions):
+    qfull = _proj_heads(x, p["wq"])
+    q_nope = qfull[..., : cfg.head_dim]
+    q_rope = nl.apply_rope(qfull[..., cfg.head_dim:], positions,
+                           cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_latent(p, cfg: ArchConfig, x, positions):
+    kv_a = x @ p["wkv_a"].to(x.dtype)
+    c_kv = nl.rms_norm(kv_a[..., : cfg.kv_lora_rank], p["kv_norm"].float())
+    k_rope = nl.apply_rope(kv_a[..., None, cfg.kv_lora_rank:], positions,
+                           cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_full(p, cfg: ArchConfig, x, positions):
+    """Full-sequence MLA: keys and values decompressed from the latents,
+    the shared rope key broadcast over the heads, attention at the scale
+    of the hd + rope_hd query width (hd_v = hd).  Returns (y, c_kv,
+    k_rope)."""
+    b, s, _ = x.shape
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latent(p, cfg, x, positions)
+    k_nope = _proj_heads(c_kv, p["wk_b"])
+    v = _proj_heads(c_kv, p["wv_b"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(
+        b, s, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
+    out = _mixing_attention(cfg, q, k, v, scale=_mla_scale(cfg))
+    return _out_proj(out, p["wo"]), c_kv, k_rope
+
+
+def mla_attention(p, cfg: ArchConfig, x, positions):
+    """Full-sequence MLA (scoring / prefill without a cache)."""
+    return _mla_full(p, cfg, x, positions)[0]
+
+
+@dataclasses.dataclass
+class MLACache:
+    c_kv: torch.Tensor      # (B, S_max, kv_lora_rank) compressed latents
+    k_rope: torch.Tensor    # (B, S_max, rope_head_dim) shared rope key
+    length: int
+
+
+def mla_prefill(p, cfg: ArchConfig, x, positions, max_len: int):
+    """MLA prefill: full-sequence attention and the compressed cache."""
+    y, c_kv, k_rope = _mla_full(p, cfg, x, positions)
+    b, s = x.shape[:2]
+    ckv = c_kv.new_zeros((b, max_len, cfg.kv_lora_rank))
+    kr = k_rope.new_zeros((b, max_len, cfg.rope_head_dim))
+    ckv[:, :s] = c_kv
+    kr[:, :s] = k_rope
+    return y, MLACache(c_kv=ckv, k_rope=kr, length=s)
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.float32, device="cuda") -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((batch, max_len, cfg.rope_head_dim), dtype=dtype,
+                           device=device),
+        length=0)
+
+
+def mla_decode(p, cfg: ArchConfig, x, cache: MLACache):
+    """One-token MLA decode on the compressed cache, written in place.
+
+    The absorbed-matmul trick: the queries are pulled into latent space
+    (q·W_kb), so attention runs against the (S, r) latents directly and
+    the cache stays compressed; the output leaves latent space through
+    W_vb."""
+    pos = cache.length
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                           device=x.device)
+    q_nope, q_rope = _mla_q(p, cfg, x, positions)
+    c_new, kr_new = _mla_latent(p, cfg, x, positions)
+    cache.c_kv[:, pos] = c_new[:, 0].to(cache.c_kv.dtype)
+    cache.k_rope[:, pos] = kr_new[:, 0].to(cache.k_rope.dtype)
+    c_kv = cache.c_kv.float()
+    q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(x.dtype))
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv)
+              + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                             cache.k_rope.float())) * _mla_scale(cfg)
+    mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
+    probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
+    out_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)
+    out = torch.einsum("bshr,rhk->bshk", out_lat.to(x.dtype),
+                       p["wv_b"].to(x.dtype))
+    y = _out_proj(out, p["wo"])
+    return y, MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope,
+                       length=pos + 1)

@@ -89,10 +89,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int,
-               bias: bool = False, scale=None) -> dict:
-    p = {"w": param(gen, (d_in, d_out), scale=scale)}
+               bias: bool = False, scale=None, dtype=torch.float32) -> dict:
+    p = {"w": param(gen, (d_in, d_out), scale=scale, dtype=dtype)}
     if bias:
-        p["b"] = param(gen, (d_out,), init="zeros")
+        p["b"] = param(gen, (d_out,), init="zeros", dtype=dtype)
     return p
 
 
@@ -103,17 +103,20 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def init_embedding(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
-    return param(gen, (vocab, d), scale=1.0)
+def init_embedding(gen: torch.Generator, vocab: int, d: int,
+                   dtype=torch.float32) -> torch.Tensor:
+    return param(gen, (vocab, d), scale=1.0, dtype=dtype)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
-def init_mlp(gen: torch.Generator, d: int, d_ff: int) -> dict:
-    return {"gate": init_dense(gen, d, d_ff), "up": init_dense(gen, d, d_ff),
-            "down": init_dense(gen, d_ff, d)}
+def init_mlp(gen: torch.Generator, d: int, d_ff: int,
+             dtype=torch.float32) -> dict:
+    return {"gate": init_dense(gen, d, d_ff, dtype=dtype),
+            "up": init_dense(gen, d, d_ff, dtype=dtype),
+            "down": init_dense(gen, d_ff, d, dtype=dtype)}
 
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:

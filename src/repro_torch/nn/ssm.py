@@ -20,20 +20,23 @@ from ..kernels.ssd.ops import inter_chunk, pad_to_chunk, ssd_chunked_fused
 from . import layers as nl
 
 
-def init_mamba2(gen: torch.Generator, cfg: ArchConfig) -> dict:
+def init_mamba2(gen: torch.Generator, cfg: ArchConfig,
+                dtype=torch.float32) -> dict:
+    """The mixer's leaves; the decay rates, skip and norm stay fp32 whatever
+    ``dtype`` is, as in the reference."""
     d, di, n, nh = cfg.d_model, cfg.d_inner, cfg.ssm_state_dim, cfg.ssm_heads
     conv_dim = di + 2 * n
     return {
         # fused input projection → [z, x, B, C, dt]
-        "in_proj": nl.param(gen, (d, 2 * di + 2 * n + nh)),
+        "in_proj": nl.param(gen, (d, 2 * di + 2 * n + nh), dtype=dtype),
         "conv_w": nl.param(gen, (cfg.conv_kernel, conv_dim),
-                           scale=1.0 / cfg.conv_kernel),
-        "conv_b": nl.param(gen, (conv_dim,), init="zeros"),
+                           scale=1.0 / cfg.conv_kernel, dtype=dtype),
+        "conv_b": nl.param(gen, (conv_dim,), init="zeros", dtype=dtype),
         "a_log": nl.param(gen, (nh,), init="zeros"),
         "d_skip": nl.param(gen, (nh,), init="ones"),
         "dt_bias": nl.param(gen, (nh,), init="zeros"),
         "norm": nl.init_rms_norm(gen, di),
-        "out_proj": nl.param(gen, (di, d)),
+        "out_proj": nl.param(gen, (di, d), dtype=dtype),
     }
 
 

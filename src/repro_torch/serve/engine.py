@@ -17,11 +17,13 @@ from ..configs.base import ArchConfig
 from ..models import transformer as T
 
 
-def make_serve_fns(cfg: ArchConfig):
-    """(prefill_fn, decode_fn) closures over ``cfg``."""
+def make_serve_fns(cfg: ArchConfig, *, long_context: bool = False):
+    """(prefill_fn, decode_fn) closures over ``cfg``; ``long_context`` puts
+    gemma2's local layers on the O(window) ring cache."""
 
     def prefill_fn(params, tokens, *, max_len: int):
-        return T.prefill(params, cfg, tokens, max_len=max_len)
+        return T.prefill(params, cfg, tokens, max_len=max_len,
+                         long_context=long_context)
 
     def decode_fn(params, token, caches):
         return T.decode_step(params, cfg, token, caches)
@@ -38,7 +40,7 @@ class GenerationResult:
 @torch.no_grad()
 def generate(params, cfg: ArchConfig, prompt, n_steps: int, *,
              temperature: float = 0.0, seed: int = 0,
-             max_len: Optional[int] = None,
+             max_len: Optional[int] = None, long_context: bool = False,
              device="cuda") -> GenerationResult:
     """Greedy / temperature sampling for a batch of prompts (B, S) on
     ``device``, where ``params`` must lie."""
@@ -49,7 +51,7 @@ def generate(params, cfg: ArchConfig, prompt, n_steps: int, *,
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
     b, s = prompt.shape
     max_len = max_len or (s + n_steps)
-    prefill_fn, decode_fn = make_serve_fns(cfg)
+    prefill_fn, decode_fn = make_serve_fns(cfg, long_context=long_context)
     logits, caches = prefill_fn(params, prompt, max_len=max_len)
     gen = torch.Generator(device=device).manual_seed(seed)
     last = logits[:, -1]

@@ -110,12 +110,18 @@ def test_kernel_wrapper_routes_by_dtype(monkeypatch, dtype, variant):
     monkeypatch.setattr(tf.flash_attention_bhsd, "launches", 0)
     monkeypatch.setattr(tf.flash_attention_bhsd, "launches_by_variant",
                         {"mma_bf16": 0, "fma_fp32": 0})
+    monkeypatch.setattr(tf.flash_attention_bhsd, "launches_by_case", {})
     q = torch.zeros(1, 4, 8, 80, dtype=dtype)
     kv = torch.zeros(1, 2, 8, 80, dtype=dtype)
-    tf._launch(q, kv, kv, torch.empty_like(q), causal=True, window=None,
-               softcap=None, scale=0.1, stream=0)
-    assert asked == [variant]
-    assert tf.flash_attention_bhsd.launches == 1
+    v = torch.zeros(1, 2, 8, 64, dtype=dtype)
+    tf._launch(q, kv, v, torch.empty(1, 4, 8, 64, dtype=dtype),
+               causal=True, window=None, softcap=None, scale=0.1, stream=0)
+    tf._launch(q, kv, kv, torch.empty_like(q), causal=True, window=4,
+               softcap=50.0, scale=0.1, stream=0)
+    assert asked == [variant, variant]
+    assert tf.flash_attention_bhsd.launches == 2
     assert tf.flash_attention_bhsd.launches_by_variant == {
-        "mma_bf16": int(variant == "mma_bf16"),
-        "fma_fp32": int(variant == "fma_fp32")}
+        "mma_bf16": 2 * (variant == "mma_bf16"),
+        "fma_fp32": 2 * (variant == "fma_fp32")}
+    assert tf.flash_attention_bhsd.launches_by_case == {
+        (variant, 80, 64, None, None): 1, (variant, 80, 80, 4, 50.0): 1}
