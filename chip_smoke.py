@@ -29,8 +29,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               groups g ∈ {1, 2, 4, 8}, causal and not, window, softcap,
               ragged Sq ≠ Skv, hd ∈ {36, 64, 80, 128, 192, 256}, hdv ≠ hd,
               gemma2's local layer cut to 4 heads (hd 256, g=2, window
-              4096, softcap 50, 4608 tokens: past the window) and MLA's
-              hd 192 / hdv 128, each in both dtypes; fp32
+              4096, softcap 50, 4608 tokens: past the window), MLA's
+              hd 192 / hdv 128 and InternVL2's GQA 14/2 (g=7) at hd 64
+              over 2 304 tokens, each in both dtypes; fp32
               held to 1e-5·(1 + max|ref|), bf16 per element to |Δ| ≤
               2^-7·|ref| + 1e-3 (both round the same fp32 math to bf16
               once, so they differ by at most one bf16 ulp);
@@ -195,8 +196,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               it, the library yardstick on the same tensors — held for
               agreement to 1e-2·(1 + max|ref|) (it rounds the softmax
               weights to bf16), timed, never on the path:
-              ``scaled_dot_product_attention`` (K/V repeated over the
-              groups) where there is no softcap and no window, else the
+              ``scaled_dot_product_attention`` (``enable_gqa``) where
+              there is no softcap and no window, else the
               compiled ``flex_attention`` (the softcap its score_mod, the
               causal window its block mask, ``enable_gqa``; SDPA has no
               softcap; inductor's and Triton's caches under ``build/``) —
@@ -205,8 +206,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the tensor-core peak against q, k, v and the output once:
               Zamba2's (2, 32, 2048, 80) (also held in fp32,
               1e-5·(1 + max|ref|)), gemma2's global (1, 16, 8192, 256)
-              g=2 softcap 50, its local layer (the same, window 4096) and
-              DeepSeek's MLA (2, 16, 2048, 192/128); one SSD launch at
+              g=2 softcap 50, its local layer (the same, window 4096),
+              DeepSeek's MLA (2, 16, 2048, 192/128), InternVL2-1B's (2,
+              14, 2304, 64) g=7 and MusicGen-large's (2, 32, 2112, 64)
+              (their prefills: 256 and 64 prefix positions before 2048
+              tokens); one SSD launch at
               Zamba2's (2, 2048, 80, 64) N=64 and at Mamba2-1.3B's (2,
               2048, 64, 64) N=128, Q=256, device time
               (``torch.profiler``) with its CUDA-event time beside, its
@@ -289,14 +293,50 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               DeepSeek at full width and 3 layers (1 dense + 2 MoE), Mamba2
               at full width and 4 layers, both on 1 × 512, and granite-moe,
               minitron, internlm2 and qwen1.5 reduced on 1 × 512: the kernel
-              path's launches counted (fp32 flash, SSD), the plain path's 0.
+              path's launches counted (fp32 flash, SSD), the plain path's 0;
+26. mm      — InternVL2-1B (24 layers, GQA 14/2, 256 vision prefix
+              embeddings) and MusicGen-large (48 layers, 32 heads, 64 audio
+              conditioning embeddings) at full width and depth, bf16
+              weights (norms fp32), ``attn_impl="flash"``: ``generate`` of 2
+              × 2048 ``SyntheticLM`` tokens behind the config's prefix (its
+              normal draws from ``batches(cfg=)``) + 32 greedy steps, 24 and
+              48 flash launches per prefill counted by case, none per
+              decode step, the caches' length P + S after prefill;
+              scoring (``forward`` + ``lm_loss`` on the prefixed batch, the
+              prefix positions dropped): the same launches, a finite loss;
+              prefill and decode medians, one profile of each, peak memory;
+27. lm-train — ``make_train_step(cfg, adamw(3e-4), remat=True)`` at full
+              width and depth on the configs' defaults (naive attention,
+              jnp SSD; bf16 compute over fp32 parameters): InternVL2-1B at
+              train_4k's 4096 tokens behind its 256 prefix embeddings and
+              Granite-MoE-1B-A400M at 4096 tokens (the MoE aux loss in the
+              gradient), each at the batch one card holds (train_4k's 256
+              cut: the peaks of remat=True steps at batch 1 and 2 measured
+              first, the batch the largest predicted within 80 % of the
+              card): 3 warm-up + 10 timed steps on fresh batches, finite
+              and falling loss, finite aux, every MoE router moved, 0 flash
+              and 0 SSD launches; the median step, tokens/s, MFU (6·N·T +
+              12·L·H·hd·S² a sequence, over the bf16 peak), one profiled
+              step, peak memory; InternVL2's peaks at remat True / False /
+              ``"dots"`` at the batch remat=False fits.  The fp32
+              cross-check under deterministic algorithms: both configs at
+              full width cut to 2 layers on 1 × 512 tokens (+ prefix),
+              step 0's loss, aux, total and every gradient leaf and two
+              steps' metrics on the card within 1e-4 of the CPU's from the
+              same weights and batches, remat True / False / ``"dots"``
+              within 1e-6 of each other, the router's gradient nonzero.
+              Last, the forward-only kernels refuse: ``make_train_step`` on
+              ``attn_impl="flash"`` and on ``ssm_impl="fused"`` raises, so
+              does a grad-enabled call of either wrapper on the card, and
+              neither kernel launches.
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the flash kernel at Zamba2's shape,
-gemma2's global and local layers' and MLA's, the SSD kernel at Zamba2's
-and Mamba2-1.3B's, each with its path's launches (each flash shape's its
-own case's count from the main-path runs).
+gemma2's global and local layers', MLA's, InternVL2-1B's and
+MusicGen-large's, the SSD kernel at Zamba2's and Mamba2-1.3B's, each with
+its path's launches (each flash shape's its own case's count from the
+main-path runs).
 In it, ``ms_by`` says how each row's ``ms`` and ``library_ms``
 were timed: ``"profiler"`` (device time from ``torch.profiler``) or
 ``"events"`` (CUDA events over back-to-back calls); ``plain_ms`` and the
@@ -1855,6 +1895,9 @@ FLASH_CASES = (
     (1, 4, 2, 4608, 4608, 256, 256, torch.bfloat16, True, 4096, 50.0),
     (2, 16, 16, 300, 300, 192, 128, torch.float32, True, None, None),
     (2, 16, 16, 300, 300, 192, 128, torch.bfloat16, True, None, None),
+    # InternVL2-1B's GQA 14/2 (g=7) at hd 64 over its 2 304 positions
+    (1, 14, 2, 2304, 2304, 64, 64, torch.float32, True, None, None),
+    (1, 14, 2, 2304, 2304, 64, 64, torch.bfloat16, True, None, None),
 )
 
 SSD_CASES = (
@@ -2126,24 +2169,27 @@ def _attn_layers(cfg) -> int:
     return sum(k != "mamba" for k in cfg.layer_kinds())
 
 
-def _serve_cell(cfg, params, prompt, dev, *,
-                long_context: bool = False) -> tuple[np.ndarray, dict]:
-    """``generate`` of ``prompt`` + ``LM_STEPS`` greedy steps, the main
-    path's run, with its launches held (one flash launch per attention
-    layer in prefill, all of the tensor-core kernel; none in decode; no
-    SSD launch: the reference's prefill runs the plain ``ssd_chunked``);
-    then prefill and decode timed (medians), one of each profiled, and
-    the peak memory."""
+def _serve_cell(cfg, params, prompt, dev, *, long_context: bool = False,
+                prefix=None) -> tuple[np.ndarray, dict]:
+    """``generate`` of ``prompt`` (behind ``prefix``, a modality config's
+    frontend embeddings) + ``LM_STEPS`` greedy steps, the main path's run,
+    with its launches held (one flash launch per attention layer in
+    prefill, all of the tensor-core kernel; none in decode; no SSD launch:
+    the reference's prefill runs the plain ``ssd_chunked``); then prefill
+    and decode timed (medians), one of each profiled, and the peak
+    memory.  Behind a prefix the caches' length after prefill is P + S."""
     from repro_torch.serve import generate, make_serve_fns
 
     b, s = prompt.shape
+    off = 0 if prefix is None else prefix.shape[1]
     steps, n_attn = LM_STEPS, _attn_layers(cfg)
     lc = " (long_context: ring caches)" if long_context else ""
+    lc += f" behind a {off}-embedding prefix" if off else ""
     torch.cuda.reset_peak_memory_stats()
     _zero_lm_counts()
     t = time.perf_counter()
-    res = generate(params, cfg, prompt, steps, long_context=long_context,
-                   device=dev)
+    res = generate(params, cfg, prompt, steps, prefix=prefix,
+                   long_context=long_context, device=dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t
     counts, cases = _read_lm_counts(), _flash_case_counts()
@@ -2161,7 +2207,8 @@ def _serve_cell(cfg, params, prompt, dev, *,
 
     prefill_fn, decode_fn = make_serve_fns(cfg, long_context=long_context)
     tokens = torch.as_tensor(prompt, device=dev)
-    max_len = s + steps + 1
+    pre_t = None if prefix is None else torch.as_tensor(prefix, device=dev)
+    max_len = off + s + steps + 1
     pre_ms, dec_ms = [], []
     with torch.no_grad():
         for _ in range(LM_RUNS):
@@ -2169,11 +2216,16 @@ def _serve_cell(cfg, params, prompt, dev, *,
             _zero_lm_counts()
             torch.cuda.synchronize()
             t = time.perf_counter()
-            logits, caches = prefill_fn(params, tokens, max_len=max_len)
+            logits, caches = prefill_fn(params, tokens, pre_t,
+                                        max_len=max_len)
             torch.cuda.synchronize()
             pre_ms.append((time.perf_counter() - t) * 1e3)
             _expect("prefill launches (flash, ssd)", _read_lm_counts(),
                     (n_attn, 0))
+        if off:
+            _expect("prefill logits' positions", logits.shape[1], off + s)
+            _expect("cache length after prefill", caches[0][0].length,
+                    off + s)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
         logits = None
         _zero_lm_counts()
@@ -2190,15 +2242,15 @@ def _serve_cell(cfg, params, prompt, dev, *,
         prof_dec = _profile(lambda: decode_fn(params, tok, caches),
                             "decode step")
         caches = None
-        prof = _profile(lambda: prefill_fn(params, tokens, max_len=max_len),
-                        "prefill")
+        prof = _profile(lambda: prefill_fn(params, tokens, pre_t,
+                                           max_len=max_len), "prefill")
     peak = torch.cuda.max_memory_allocated()
     pre, dec = statistics.median(pre_ms), statistics.median(dec_ms)
     tok_s = b * steps / (sum(dec_ms) / 1e3)
     print(f"  prefill {pre:.2f} ms (median of {pre_ms}); decode "
           f"{dec:.3f} ms per step (median of {steps}); {tok_s:.1f} "
           f"tokens/s over the decode steps (batch {b}); prefill "
-          f"{b * s / (pre / 1e3):.0f} tokens/s; peak memory "
+          f"{b * (off + s) / (pre / 1e3):.0f} positions/s; peak memory "
           f"{peak / 2**30:.2f} GiB")
     return tokens_out, {
         "generate_s": gen_s, "prefill_ms": pre, "prefill_ms_runs": pre_ms,
@@ -2211,19 +2263,23 @@ def _serve_cell(cfg, params, prompt, dev, *,
 
 def _score_cell(cfg, params, batch, dev, *,
                 plain_twin: bool = False) -> dict:
-    """``forward`` + ``lm_loss`` on the batch under no_grad, the main path's
-    run: one flash launch per attention layer and one SSD launch per mamba
-    layer, a finite loss (and aux loss); timed, profiled, peak memory;
-    with ``plain_twin`` the bf16 loss with both plain versions patched in
-    beside it (not gated)."""
+    """``forward`` + ``lm_loss`` on the batch under no_grad (behind its
+    ``prefix``, whose positions take no part in the loss, where it has
+    one), the main path's run: one flash launch per attention layer and
+    one SSD launch per mamba layer, a finite loss (and aux loss); timed,
+    profiled, peak memory; with ``plain_twin`` the bf16 loss with both
+    plain versions patched in beside it (not gated)."""
     from repro_torch.models import transformer as T
     tokens = torch.as_tensor(batch["tokens"], device=dev)
     targets = torch.as_tensor(batch["targets"], device=dev)
+    prefix = batch.get("prefix")
+    prefix = None if prefix is None else torch.as_tensor(prefix, device=dev)
+    off = 0 if prefix is None else prefix.shape[1]
     b, s = tokens.shape
 
     def run():
-        logits, aux = T.forward(params, cfg, tokens)
-        return T.lm_loss(logits, targets), aux
+        logits, aux = T.forward(params, cfg, tokens, prefix)
+        return T.lm_loss(logits[:, off:], targets), aux
 
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -2279,7 +2335,7 @@ def serve(dev):
     cfg, params, n_params = _lm_model("zamba2-2.7b", dev)
     batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
     _, info = _serve_cell(cfg, params, batch["tokens"], dev)
-    print("[17/25] LM main path, scoring: forward + lm_loss")
+    print("[17/27] LM main path, scoring: forward + lm_loss")
     score_info = _score_cell(cfg, params, batch, dev, plain_twin=True)
     return cfg, params, batch, {"params": n_params, **info}, score_info
 
@@ -2415,10 +2471,8 @@ def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
     err = max(err, _held_bf16(f"{name} bf16 causal vs plain", got,
                               flash_ref(q, k, v, **kw)))
     if softcap is None and window is None:
-        g = hq // hkv
-        ke, ve = k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
         library, lib_name = (lambda: F.scaled_dot_product_attention(
-            q, ke, ve, is_causal=True, scale=scale)), "SDPA"
+            q, k, v, is_causal=True, scale=scale, enable_gqa=True)), "SDPA"
     else:
         library, lib_name = _flex_attention(q, k, v, window=window,
                                             softcap=softcap, scale=scale), \
@@ -2487,7 +2541,8 @@ def lm_timing(dev):
     """Phase 19: one flash launch at each LM path's shape — Zamba2's
     (2, 32, 2048, 80), gemma2's global (1, 16, 8192, 256) softcap 50 and
     local (the same, window 4096) layers, DeepSeek's MLA (2, 16, 2048,
-    192/128) — and one SSD launch at Zamba2's (2, 2048, 80, 64) N=64 and
+    192/128), InternVL2's (2, 14, 2304, 64) g=7 and MusicGen's (2, 32,
+    2112, 64) — and one SSD launch at Zamba2's (2, 2048, 80, 64) N=64 and
     Mamba2-1.3B's (2, 2048, 64, 64) N=128."""
     gen = torch.Generator(device=dev).manual_seed(4)
     rows = {"flash": _flash_row(gen, dev, 2, 32, 32, 2048, 80, 80,
@@ -2499,6 +2554,9 @@ def lm_timing(dev):
         torch.cuda.empty_cache()
     rows["flash_mla"] = _flash_row(gen, dev, 2, 16, 16, 2048, 192, 128,
                                    scale=192 ** -0.5)
+    # the modality configs' prefills: 256 + 2048 and 64 + 2048 positions
+    rows["flash_internvl2"] = _flash_row(gen, dev, 2, 14, 2, 2304, 64, 64)
+    rows["flash_musicgen"] = _flash_row(gen, dev, 2, 32, 32, 2112, 64, 64)
     rows["ssd"] = _ssd_row(gen, dev, 2, 2048, 80, 64, 64, 256)
     rows["ssd_n128"] = _ssd_row(gen, dev, 2, 2048, 64, 64, 128, 256)
     return rows
@@ -2624,6 +2682,379 @@ def lm_cross_checks(dev) -> dict:
                   f" GiB")
             del params
             _lm_free()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The modality configs' serving and LM training (phases 26–27)
+# ---------------------------------------------------------------------------
+
+MM_ARCHS = ("internvl2-1b", "musicgen-large")
+
+
+def multimodal(dev) -> dict:
+    """Phase 26: InternVL2-1B and MusicGen-large at full width and depth,
+    bf16 weights (norms fp32), ``attn_impl="flash"``: ``generate`` of 2 ×
+    2048 ``SyntheticLM`` tokens behind the config's prefix (its normal
+    draws from ``batches(cfg=)``) + 32 greedy steps, and scoring on the
+    prefixed batch."""
+    from repro_torch.data import SyntheticLM
+    out = {}
+    for arch in MM_ARCHS:
+        cfg, params, n = _lm_model(arch, dev, torch.bfloat16)
+        batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048,
+                                                                 cfg))
+        print(f"  prefix {batch['prefix'].shape} fp32 through mm_proj")
+        out[arch] = {
+            "params": n,
+            "serve": _serve_cell(cfg, params, batch["tokens"], dev,
+                                 prefix=batch["prefix"])[1],
+            "score": _score_cell(cfg, params, batch, dev)}
+        del params
+        _lm_free()
+    return out
+
+
+TRAIN_ARCHS = ("internvl2-1b", "granite-moe-1b-a400m")
+TRAIN_LR = 3e-4
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+TRAIN_MEMORY_SHARE = 0.8    # of the card's memory a chosen batch may take
+TRAIN_XCHECK = dict(num_layers=2, dtype="float32")
+TRAIN_XCHECK_SEQ = 512
+TRAIN_RTOL = 1e-4           # the card's fp32 steps against the CPU's
+REMAT_RTOL = 1e-6           # remat True / False / "dots" against each other
+
+
+def _train_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one training step: 6·N·T over the T = batch·(P + seq)
+    positions, N the parameters that enter a matmul for each position (a
+    MoE layer's active experts and its router; the unembed, tied or not,
+    at the padded vocabulary; not the embedding's gather), plus 6·d²·P a
+    sequence for ``mm_proj`` and 12·L·H·hd·S² a sequence for attention's
+    two products over its S = P + seq positions.  No recompute counted."""
+    p = cfg.num_prefix_embeddings if cfg.modality else 0
+    d, s_all = cfg.d_model, p + seq
+    embed = cfg.vocab_size * d * (1 if cfg.tie_embeddings else 2)
+    n = cfg.active_param_count() - embed + cfg.padded_vocab * d
+    n_attn = sum(k != "mamba" for k in cfg.layer_kinds())
+    return batch * (6 * n * s_all + 6 * d * d * p
+                    + 12 * n_attn * cfg.num_heads * cfg.head_dim * s_all ** 2)
+
+
+def _train_state(params, opt):
+    """A fresh train state on clones of ``params``."""
+    from repro_torch.params import tree_map
+    from repro_torch.train import init_train_state
+    return init_train_state(tree_map(torch.clone, params), opt)
+
+
+def _grad_peak(cfg, state, batch, remat) -> int:
+    """Peak memory of a step's forward and backward (the gradient, before
+    the optimizer's update) on ``batch`` beside ``state``."""
+    from repro_torch.params import tree_leaves, tree_unflatten
+    from repro_torch.train import make_loss_fn
+    _lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    live = [t.detach().requires_grad_() for t in tree_leaves(state.params)]
+    total, _ = make_loss_fn(cfg, remat=remat)(
+        tree_unflatten(state.params, live), batch)
+    grads = torch.autograd.grad(total, live)
+    del total, grads, live
+    return torch.cuda.max_memory_allocated()
+
+
+def _choose_batch(cfg, state, data_fn, dev) -> tuple[int, dict]:
+    """The largest batch (≤ train_4k's 256) whose forward and backward are
+    predicted to fit in ``TRAIN_MEMORY_SHARE`` of the card beside the
+    train state: their measured peaks at remat=True and batch 1 and 2 (a
+    peak affine in the batch); and remat=False's batch from its peak at
+    batch 1 over the same intercept.  (The optimizer's update peaks apart,
+    at a size set by the parameters alone.)"""
+    limit = TRAIN_MEMORY_SHARE * torch.cuda.get_device_properties(
+        dev).total_memory
+    p1 = _grad_peak(cfg, state, data_fn(1), True)
+    p2 = _grad_peak(cfg, state, data_fn(2), True)
+    slope, base = p2 - p1, 2 * p1 - p2
+    if slope <= 0:
+        raise AssertionError(f"{cfg.name}: peaks {p1}, {p2} at batch 1, 2 "
+                             f"do not grow with the batch")
+    b_true = min(256, int((limit - base) // slope))
+    f1 = _grad_peak(cfg, state, data_fn(1), False)
+    b_false = min(256, int((limit - base) // (f1 - base)))
+    print(f"  forward + backward peak (remat=True) at batch 1 / 2: "
+          f"{p1 / 2**30:.2f} / {p2 / 2**30:.2f} GiB ({slope / 2**30:.2f} "
+          f"GiB a sequence over {base / 2**30:.2f}); remat=False at batch 1 "
+          f"{f1 / 2**30:.2f} GiB; within {limit / 2**30:.1f} GiB the batch "
+          f"is {b_true} (remat=True), {b_false} (remat=False)")
+    if b_true < 1:
+        raise AssertionError(f"{cfg.name}: no batch fits one card")
+    return b_true, {"peak_b1": p1, "peak_b2": p2, "peak_b1_no_remat": f1,
+                    "batch_no_remat": b_false, "limit_bytes": limit}
+
+
+def _train_cell(arch, dev, card: str) -> dict:
+    """``make_train_step(cfg, adamw(3e-4), remat=True)`` at full width and
+    depth on the config's defaults (naive attention, jnp SSD: no kernel;
+    bf16 compute over fp32 parameters) at train_4k's sequence length,
+    behind the prefix where the config has one, at the batch one card
+    holds: 3 warm-up + 10 timed steps on fresh ``SyntheticLM`` batches,
+    finite and falling loss, a finite aux loss, no kernel launch; every
+    MoE router moved (its gradient nonzero); the median step, tokens/s,
+    MFU, one profiled step, peak memory; InternVL2's peaks at remat=False
+    and ``"dots"`` beside remat=True's at the batch remat=False fits
+    (forward and backward)."""
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.optim import adamw
+    from repro_torch.params import tree_leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_config(arch)
+    seq = get_shape("train_4k").seq_len
+    opt = adamw(TRAIN_LR)
+    state = init_train_state(init_transformer(cfg, seed=0, device=dev), opt)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in tree_leaves(state.params))
+    print(f"  {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, {n} fp32 "
+          f"parameters ({n * 16 / 1e9:.2f} GB with gradients and AdamW's "
+          f"two moments), compute {cfg.dtype}, attn_impl={cfg.attn_impl}, "
+          f"ssm_impl={cfg.ssm_impl}, {seq} tokens"
+          + (f" behind {cfg.num_prefix_embeddings} prefix embeddings"
+             if cfg.modality else ""))
+    data = SyntheticLM(cfg.vocab_size, seed=0)
+
+    def data_fn(b):
+        return next(data.batches(b, seq, cfg))
+
+    batch_size, probe = _choose_batch(cfg, state, data_fn, dev)
+    print(f"  train_4k's global batch of 256 cut to {batch_size} sequences "
+          f"(one card)")
+    routers = [t.clone() for t in _routers(state.params)]
+    _lm_free()
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(cfg, opt, remat=True)
+    batches = [data_fn(batch_size) for _ in range(TRAIN_WARMUP + TRAIN_STEPS
+                                                   + 1)]
+    losses, auxes, ms = [], [], []
+    _zero_lm_counts()
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = step(state, batches[i])
+        losses.append(m["loss"].item())
+        auxes.append(m["aux_loss"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    counts = _read_lm_counts()
+    _expect(f"{cfg.name} training launches (flash, ssd)", counts, (0, 0))
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses + auxes) or \
+            losses[-1] >= losses[0] or (auxes[0] > 0) != cfg.moe:
+        raise AssertionError(f"{cfg.name} training: losses {losses}, aux "
+                             f"{auxes}: not finite, not falling, or an aux "
+                             f"loss where no MoE layer is (or none where "
+                             f"one is)")
+    moved = [bool((a != b).any()) for r0, r1 in zip(routers,
+                                                      _routers(state.params))
+             for a, b in zip(r0, r1)]
+    if not all(moved):
+        raise AssertionError(f"{cfg.name}: routers that never moved (zero "
+                             f"gradient) at layers "
+                             f"{[i for i, m in enumerate(moved) if not m]}")
+    holder = [state]
+
+    def one_step():
+        holder[0], m = step(holder[0], batches[-1])
+        m["loss"].item()
+    prof = _profile(one_step, f"{cfg.name} train step")
+    med = statistics.median(ms[TRAIN_WARMUP:])
+    flops = _train_flops(cfg, batch_size, seq)
+    positions = batch_size * (seq + (cfg.num_prefix_embeddings
+                                     if cfg.modality else 0))
+    mfu = flops / (med / 1e3) / PEAK_BF16_FLOP_PER_S
+    print(f"  losses {[round(v, 4) for v in losses]}; aux "
+          f"{[round(v, 5) for v in auxes]}; launches flash {counts[0]}, ssd "
+          f"{counts[1]}" + (f"; all {len(moved)} routers moved"
+                            if moved else ""))
+    print(f"  step {med:.2f} ms (median of {TRAIN_STEPS} after "
+          f"{TRAIN_WARMUP} warm-up: {[round(v, 2) for v in ms]}); "
+          f"{batch_size * seq / (med / 1e3):.0f} tokens/s "
+          f"({positions / (med / 1e3):.0f} positions/s); model "
+          f"{flops / 1e12:.2f} TFLOP a step, MFU {mfu:.4f} at the bf16 peak "
+          f"{PEAK_BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; {card}")
+    out = {"params": n, "batch": batch_size, "seq": seq,
+           "positions": positions, "losses": losses, "aux": auxes,
+           "step_ms": med, "step_ms_runs": ms,
+           "tokens_per_s": batch_size * seq / (med / 1e3),
+           "model_flops": flops, "mfu": mfu, "peak_bytes": peak,
+           "launches": {"flash": counts[0], "ssd": counts[1]},
+           "profile": prof, "probe": probe}
+    state = holder[0]
+    del holder, step, batches
+    if cfg.modality:
+        b = probe["batch_no_remat"]
+        if b < 1:
+            raise AssertionError(f"{cfg.name}: remat=False fits no batch")
+        out["remat_peaks"] = {str(r): _grad_peak(cfg, state, data_fn(b), r)
+                              for r in (True, False, "dots")}
+        print(f"  forward + backward peak memory at batch {b} (what "
+              f"remat=False fits): " + ", ".join(
+                  f"remat={r} {v / 2**30:.2f} GiB"
+                  for r, v in out["remat_peaks"].items()))
+    del state
+    _lm_free()
+    return out
+
+
+def _routers(params) -> list:
+    """The MoE routers' leaves, stacked over each group's repeats."""
+    return [unit["moe"]["router"] for group in params["groups"]
+            for unit in group if "moe" in unit]
+
+
+def _train_xcheck(arch, dev) -> dict:
+    """``arch`` at full width cut to 2 layers, fp32, on 1 × 512 tokens
+    (behind the prefix): step 0's loss, aux, total and gradient leaves and
+    two ``make_train_step`` steps on the card against the same on the CPU
+    from the same weights and batches; remat True, False and ``"dots"``
+    against each other on the card."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.optim import adamw
+    from repro_torch.params import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.train import make_loss_fn, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), **TRAIN_XCHECK)
+    params = init_transformer(cfg, seed=0, device=dev)
+    data = SyntheticLM(cfg.vocab_size, seed=1).batches(1, TRAIN_XCHECK_SEQ,
+                                                        cfg)
+    batches = [next(data) for _ in range(2)]
+
+    def step0(p):
+        live = [t.detach().clone().requires_grad_() for t in tree_leaves(p)]
+        total, (loss, aux) = make_loss_fn(cfg)(tree_unflatten(p, live),
+                                               batches[0])
+        grads = torch.autograd.grad(total, live, materialize_grads=True)
+        return torch.stack([total, loss, aux]).detach(), grads
+
+    def two_steps(p, remat=True):
+        opt = adamw(TRAIN_LR)
+        state = _train_state(p, opt)
+        step = make_train_step(cfg, opt, remat=remat)
+        out = []
+        for b in batches:
+            state, m = step(state, b)
+            out.append(torch.stack([m[k] for k in ("loss", "aux_loss",
+                                                   "total_loss")]))
+        return torch.stack(out)
+
+    cpu = tree_map(lambda t: t.cpu(), params)
+    t = time.perf_counter()
+    want0, want_g = step0(cpu)
+    want = two_steps(cpu)
+    cpu_s = time.perf_counter() - t
+    _zero_lm_counts()
+    got0, got_g = step0(params)
+    got = {r: two_steps(params, r).cpu() for r in (True, False, "dots")}
+    _expect(f"{cfg.name} cross-check launches (flash, ssd)",
+            _read_lm_counts(), (0, 0))
+    tag = f"{cfg.name} 2 layers fp32 1×{TRAIN_XCHECK_SEQ}"
+    err = _held(f"{tag} step 0 (total, loss, aux), card vs CPU",
+                got0.cpu(), want0, TRAIN_RTOL)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got_g, want_g)):
+        worst = max(worst, _held(f"  grad {i} {tuple(w.shape)}", g.cpu(), w,
+                                 TRAIN_RTOL))
+    for i in range(2):
+        rel = ((got[True][i] - want[i]).abs()
+               / want[i].abs().clamp_min(1e-30)).max().item()
+        print(f"  {tag} step {i} (loss, aux, total) card "
+              f"{got[True][i].tolist()} CPU {want[i].tolist()}: relative "
+              f"|Δ| {rel:.2e}  {'ok' if rel <= TRAIN_RTOL else 'FAIL'}")
+        if rel > TRAIN_RTOL:
+            raise AssertionError(f"{tag} step {i} differs by {rel:.2e}")
+    for r in (False, "dots"):
+        rel = ((got[r] - got[True]).abs()
+               / got[True].abs().clamp_min(1e-30)).max().item()
+        print(f"  {tag} remat={r} against remat=True, both steps: relative "
+              f"|Δ| {rel:.2e}  {'ok' if rel <= REMAT_RTOL else 'FAIL'}")
+        if rel > REMAT_RTOL:
+            raise AssertionError(f"{tag} remat={r} differs by {rel:.2e}")
+    if cfg.moe:
+        idx = [i for i, t in enumerate(tree_leaves(params))
+               if any(t is r for r in _routers(params))]
+        if not idx or not all(got_g[i].abs().max() > 0 for i in idx):
+            raise AssertionError(f"{tag}: a router's gradient is zero")
+        print(f"  {tag}: the router's gradient nonzero "
+              f"(max|g| {max(got_g[i].abs().max().item() for i in idx):.3e})")
+    print(f"  the CPU's side took {cpu_s:.1f} s")
+    del params
+    _lm_free()
+    return {"step0_err": err, "grad_err": worst, "cpu_s": cpu_s}
+
+
+def _guard_on_card(dev) -> None:
+    """``make_train_step`` refuses a flash and a fused-SSD config; a
+    grad-enabled call of either kernel's wrapper raises; neither kernel
+    launched."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.kernels.ssd import ssd_chunked_fused
+    from repro_torch.optim import adamw
+    from repro_torch.train import make_train_step
+
+    _zero_lm_counts()
+    for arch, over in (("internvl2-1b", dict(attn_impl="flash")),
+                       ("mamba2-1.3b", dict(ssm_impl="fused"))):
+        cfg = dataclasses.replace(get_config(arch), **over)
+        try:
+            make_train_step(cfg, adamw(TRAIN_LR))
+        except RuntimeError as e:
+            print(f"  make_train_step({arch}, {over}) refused: "
+                  f"{str(e)[:90]}…")
+        else:
+            raise AssertionError(f"make_train_step({arch}, {over}) did not "
+                                 f"refuse a forward-only kernel")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(1, 64, h, 64, generator=gen, device=dev,
+                           dtype=torch.bfloat16).requires_grad_()
+               for h in (14, 2, 2))
+    x = torch.randn(1, 64, 4, 64, generator=gen, device=dev).requires_grad_()
+    dt = torch.rand(1, 64, 4, generator=gen, device=dev)
+    a = -torch.rand(4, generator=gen, device=dev)
+    bm, cm = (torch.randn(1, 64, 32, generator=gen, device=dev)
+              for _ in range(2))
+    for name, call in (("flash_attention", lambda: flash_attention(q, k, v)),
+                       ("ssd_chunked_fused", lambda: ssd_chunked_fused(
+                           x, dt, a, bm, cm, chunk=64))):
+        try:
+            call()
+        except RuntimeError as e:
+            print(f"  grad-enabled {name} on the card refused: "
+                  f"{str(e)[:60]}…")
+        else:
+            raise AssertionError(f"grad-enabled {name} did not raise")
+    _expect("launches of the refused calls (flash, ssd)", _read_lm_counts(),
+            (0, 0))
+
+
+def lm_train(dev, card: str) -> dict:
+    """Phase 27: LM training at full width and depth (InternVL2-1B behind
+    its prefix, Granite-MoE-1B-A400M with the MoE aux loss), the fp32
+    cross-checks against the CPU under deterministic algorithms, and the
+    forward-only kernels' refusals on the card."""
+    out = {arch: _train_cell(arch, dev, card) for arch in TRAIN_ARCHS}
+    with _deterministic("phase 27 cross-checks"):
+        out["xcheck"] = {arch: _train_xcheck(arch, dev)
+                         for arch in TRAIN_ARCHS}
+    _guard_on_card(dev)
     return out
 
 
@@ -3060,7 +3491,7 @@ def multihost(dev, card: str) -> dict:
     return out
 
 
-def _flash_paths(lm_rows, gemma_info, deepseek_info):
+def _flash_paths(lm_rows, gemma_info, deepseek_info, mm_info):
     """(phase 19 row, path, launches on that path) of the new flash
     shapes: each row's launches are its own case's counts (variant, head
     dims, window, softcap) from the path's main-path runs."""
@@ -3072,13 +3503,16 @@ def _flash_paths(lm_rows, gemma_info, deepseek_info):
     gemma = [gemma_info[k] for k in ("serve_long_context_True",
                                      "serve_long_context_False", "score")]
     deep = [deepseek_info["serve"], deepseek_info["score"]]
+    vl, mg = ([mm_info[a]["serve"], mm_info[a]["score"]] for a in MM_ARCHS)
     return tuple((key, path, launches(lm_rows[key], cells))
                  for key, path, cells in (
                      ("flash_gemma2_global", "gemma2-9b (global layers)",
                       gemma),
                      ("flash_gemma2_local", "gemma2-9b (local layers)",
                       gemma),
-                     ("flash_mla", "deepseek-v2-lite-16b", deep)))
+                     ("flash_mla", "deepseek-v2-lite-16b", deep),
+                     ("flash_internvl2", "internvl2-1b", vl),
+                     ("flash_musicgen", "musicgen-large", mg)))
 
 
 def _flash_entry(row, path, launches, case_err) -> dict:
@@ -3106,7 +3540,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
 
     t_start = time.perf_counter()
-    print("[1/25] device")
+    print("[1/27] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3124,87 +3558,96 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    print("[2/25] build")
+    print("[2/27] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/25] spmm kernel against its plain version")
+    print("[3/27] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/25] flash kernel against its plain version")
+    print("[4/27] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/25] ssd kernel against its plain version")
+    print("[5/27] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/25] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/27] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/25] naive TP GCN training (a split and a gather per "
+        print("[7/27] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/25] DP halo-exchange GCN training (k=1)")
+        print("[8/27] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/25] out-of-core streamed GCN training (pinned host "
+        print("[9/27] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/25] GAT decoupled-pipelined TP training (the score "
+        print("[10/27] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/25] GAT naive TP training")
+        print("[11/27] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/25] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/27] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/25] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/27] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/25] the constraint engine backend (DTensor, "
+        print("[14/27] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/25] spmm timing at the GCN paths' shapes")
+        print("[15/27] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/25] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/27] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info, score_info = serve(dev)
-    print("[18/25] fp32 cross-check at full width, kernels vs plain")
+    print("[18/27] fp32 cross-check at full width, kernels vs plain")
     fp32_err = cross_check_fp32(cfg, params, batch["tokens"][:1, :512],
                                 batch["targets"][:1, :512], dev)
     del params
     _lm_free()
-    print("[19/25] flash and ssd timing at the LM paths' shapes")
+    print("[19/27] flash and ssd timing at the LM paths' shapes")
     t = time.perf_counter()
     lm_rows = lm_timing(dev)
     _lm_free()
     print(f"  phase 19 took {time.perf_counter() - t:.1f} s")
-    print("[20/25] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    print("[20/27] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
-    print("[21/25] multihost: the placed bundle, the launcher under the env "
+    print("[21/27] multihost: the placed bundle, the launcher under the env "
           "contract")
     multihost_info = multihost(dev, card)
     _lm_free()
-    print("[22/25] gemma2-9b at full width and depth: generate 1 × 8192 "
+    print("[22/27] gemma2-9b at full width and depth: generate 1 × 8192 "
           "with ring caches and with dense caches, scoring")
     gemma_info = gemma2(dev)
-    print("[23/25] deepseek-v2-lite-16b at full width and depth: generate "
+    print("[23/27] deepseek-v2-lite-16b at full width and depth: generate "
           "2 × 2048 (MLA, MoE), scoring")
     deepseek_info = deepseek(dev)
-    print("[24/25] mamba2-1.3b at full width and depth: scoring, generate")
+    print("[24/27] mamba2-1.3b at full width and depth: scoring, generate")
     mamba_info = mamba2(dev)
-    print("[25/25] fp32 cross-checks of the new configs, kernels vs plain")
+    print("[25/27] fp32 cross-checks of the new configs, kernels vs plain")
     xcheck_errs = lm_cross_checks(dev)
+    print("[26/27] InternVL2-1B and MusicGen-large at full width and depth: "
+          "generate 2 × 2048 behind the prefix, scoring")
+    mm_info = multimodal(dev)
+    print("[27/27] LM training at full width and depth: InternVL2-1B and "
+          "Granite-MoE-1B-A400M, the fp32 cross-checks, the kernels' "
+          "refusals")
+    t = time.perf_counter()
+    train_info = lm_train(dev, card)
+    print(f"  phase 27 took {time.perf_counter() - t:.1f} s")
     script_s = time.perf_counter() - t_start
-    print(f"  phases 1–25 took {script_s:.1f} s")
+    print(f"  phases 1–27 took {script_s:.1f} s")
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -3221,6 +3664,7 @@ def main() -> int:
                       "gemma2": gemma_info, "deepseek": deepseek_info,
                       "mamba2": mamba_info,
                       "fp32_xcheck_logits_err": xcheck_errs,
+                      "multimodal": mm_info, "lm_train": train_info,
                       "script_s": script_s, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
@@ -3277,7 +3721,8 @@ def main() -> int:
         "library_ms": fl["library_ms"], "ms_by": "events"},
         *[_flash_entry(lm_rows[key], path, launches, flash_err)
           for key, path, launches in _flash_paths(lm_rows, gemma_info,
-                                                  deepseek_info)], {
+                                                  deepseek_info, mm_info)],
+        {
         "name": "ssd_intra_chunk", "route": "cuda",
         "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
         "replaces": "src/repro/kernels/ssd/ssd.py:61",

@@ -1,20 +1,21 @@
-"""Config registry: ``get_config(arch_id)`` / ``list_archs()``.
+"""Config registry: ``get_config(arch_id)`` / ``list_archs()`` /
+``get_shape(name)``.
 
-Holds the LM configs the port can run, each a copy of the JAX package's.
-The reference's two multimodal configs (``internvl2-1b``,
-``musicgen-large``) need modality prefixes, ROADMAP queue 1 item 22.
+Holds the reference's ten LM configs, each a copy of the JAX package's
+(each file cites its source), and its four input shapes.
 """
 from __future__ import annotations
 
-from .base import ArchConfig  # noqa: F401
+from .base import ArchConfig, InputShape, INPUT_SHAPES  # noqa: F401
 from . import (deepseek_v2_lite_16b, gemma2_9b, granite_moe_1b_a400m,
-               internlm2_1_8b, mamba2_1_3b, minitron_8b, qwen1_5_4b,
-               zamba2_2_7b)
+               internlm2_1_8b, internvl2_1b, mamba2_1_3b, minitron_8b,
+               musicgen_large, qwen1_5_4b, zamba2_2_7b)
 
 _REGISTRY: dict[str, ArchConfig] = {
     m.CONFIG.name: m.CONFIG for m in (
-        minitron_8b, deepseek_v2_lite_16b, mamba2_1_3b, zamba2_2_7b,
-        granite_moe_1b_a400m, qwen1_5_4b, gemma2_9b, internlm2_1_8b)
+        minitron_8b, deepseek_v2_lite_16b, musicgen_large, mamba2_1_3b,
+        zamba2_2_7b, granite_moe_1b_a400m, internvl2_1b, qwen1_5_4b,
+        gemma2_9b, internlm2_1_8b)
 }
 
 
@@ -22,12 +23,13 @@ def get_config(name: str) -> ArchConfig:
     if name.endswith("-reduced"):
         return get_config(name[: -len("-reduced")]).reduced()
     if name not in _REGISTRY:
-        raise KeyError(f"unknown arch {name!r}; the port has "
-                       f"{sorted(_REGISTRY)} (the multimodal configs "
-                       f"internvl2-1b and musicgen-large are ROADMAP queue 1 "
-                       f"item 22)")
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 
 
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
+
+
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]

@@ -1,5 +1,6 @@
-"""Architecture config: the port's copy of the JAX package's
-``ArchConfig``, field for field and value for value.
+"""Architecture and input-shape configs: the port's copies of the JAX
+package's ``ArchConfig`` (field for field and value for value, with its
+parameter counts) and ``InputShape``, with the four named shapes.
 
 ``reduced()`` gives the CPU smoke variant (a few layers, d_model ≤ 256)
 of the same family.  The port runs ``attn_impl`` ``"naive" | "blockwise"
@@ -134,6 +135,52 @@ class ArchConfig:
                 kinds.append("dense")
         return kinds
 
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks)."""
+        d = self.d_model
+        total = self.vocab_size * d
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        for kind in self.layer_kinds():
+            if kind == "mamba":
+                di = self.d_inner
+                nh = self.ssm_heads
+                total += d * (2 * di + 2 * self.ssm_state_dim + nh)
+                total += di * d      # out proj
+                total += (di + 2 * self.ssm_state_dim) * self.conv_kernel
+            else:
+                hd = self.head_dim
+                if self.use_mla:
+                    r = self.kv_lora_rank
+                    total += d * (self.num_heads * hd) * 2  # q, o (approx)
+                    total += d * (r + self.rope_head_dim)
+                    total += r * self.num_heads * 2 * hd
+                else:
+                    total += d * self.num_heads * hd        # wq
+                    total += 2 * d * self.num_kv_heads * hd  # wk, wv
+                    total += self.num_heads * hd * d        # wo
+                if kind == "moe":
+                    total += (self.num_experts + self.num_shared_experts) \
+                        * 3 * d * self.moe_d_ff
+                    total += d * self.num_experts            # router
+                    if self.first_dense_layers:
+                        pass
+                else:
+                    total += 3 * d * self.d_ff
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k + shared experts only)."""
+        if not self.moe:
+            return self.param_count()
+        d = self.d_model
+        total = self.param_count()
+        # subtract inactive experts
+        inactive = self.num_experts - self.num_experts_per_tok
+        n_moe_layers = sum(k == "moe" for k in self.layer_kinds())
+        total -= n_moe_layers * inactive * 3 * d * self.moe_d_ff
+        return total
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: same family, tiny dims."""
         def shrink(v, cap):
@@ -169,3 +216,23 @@ class ArchConfig:
             hybrid_attn_every=attn_every,
             dtype="float32",
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                  # train | prefill | decode
+
+    def reduced(self, seq_len: int = 64, batch: int = 2) -> "InputShape":
+        return dataclasses.replace(self, name=self.name + "-reduced",
+                                   seq_len=seq_len, global_batch=batch)
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}

@@ -7,9 +7,11 @@ copy/induction segments, so cross-entropy has real, learnable structure.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
+
+from ..configs.base import ArchConfig
 
 
 @dataclasses.dataclass
@@ -51,10 +53,17 @@ class SyntheticLM:
             out[b] = seq
         return out
 
-    def batches(self, batch: int, seq_len: int) -> Iterator[dict]:
-        """Yields {'tokens','targets'} numpy batches (modality prefixes are
-        not ported, ROADMAP queue 1 item 22)."""
+    def batches(self, batch: int, seq_len: int,
+                cfg: Optional[ArchConfig] = None) -> Iterator[dict]:
+        """Yields {'tokens','targets'[, 'prefix']} numpy batches; a modality
+        ``cfg`` adds (batch, num_prefix_embeddings, d_model) fp32 normal
+        draws from the same generator, after the batch's tokens."""
         while True:
             seq = self.sample_batch(batch, seq_len)
             # targets[i] = tokens[i+1] (pre-shifted, same length)
-            yield {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+            item = {"tokens": seq[:, :-1], "targets": seq[:, 1:]}
+            if cfg is not None and cfg.modality:
+                item["prefix"] = self.rng.normal(
+                    size=(batch, cfg.num_prefix_embeddings,
+                          cfg.d_model)).astype(np.float32)
+            yield item

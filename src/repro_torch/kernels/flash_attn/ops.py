@@ -5,6 +5,10 @@ head-major layout and back, and picks by device: the CUDA kernel
 (:func:`.flash.flash_attention_bhsd`) on CUDA tensors, where a failure to
 build or launch raises, and the plain version (:func:`.ref.flash_ref`) on
 CPU tensors.  There is no other path.
+
+The kernel has no backward, in this package or in the JAX package: a call
+with grad mode on and an input that requires grad raises on either device
+(:func:`..refuse_grad`).
 """
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from .. import refuse_grad
 from .flash import flash_attention_bhsd
 from .ref import flash_ref
 
@@ -20,7 +25,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd[_v]) → (B, Sq, Hq, hd_v)."""
+    """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd[_v]) → (B, Sq, Hq, hd_v).
+    Forward only: raises under grad mode if an input requires grad."""
+    refuse_grad("flash_attention", q, k, v)
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()

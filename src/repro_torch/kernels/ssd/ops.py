@@ -6,6 +6,10 @@ Picks by device: the CUDA kernel (:func:`.ssd.ssd_intra_chunk`) on CUDA
 tensors, where a failure to build or launch raises, and the plain version
 (:func:`.ref.ssd_intra_chunk_ref`) on CPU tensors.  There is no other path.
 
+The kernel has no backward, in this package or in the JAX package: a call
+of :func:`ssd_chunked_fused` with grad mode on and an input that requires
+grad raises on either device (:func:`..refuse_grad`).
+
 :func:`pad_to_chunk` and :func:`inter_chunk` are shared with the plain-torch
 ``ssd_chunked``.
 """
@@ -14,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .. import refuse_grad
 from .ref import ssd_intra_chunk_ref
 from .ssd import ssd_intra_chunk
 
@@ -51,7 +56,9 @@ def inter_chunk(states, da_h, cc):
 
 def ssd_chunked_fused(x, dt, a, b_mat, c_mat, chunk: int):
     """x: (B,S,H,P); dt: (B,S,H); a: (H,); b/c: (B,S,N).
-    Returns (y (B,S,H,P) fp32, final_state (B,H,P,N))."""
+    Returns (y (B,S,H,P) fp32, final_state (B,H,P,N)).  Forward only:
+    raises under grad mode if an input requires grad."""
+    refuse_grad("ssd_chunked_fused", x, dt, a, b_mat, c_mat)
     bsz, s_orig, h, p = x.shape
     n = b_mat.shape[-1]
     x, dt, b_mat, c_mat = pad_to_chunk(

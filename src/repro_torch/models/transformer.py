@@ -1,15 +1,24 @@
-"""Decoder-only LM: the port of ``repro/models/transformer.py`` for the
-text configs (every block kind: dense, moe, local/global, mamba2 and
-zamba2's weight-tied shared attention block).
+"""Decoder-only LM: the port of ``repro/models/transformer.py`` for all ten
+configs (every block kind: dense, moe, local/global, mamba2 and zamba2's
+weight-tied shared attention block; the vision and audio configs' modality
+prefix).
 
 The parameter tree is the reference's value tree: ``{"embed",
-"final_norm", "head", "shared_block", "groups"}``, ``groups`` one list per
-layer group of per-unit-position entries, stacked along a leading repeats
-axis when the group repeats, with ``{}`` placeholders at the
-``shared_attn`` positions.  Python loops over the repeats replace
-``lax.scan``.  :func:`forward` (scoring) and :func:`prefill` pre-cast the
-weights to the compute dtype as the reference does; :func:`decode_step`
-does not, and relies on the in-block casts, as the reference.
+"final_norm", "head", "mm_proj", "shared_block", "groups"}``, ``groups``
+one list per layer group of per-unit-position entries, stacked along a
+leading repeats axis when the group repeats, with ``{}`` placeholders at
+the ``shared_attn`` positions.  Python loops over the repeats replace
+``lax.scan``.  :func:`forward` (scoring, training) and :func:`prefill`
+pre-cast the weights to the compute dtype as the reference does;
+:func:`decode_step` does not, and relies on the in-block casts, as the
+reference.  Under a gradient, :func:`forward` checkpoints each repeat of a
+repeated group (``remat``), as the reference's ``jax.checkpoint`` of its
+scan body.
+
+Multimodal (vlm/audio) configs take precomputed frontend embeddings (the
+stub frontend), projected by ``mm_proj`` and placed before the token
+embeddings by :func:`assemble_inputs`; positions run over prefix and
+tokens.
 
 Decode caches mirror the group structure; :func:`decode_step` writes the
 new token's state into the cache tensors in place (see
@@ -20,10 +29,13 @@ cache's tensor fields are stacked over a group's repeats; its other fields
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import ArchConfig
 from ..nn import layers as nl
@@ -31,6 +43,11 @@ from ..params import tree_map
 from . import blocks as B
 
 _KEEP_F32 = ("router", "norm")   # routing logits + norm scales stay fp32
+REMAT = (True, False, "dots")
+# remat="dots" keeps the outputs of plain matmuls (the projections) and
+# recomputes the rest, batched products (attention's, the experts') too:
+# the torch form of ``dots_with_no_batch_dims_saveable``
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def compute_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -43,11 +60,8 @@ def init_transformer(cfg: ArchConfig, seed: int = 0, device="cuda",
     ``seed``, in the reference's tree layout, in ``dtype`` but for the
     leaves the reference keeps fp32 (norms, the MoE router, mamba2's decay
     rates and skip).  A repeated block is drawn one repeat at a time into
-    its stacked leaves."""
-    if cfg.modality:
-        raise NotImplementedError(
-            f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
-            f"item 22)")
+    its stacked leaves.  Modality configs get ``mm_proj``, a dense
+    (d_model, d_model) projection of the prefix without bias."""
     gen = torch.Generator(device=device).manual_seed(seed)
     params: dict = {
         "embed": nl.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
@@ -58,6 +72,9 @@ def init_transformer(cfg: ArchConfig, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         params["head"] = nl.param(gen, (cfg.d_model, cfg.padded_vocab),
                                   dtype=dtype)
+    if cfg.modality:
+        params["mm_proj"] = nl.init_dense(gen, cfg.d_model, cfg.d_model,
+                                          dtype=dtype)
     if cfg.hybrid_attn_every:
         params["shared_block"] = B.init_block(gen, cfg, "shared_attn",
                                               dtype)
@@ -105,14 +122,21 @@ def _rep(tree, r: int):
     return tree_map(lambda t: t[r], tree)
 
 
-def assemble_inputs(params, cfg: ArchConfig,
-                    tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) → embeddings (B, S, D)."""
+def assemble_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
+                    prefix_embeddings: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """tokens (B, S_t) [+ prefix (B, P, D)] → embeddings (B, P + S_t, D),
+    fp32: a modality config's prefix through ``mm_proj`` in fp32, before
+    the token embeddings, the whole scaled by √d."""
+    x = _embed(params, tokens)
     if cfg.modality:
-        raise NotImplementedError(
-            f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
-            f"item 22)")
-    return _embed(params, tokens) * math.sqrt(float(cfg.d_model))
+        if prefix_embeddings is None:
+            raise ValueError(f"{cfg.name} needs frontend embeddings "
+                             f"(prefix_embeddings of (B, "
+                             f"{cfg.num_prefix_embeddings}, {cfg.d_model}))")
+        pre = nl.dense(params["mm_proj"], prefix_embeddings.float())
+        x = torch.cat([pre, x], dim=1)
+    return x * math.sqrt(float(cfg.d_model))
 
 
 def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
@@ -122,47 +146,103 @@ def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
     return nl.embed(params["embed"], tokens).float()
 
 
-def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
-    """(kind, block params) for every layer in order, weights pre-cast."""
+def _groups(params, cfg: ArchConfig, dtype: torch.dtype):
+    """(group spec, each repeat's unit of block params) for every layer
+    group in order, weights pre-cast; a ``shared_attn`` position holds the
+    shared block."""
     shared = (_cast_compute(params["shared_block"], dtype)
               if cfg.hybrid_attn_every else None)
     for gspec, gp in zip(B.layer_groups(cfg), params["groups"]):
         cast = [_cast_compute(p, dtype) if p else {} for p in gp]
-        for r in range(gspec.repeats):
-            for kind, p_blk in zip(gspec.unit, cast):
-                if kind == "shared_attn":
-                    yield kind, shared
-                else:
-                    yield kind, p_blk if gspec.repeats == 1 \
-                        else _rep(p_blk, r)
+        reps = [cast] if gspec.repeats == 1 else \
+            [[_rep(p, r) for p in cast] for r in range(gspec.repeats)]
+        yield gspec, [[shared if kind == "shared_attn" else p
+                       for kind, p in zip(gspec.unit, unit)]
+                      for unit in reps]
 
 
-def forward(params, cfg: ArchConfig, tokens: torch.Tensor):
-    """Full-sequence forward (scoring).  Returns (logits (B,S,V), aux_loss),
-    aux_loss the sum of the MoE layers' load-balance losses (fp32)."""
+def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
+    """(kind, block params) for every layer in order, weights pre-cast."""
+    for gspec, reps in _groups(params, cfg, dtype):
+        for unit in reps:
+            yield from zip(gspec.unit, unit)
+
+
+def _unit_step(cfg: ArchConfig, kinds, unit, positions, x):
+    """One repeat of a group's unit: (x, the unit's summed aux loss)."""
+    aux_sum = x.new_zeros((), dtype=torch.float32)
+    for kind, p_blk in zip(kinds, unit):
+        x, aux = B.apply_block(p_blk, cfg, kind, x, positions)
+        aux_sum = aux_sum + aux
+    return x, aux_sum
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _rematted(step, remat: Union[bool, str]):
+    """``step`` under activation checkpointing where a gradient is being
+    recorded (``remat`` True: recompute the whole unit in the backward;
+    ``"dots"``: keep the plain matmuls' outputs); as is otherwise, so a
+    forward under ``no_grad`` runs once."""
+    if not remat or not torch.is_grad_enabled():
+        return step
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, step, use_reentrant=False, **kw)
+
+
+def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix_embeddings: Optional[torch.Tensor] = None, *,
+            remat: Union[bool, str] = True):
+    """Full-sequence forward (scoring, training).  Returns (logits
+    (B, P + S, V), aux_loss), aux_loss the sum of the MoE layers'
+    load-balance losses (fp32).
+
+    ``remat`` (True | False | ``"dots"``) applies where grad mode is on:
+    each repeat of a repeated group (groups of one repeat are not) runs
+    under ``torch.utils.checkpoint``, as the reference checkpoints its scan
+    body."""
+    if remat not in REMAT:
+        raise ValueError(f"remat={remat!r} is not one of {REMAT}")
     dtype = compute_dtype(cfg)
-    x = assemble_inputs(params, cfg, tokens).to(dtype)
+    x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux_total = x.new_zeros((), dtype=torch.float32)
-    for kind, p_blk in _layers(params, cfg, dtype):
-        x, aux = B.apply_block(p_blk, cfg, kind, x, positions)
-        aux_total = aux_total + aux
+    for gspec, reps in _groups(params, cfg, dtype):
+        for unit in reps:
+            step = functools.partial(_unit_step, cfg, gspec.unit, unit,
+                                     positions)
+            if gspec.repeats > 1:
+                step = _rematted(step, remat)
+            x, aux = step(x)
+            aux_total = aux_total + aux
     x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
     return unembed(params, cfg, x), aux_total
 
 
 def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
-    """fp32 logits, softcapped and with the padded ids masked, both in
-    place (the (B, S, V) buffer is the largest of a long prefill)."""
+    """fp32 logits, softcapped and with the padded ids masked.  Without a
+    gradient both run in place (the (B, S, V) buffer is the largest of a
+    long prefill); where the logits take part in a gradient the softcap
+    runs out of place (tanh's backward reads its output), with the same
+    values."""
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = x @ params["head"].to(x.dtype)
     logits = logits.float()
-    if cfg.logit_softcap is not None:      # nl.softcap's ops, in place
-        logits.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
+    if cfg.logit_softcap is not None:      # nl.softcap's ops
+        if logits.requires_grad:
+            logits = nl.softcap(logits, cfg.logit_softcap)
+        else:
+            logits.div_(cfg.logit_softcap).tanh_().mul_(cfg.logit_softcap)
     if cfg.padded_vocab != cfg.vocab_size:
         # pad ids can never be predicted or contribute to the lse
         pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
@@ -191,13 +271,15 @@ def _rep_cache(stacked, r: int):
         name: getattr(stacked, name)[r] for name in _tensor_fields(stacked)})
 
 
-def prefill(params, cfg: ArchConfig, tokens: torch.Tensor, *, max_len: int,
-            long_context: bool = False):
-    """Run the prompt through the stack, materializing decode caches (at
-    ``long_context``, ring caches on gemma2's local layers).  Returns
-    (logits (B,S,V), caches)."""
+def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
+            prefix_embeddings: Optional[torch.Tensor] = None, *,
+            max_len: int, long_context: bool = False):
+    """Run the prompt (behind a modality config's prefix) through the
+    stack, materializing decode caches (at ``long_context``, ring caches on
+    gemma2's local layers).  Returns (logits (B, P + S, V), caches), the
+    caches' length P + S."""
     dtype = compute_dtype(cfg)
-    x = assemble_inputs(params, cfg, tokens).to(dtype)
+    x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     layers = _layers(params, cfg, dtype)

@@ -21,8 +21,8 @@ def make_serve_fns(cfg: ArchConfig, *, long_context: bool = False):
     """(prefill_fn, decode_fn) closures over ``cfg``; ``long_context`` puts
     gemma2's local layers on the O(window) ring cache."""
 
-    def prefill_fn(params, tokens, *, max_len: int):
-        return T.prefill(params, cfg, tokens, max_len=max_len,
+    def prefill_fn(params, tokens, prefix=None, *, max_len: int):
+        return T.prefill(params, cfg, tokens, prefix, max_len=max_len,
                          long_context=long_context)
 
     def decode_fn(params, token, caches):
@@ -39,20 +39,21 @@ class GenerationResult:
 
 @torch.no_grad()
 def generate(params, cfg: ArchConfig, prompt, n_steps: int, *,
-             temperature: float = 0.0, seed: int = 0,
+             prefix=None, temperature: float = 0.0, seed: int = 0,
              max_len: Optional[int] = None, long_context: bool = False,
              device="cuda") -> GenerationResult:
     """Greedy / temperature sampling for a batch of prompts (B, S) on
-    ``device``, where ``params`` must lie."""
-    if cfg.modality:
-        raise NotImplementedError(
-            f"{cfg.name}: modality prefixes are not ported (ROADMAP queue 1 "
-            f"item 22)")
+    ``device``, where ``params`` must lie; a modality config's prompts go
+    behind ``prefix`` (B, P, D), whose P positions the caches hold too.
+    Returns the prompts and the new tokens (not the prefix)."""
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
+    if prefix is not None:
+        prefix = torch.as_tensor(np.asarray(prefix), device=device)
     b, s = prompt.shape
-    max_len = max_len or (s + n_steps)
+    off = cfg.num_prefix_embeddings if cfg.modality else 0
+    max_len = max_len or (s + n_steps + off)
     prefill_fn, decode_fn = make_serve_fns(cfg, long_context=long_context)
-    logits, caches = prefill_fn(params, prompt, max_len=max_len)
+    logits, caches = prefill_fn(params, prompt, prefix, max_len=max_len)
     gen = torch.Generator(device=device).manual_seed(seed)
     last = logits[:, -1]
     out = [prompt.cpu().numpy()]

@@ -25,8 +25,10 @@ from repro_torch.configs import get_config
 from repro_torch.data import SyntheticLM
 from repro_torch.models import blocks as TB
 from repro_torch.models import transformer as TT
+from repro_torch.optim import adamw
 from repro_torch.params import from_numpy_tree, to_numpy_tree, tree_leaves
 from repro_torch.serve import generate
+from repro_torch.train import make_train_step
 
 IMPLS = [("flash", "fused"), ("naive", "jnp")]
 RTOL = 1e-4
@@ -75,8 +77,9 @@ def test_unported_options_raise():
         "blockwise"
     with pytest.raises(ValueError, match="attn_impl='ring'"):
         dataclasses.replace(cfg, attn_impl="ring")
-    with pytest.raises(KeyError, match="item 22"):
-        get_config("internvl2-1b")
+    with pytest.raises(NotImplementedError, match="item 25a"):
+        make_train_step(get_config("internvl2-1b"), adamw(1e-3),
+                        sharder=object())
 
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "zamba2-2.7b-reduced"])
