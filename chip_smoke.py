@@ -329,14 +329,36 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               ``attn_impl="flash"`` and on ``ssm_impl="fused"`` raises, so
               does a grad-enabled call of either wrapper on the card, and
               neither kernel launches.
+28. shard   — the LM's NeutronTP sharding (``repro_torch.sharding``) on
+              ``make_host_mesh(model=1, data=1)`` over a fresh NCCL group
+              of one rank.  Scoring: Zamba2-2.7B at full width,
+              ``forward(shard=ExplicitSharder(...))`` on phase 17's 2 ×
+              2048 tokens under no_grad beside the unsharded forward — 9
+              flash and 45 SSD launches in the sharded run (counts zeroed
+              just before it), the logits equal (bitwise, else the
+              difference printed and held within 1e-5·max|ref|), the
+              ledger's calls the schedule at N = 1 (4 all-to-alls an
+              attention layer, 3 and 2 all-gathers a mamba layer, the
+              parameter gathers of ``param_spec``) with no wire bytes; both
+              forwards timed, the sharded one profiled.  Training:
+              Granite-MoE-1B-A400M, phase 27's configuration, through
+              ``sharded_setup(..., ShardingRules("neutron_tp"))`` at batch
+              4: step 0 under deterministic algorithms within 1e-5
+              relative of the unsharded step on the same batch, 3 timed
+              steps, 0 kernel launches, one step audited
+              (``analysis/audit.py``, clean: the checkpoint's reruns are
+              the ledger's recomputed calls) and one profiled; step ms,
+              busy, idle share, peak memory.
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the flash kernel at Zamba2's shape,
 gemma2's global and local layers', MLA's, InternVL2-1B's and
-MusicGen-large's, the SSD kernel at Zamba2's and Mamba2-1.3B's, each with
-its path's launches (each flash shape's its own case's count from the
-main-path runs).
+MusicGen-large's, the fp32 (FMA) flash kernel at the fp32 cross-checks'
+(1, 32, 512, 80) with SDPA fp32 as its yardstick, the SSD kernel at
+Zamba2's and Mamba2-1.3B's, and flash and SSD again on phase 28's sharded
+scoring path, each with its path's launches (each flash shape's its own
+case's count from the main-path runs).
 In it, ``ms_by`` says how each row's ``ms`` and ``library_ms``
 were timed: ``"profiler"`` (device time from ``torch.profiler``) or
 ``"events"`` (CUDA events over back-to-back calls); ``plain_ms`` and the
@@ -2335,20 +2357,20 @@ def serve(dev):
     cfg, params, n_params = _lm_model("zamba2-2.7b", dev)
     batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
     _, info = _serve_cell(cfg, params, batch["tokens"], dev)
-    print("[17/27] LM main path, scoring: forward + lm_loss")
+    print("[17/28] LM main path, scoring: forward + lm_loss")
     score_info = _score_cell(cfg, params, batch, dev, plain_twin=True)
     return cfg, params, batch, {"params": n_params, **info}, score_info
 
 
 def cross_check_fp32(cfg, params, prompt, targets, dev, *,
-                     long_contexts=(False,)) -> float:
+                     long_contexts=(False,)) -> tuple:
     """The kernel path against the same path with both plain versions
     patched in, on the card, in fp32: ``generate`` of ``prompt`` +
     ``LM_XCHECK_STEPS`` greedy steps at each of ``long_contexts`` — prefill
     logits within 1e-4·max|ref|, identical tokens — and the scoring loss
     within 1e-5 relative.  The kernel path must launch the kernels (fp32:
     the FMA flash kernel) and the plain one none.  Returns the largest
-    logits max|Δ|."""
+    logits max|Δ| and the FMA flash launches the kernel path counted."""
     import dataclasses
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd as fl
@@ -2395,7 +2417,7 @@ def cross_check_fp32(cfg, params, prompt, targets, dev, *,
     if rel > 1e-5:
         raise AssertionError(f"{cfg.name} fp32 scoring loss differs by "
                              f"{rel:.2e}")
-    return err
+    return err, ran_k[0]
 
 
 def _flash_bound(b, hq, hkv, s, hd, hdv, window) -> dict:
@@ -2504,6 +2526,46 @@ def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
     return row
 
 
+def _flash_fp32_row(gen, dev, b, hq, hkv, s, hd) -> dict:
+    """The fp32 flash kernel (``flash_attention.cu``, FMA) at the shape the
+    fp32 cross-checks launch it at (phase 18: Zamba2's (1, 32, 512, 80)),
+    held against the plain version, timed (CUDA events, two runs) beside
+    the plain version and fp32 SDPA; its bound from ``_flash_bound``'s
+    FLOP count at the fp32 non-tensor peak and its fp32 bytes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
+    q, k, v = (torch.randn(b, h, s, hd, generator=gen, device=dev)
+               for h in (hq, hkv, hkv))
+    name = f"flash fp32 ({b},{hq},{s},{hd}) g={hq // hkv}"
+    got = flash_attention_bhsd(q, k, v)
+    err = _held(f"{name} causal vs plain", got, flash_ref(q, k, v))
+    lib_err = _held(f"  SDPA fp32 vs kernel", F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), got, KERNEL_TOL)
+    bd = _flash_bound(b, hq, hkv, s, hd, hd, None)
+    nbytes = 2 * bd["bytes"]                  # fp32: 4 bytes an element
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = bd["bound_fp32_ms"]
+    k_ms = _time_ms(lambda: flash_attention_bhsd(q, k, v), 20)
+    p_ms = _time_ms(lambda: flash_ref(q, k, v), 5)
+    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True), 20)
+    k_ms2 = _time_ms(lambda: flash_attention_bhsd(q, k, v), 20)
+    row = dict(shape=[b, hq, hkv, s, hd, hd], ms=min(k_ms, k_ms2),
+               ms_runs=[k_ms, k_ms2], plain_ms=p_ms, library_ms=l_ms,
+               library="SDPA fp32", max_abs_err=err, library_err=lib_err,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bytes=nbytes, flops=bd["flops"], t_bytes_ms=t_bytes)
+    print(f"  {name}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, plain "
+          f"{p_ms:.4f} ms, SDPA fp32 {l_ms:.4f} ms; bound "
+          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
+          f"({bd['flops'] / 1e9:.3f} GFLOP at the fp32 non-tensor peak "
+          f"{PEAK_FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {t_ops:.4f} ms; "
+          f"{nbytes / 1e6:.1f} MB, {t_bytes:.4f} ms)")
+    return row
+
+
 def _ssd_row(gen, dev, bsz, s, h, p, n, qc) -> dict:
     """One SSD launch at a path's shape held against the plain version,
     device time (``torch.profiler``, two runs) with its CUDA-event time
@@ -2557,6 +2619,7 @@ def lm_timing(dev):
     # the modality configs' prefills: 256 + 2048 and 64 + 2048 positions
     rows["flash_internvl2"] = _flash_row(gen, dev, 2, 14, 2, 2304, 64, 64)
     rows["flash_musicgen"] = _flash_row(gen, dev, 2, 32, 32, 2112, 64, 64)
+    rows["flash_fp32"] = _flash_fp32_row(gen, dev, 1, 32, 32, 512, 80)
     rows["ssd"] = _ssd_row(gen, dev, 2, 2048, 80, 64, 64, 256)
     rows["ssd_n128"] = _ssd_row(gen, dev, 2, 2048, 64, 64, 128, 256)
     return rows
@@ -2667,22 +2730,24 @@ LM_XCHECKS = (
 def lm_cross_checks(dev) -> dict:
     """Phase 25: the fp32 kernels-vs-plain cross-check (phase 18's) on the
     new configs, under deterministic algorithms (MoE's ``index_add_`` and
-    ``index_put_`` then sum in a fixed order)."""
+    ``index_put_`` then sum in a fixed order).  Returns each config's
+    logits max|Δ| and the FMA flash launches counted."""
     from repro_torch.data import SyntheticLM
-    out = {}
+    out, launches = {}, 0
     with _deterministic("phase 25"):
         for arch, over, s, lcs in LM_XCHECKS:
             cfg, params, _ = _lm_model(arch, dev, **over)
             batch = next(SyntheticLM(cfg.vocab_size, seed=1).batches(1, s))
             torch.cuda.reset_peak_memory_stats()
-            out[cfg.name] = cross_check_fp32(
+            out[cfg.name], n = cross_check_fp32(
                 cfg, params, batch["tokens"], batch["targets"], dev,
                 long_contexts=lcs)
+            launches += n
             print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
                   f" GiB")
             del params
             _lm_free()
-    return out
+    return out, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3055,6 +3120,252 @@ def lm_train(dev, card: str) -> dict:
         out["xcheck"] = {arch: _train_xcheck(arch, dev)
                          for arch in TRAIN_ARCHS}
     _guard_on_card(dev)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The sharded LM on a (data=1, model=1) mesh (phase 28)
+# ---------------------------------------------------------------------------
+
+SHARD_TRAIN_ARCH = "granite-moe-1b-a400m"
+SHARD_TRAIN_BATCH = 4       # half phase 27's 8: the gathered weights' room
+SHARD_TRAIN_STEPS = 3       # timed, after step 0 (the warm-up)
+SHARD_RTOL = 1e-5           # step 0's loss against the unsharded step's
+                            # and each gradient leaf's ‖Δ‖/‖ref‖
+
+
+def _gather_calls(cfg, sharder) -> int:
+    """``param_gather`` calls of one forward under ``sharder``: each
+    leaf's gather at use, one call per mesh axis it drops, for the
+    embedding, final norm, head and prefix projection once and each
+    block's leaves at each use (the shared block at each of its uses)."""
+    from repro_torch.models import blocks as B
+    from repro_torch.sharding.specs import _axes_of
+    specs = sharder.param_specs(cfg)
+
+    def calls(tree):
+        if isinstance(tree, dict):
+            return sum(calls(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(calls(v) for v in tree)
+        return len(_axes_of(tree.spec)) - len(_axes_of(tree.use))
+    n = sum(calls(specs[k]) for k in ("embed", "final_norm", "head",
+                                      "mm_proj") if k in specs)
+    for g, gs in zip(B.layer_groups(cfg), specs["groups"]):
+        for kind, sp in zip(g.unit, gs):
+            n += g.repeats * calls(specs["shared_block"]
+                                   if kind == "shared_attn" else sp)
+    return n
+
+
+def _sharded_scoring(dev, mesh, card: str) -> dict:
+    """Zamba2-2.7B at full width, bf16 compute: ``forward(shard=
+    ExplicitSharder)`` on phase 17's 2 × 2048 tokens under no_grad (the
+    explicit paths decline at a model axis of 1, so the plain transitions
+    run: all-to-alls and all-gathers over groups of one rank) beside the
+    unsharded forward: 9 flash and 45 SSD launches in the sharded run,
+    the logits equal (bitwise, or within 1e-5·max|ref| with the
+    difference printed), the ledger equal to the schedule at N = 1."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.sharding import ExplicitSharder, ShardingRules
+    from repro_torch.sharding.specs import place_params
+    cfg, params, _ = _lm_model("zamba2-2.7b", dev)
+    batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
+    tokens = torch.as_tensor(batch["tokens"], device=dev)
+    targets = torch.as_tensor(batch["targets"], device=dev)
+    sharder = ExplicitSharder(mesh, ShardingRules("neutron_tp"))
+    shards = place_params(params, cfg, sharder)
+    n_attn, n_mamba = _attn_layers(cfg), cfg.layer_kinds().count("mamba")
+    with torch.no_grad(), _deterministic("phase 28 scoring"):
+        want, _ = T.forward(params, cfg, tokens)
+        _zero_lm_counts()
+        with collect_comm() as ledger:
+            got, _ = T.forward(shards, cfg, tokens, shard=sharder)
+        counts = _read_lm_counts()
+        _expect("sharded scoring launches (flash, ssd)", counts,
+                (n_attn, n_mamba))
+        diff = (got - want).abs().max().item()
+        bitwise = torch.equal(got, want)
+        print(f"  sharded scoring logits {tuple(got.shape)} against the "
+              f"unsharded forward's: "
+              + ("bitwise equal" if bitwise else
+                 f"max|Δ| {diff:.3e} (max|ref| "
+                 f"{want.abs().max().item():.3e})"))
+        _held("sharded scoring logits vs unsharded", got, want, KERNEL_TOL,
+              0.0)
+        loss = T.lm_loss(got, targets).item()
+        del got, want
+    with torch.no_grad():
+        led = ledger.as_dict()
+        print(f"  ledger of the sharded scoring forward: {json.dumps(led)}")
+        sched = {"all_to_all|model": 4 * n_attn + 3 * n_mamba,
+                 "all_gather|model": 2 * n_mamba,
+                 "param_gather": _gather_calls(cfg, sharder)}
+        have = {k: sum(e["calls"] for key, e in led.items()
+                       if key.startswith(k)) for k in sched}
+        _expect("sharded scoring ledger calls (the schedule at N = 1: q, "
+                "k, v and the output a layer; xh, dt and y, and B and C "
+                "gathered, a mamba layer; the parameter gathers)", have,
+                sched)
+        if any(e["wire_bytes"] or e["mirrored_calls"] for e in led.values()):
+            raise AssertionError("wire bytes or backward calls at N = 1 "
+                                 "under no_grad")
+        ms = {}
+        for name, fn in (("unsharded", lambda: T.forward(params, cfg,
+                                                          tokens)),
+                         ("sharded", lambda: T.forward(
+                             shards, cfg, tokens, shard=sharder))):
+            runs = []
+            for _ in range(LM_RUNS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()[0].sum().item()
+                runs.append((time.perf_counter() - t) * 1e3)
+            ms[name] = runs
+        torch.cuda.reset_peak_memory_stats()
+        prof = _profile(lambda: T.forward(shards, cfg, tokens,
+                                          shard=sharder)[0].sum().item(),
+                        "sharded scoring forward")
+        peak = torch.cuda.max_memory_allocated()
+    print(f"  scoring loss {loss:.6f}; forward ms unsharded "
+          f"{statistics.median(ms['unsharded']):.2f} "
+          f"({ms['unsharded']}), sharded "
+          f"{statistics.median(ms['sharded']):.2f} ({ms['sharded']}); "
+          f"peak memory {peak / 2**30:.2f} GiB; {card}")
+    del params, shards
+    _lm_free()
+    return {"launches": {"flash": counts[0], "ssd": counts[1]},
+            "bitwise": bitwise, "max_abs_diff": diff, "loss": loss,
+            "ledger": led, "ms": ms, "profile": prof, "peak_bytes": peak}
+
+
+def grads_held(name: str, got, want, rtol: float = SHARD_RTOL) -> float:
+    """Hold every leaf of the gradient tree ``got`` to ``want``'s within
+    ‖Δ‖ ≤ rtol·‖want‖ (‖Δ‖ ≤ rtol where ``want``'s leaf is zero); returns
+    the largest ‖Δ‖/‖want‖."""
+    from repro_torch.params import tree_leaves
+    worst, at = 0.0, None
+    for i, (g, w) in enumerate(zip(tree_leaves(got), tree_leaves(want),
+                                   strict=True)):
+        d = (g.float() - w.float()).norm().item()
+        n = w.float().norm().item()
+        rel = d / n if n else d
+        if rel >= worst:
+            worst, at = rel, i
+    ok = worst <= rtol
+    print(f"  {name}: every gradient leaf, largest ‖Δ‖/‖ref‖ {worst:.2e} "
+          f"(leaf {at})  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: gradient leaf {at} differs by "
+                             f"{worst:.2e}")
+    return worst
+
+
+def _sharded_training(dev, mesh, card: str) -> dict:
+    """Granite-MoE-1B-A400M at full width and depth, phase 27's
+    configuration (naive attention, bf16 compute over fp32 parameters,
+    4096 tokens), through ``sharded_setup(..., ShardingRules(
+    "neutron_tp"))`` at batch ``SHARD_TRAIN_BATCH``: step 0 (under
+    deterministic algorithms) against the unsharded step on the same batch
+    within ``SHARD_RTOL``, and its gradients (each rank's shards reduced
+    and gathered) leaf for leaf against the unsharded ones within the same
+    relative bound, ``SHARD_TRAIN_STEPS`` timed steps, no kernel
+    launch, one audited step (clean), one profiled step, peak memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.sharding.specs import gather_params, place_params
+    from repro_torch.train import (init_sharded_state, make_grad_fn,
+                                   sharded_setup)
+    cfg = get_config(SHARD_TRAIN_ARCH)
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=SHARD_TRAIN_BATCH)
+    setup = sharded_setup(cfg, shape, mesh, ShardingRules("neutron_tp"),
+                          lr=TRAIN_LR)
+    params = init_transformer(cfg, seed=0, device=dev)
+    data = SyntheticLM(cfg.vocab_size, seed=0).batches(
+        SHARD_TRAIN_BATCH, shape.seq_len, cfg)
+    batches = [next(data) for _ in range(SHARD_TRAIN_STEPS + 3)]
+    _zero_lm_counts()
+    sharder = setup["sharder"]
+    with _deterministic("phase 28 step 0"):
+        want_g, (_, want, _) = make_grad_fn(cfg)(params, batches[0])
+        want = want.item()
+        got_g = gather_params(make_grad_fn(cfg, sharder)(
+            place_params(params, cfg, sharder), batches[0])[0], cfg, sharder)
+        grad_rel = grads_held("step 0 gradients, sharded vs unsharded",
+                              got_g, want_g)
+        del got_g, want_g
+        _lm_free()
+        state = init_sharded_state(params, cfg, setup["optimizer"],
+                                   sharder)
+        del params
+        _lm_free()
+        torch.cuda.reset_peak_memory_stats()
+        state, m = setup["train_step"](state, batches[0])
+        got = m["loss"].item()
+    rel = abs(got - want) / abs(want)
+    print(f"  step 0 loss sharded {got:.7f}, unsharded {want:.7f}: relative "
+          f"|Δ| {rel:.2e}  {'ok' if rel <= SHARD_RTOL else 'FAIL'}")
+    if rel > SHARD_RTOL:
+        raise AssertionError(f"sharded step 0 differs by {rel:.2e}")
+    losses, ms = [got], []
+    for b in batches[1:SHARD_TRAIN_STEPS + 1]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = setup["train_step"](state, b)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t) * 1e3)
+    _expect("sharded training launches (flash, ssd)", _read_lm_counts(),
+            (0, 0))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"sharded training losses {losses}")
+    holder = [state]
+
+    def one_step(b):
+        holder[0], m = setup["train_step"](holder[0], b)
+        return m["loss"].item()
+    ledger, _ = _audited_step("phase 28 sharded train step", one_step,
+                              batches[-2])
+    prof = _profile(lambda: one_step(batches[-1]), "sharded train step")
+    peak = torch.cuda.max_memory_allocated()
+    med = statistics.median(ms)
+    print(f"  losses {[round(v, 4) for v in losses]}; step {med:.2f} ms "
+          f"(median of {[round(v, 2) for v in ms]}); "
+          f"{SHARD_TRAIN_BATCH * shape.seq_len / (med / 1e3):.0f} tokens/s; "
+          f"peak memory {peak / 2**30:.2f} GiB; {card}")
+    del state, holder
+    _lm_free()
+    return {"batch": SHARD_TRAIN_BATCH, "loss_step0": got,
+            "loss_unsharded": want, "rel": rel, "grad_rel": grad_rel,
+            "losses": losses,
+            "step_ms": med, "step_ms_runs": ms, "peak_bytes": peak,
+            "profile": prof, "ledger": ledger.as_dict()}
+
+
+def sharded_lm(dev, card: str) -> dict:
+    """Phase 28: the LM's NeutronTP sharding on a (data=1, model=1) mesh
+    of one NCCL rank — Zamba2's sharded scoring forward (both kernels),
+    then Granite-MoE's sharded training step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        out = {"scoring": _sharded_scoring(dev, mesh, card)}
+        out["training"] = _sharded_training(dev, mesh, card)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 28 took {out['seconds']:.1f} s")
     return out
 
 
@@ -3540,7 +3851,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
 
     t_start = time.perf_counter()
-    print("[1/27] device")
+    print("[1/28] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3558,96 +3869,101 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    print("[2/27] build")
+    print("[2/28] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/27] spmm kernel against its plain version")
+    print("[3/28] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/27] flash kernel against its plain version")
+    print("[4/28] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/27] ssd kernel against its plain version")
+    print("[5/28] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/27] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/28] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/27] naive TP GCN training (a split and a gather per "
+        print("[7/28] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/27] DP halo-exchange GCN training (k=1)")
+        print("[8/28] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/27] out-of-core streamed GCN training (pinned host "
+        print("[9/28] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/27] GAT decoupled-pipelined TP training (the score "
+        print("[10/28] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/27] GAT naive TP training")
+        print("[11/28] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/27] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/28] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/27] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/28] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/27] the constraint engine backend (DTensor, "
+        print("[14/28] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/27] spmm timing at the GCN paths' shapes")
+        print("[15/28] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/27] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/28] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info, score_info = serve(dev)
-    print("[18/27] fp32 cross-check at full width, kernels vs plain")
-    fp32_err = cross_check_fp32(cfg, params, batch["tokens"][:1, :512],
-                                batch["targets"][:1, :512], dev)
+    print("[18/28] fp32 cross-check at full width, kernels vs plain")
+    fp32_err, fp32_launches = cross_check_fp32(
+        cfg, params, batch["tokens"][:1, :512], batch["targets"][:1, :512],
+        dev)
     del params
     _lm_free()
-    print("[19/27] flash and ssd timing at the LM paths' shapes")
+    print("[19/28] flash and ssd timing at the LM paths' shapes")
     t = time.perf_counter()
     lm_rows = lm_timing(dev)
     _lm_free()
     print(f"  phase 19 took {time.perf_counter() - t:.1f} s")
-    print("[20/27] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    print("[20/28] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
-    print("[21/27] multihost: the placed bundle, the launcher under the env "
+    print("[21/28] multihost: the placed bundle, the launcher under the env "
           "contract")
     multihost_info = multihost(dev, card)
     _lm_free()
-    print("[22/27] gemma2-9b at full width and depth: generate 1 × 8192 "
+    print("[22/28] gemma2-9b at full width and depth: generate 1 × 8192 "
           "with ring caches and with dense caches, scoring")
     gemma_info = gemma2(dev)
-    print("[23/27] deepseek-v2-lite-16b at full width and depth: generate "
+    print("[23/28] deepseek-v2-lite-16b at full width and depth: generate "
           "2 × 2048 (MLA, MoE), scoring")
     deepseek_info = deepseek(dev)
-    print("[24/27] mamba2-1.3b at full width and depth: scoring, generate")
+    print("[24/28] mamba2-1.3b at full width and depth: scoring, generate")
     mamba_info = mamba2(dev)
-    print("[25/27] fp32 cross-checks of the new configs, kernels vs plain")
-    xcheck_errs = lm_cross_checks(dev)
-    print("[26/27] InternVL2-1B and MusicGen-large at full width and depth: "
+    print("[25/28] fp32 cross-checks of the new configs, kernels vs plain")
+    xcheck_errs, xcheck_launches = lm_cross_checks(dev)
+    print("[26/28] InternVL2-1B and MusicGen-large at full width and depth: "
           "generate 2 × 2048 behind the prefix, scoring")
     mm_info = multimodal(dev)
-    print("[27/27] LM training at full width and depth: InternVL2-1B and "
+    print("[27/28] LM training at full width and depth: InternVL2-1B and "
           "Granite-MoE-1B-A400M, the fp32 cross-checks, the kernels' "
           "refusals")
     t = time.perf_counter()
     train_info = lm_train(dev, card)
     print(f"  phase 27 took {time.perf_counter() - t:.1f} s")
+    print("[28/28] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
+          "Zamba2-2.7B's sharded scoring (flash, SSD), Granite-MoE's "
+          "sharded training step")
+    shard_info = sharded_lm(dev, card)
     script_s = time.perf_counter() - t_start
-    print(f"  phases 1–27 took {script_s:.1f} s")
+    print(f"  phases 1–28 took {script_s:.1f} s")
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -3665,6 +3981,7 @@ def main() -> int:
                       "mamba2": mamba_info,
                       "fp32_xcheck_logits_err": xcheck_errs,
                       "multimodal": mm_info, "lm_train": train_info,
+                      "sharded_lm": shard_info,
                       "script_s": script_s, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
@@ -3745,7 +4062,39 @@ def main() -> int:
         "max_abs_err": max(ssd_err, lm_rows["ssd_n128"]["max_abs_err"]),
         **{k: lm_rows["ssd_n128"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "event_ms")}, "ms_by": "profiler"}]}))
+            "event_ms")}, "ms_by": "profiler"}, {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+        "held_against": "ref.flash_ref", "variant": "fma_fp32",
+        "shape": lm_rows["flash_fp32"]["shape"],
+        "path": "fp32 cross-checks (phases 18, 25)",
+        "launches": fp32_launches + xcheck_launches,
+        "max_abs_err": max(flash_err, lm_rows["flash_fp32"]["max_abs_err"]),
+        **{k: lm_rows["flash_fp32"][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "library": "SDPA fp32", "ms_by": "events"}, {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                  "flash_attention_mma.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+        "held_against": "ref.flash_ref", "shape": fl["shape"],
+        "path": "zamba2-2.7b sharded scoring (phase 28, mesh 1×1)",
+        "launches": shard_info["scoring"]["launches"]["flash"],
+        "max_abs_err": max(flash_err, fl["max_abs_err"]),
+        **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}, "ms_by": "events"}, {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:61",
+        "held_against": "ref.ssd_intra_chunk_ref", "shape": sd["shape"],
+        "path": "zamba2-2.7b sharded scoring (phase 28, mesh 1×1)",
+        "launches": shard_info["scoring"]["launches"]["ssd"],
+        "max_abs_err": max(ssd_err, sd["max_abs_err"]),
+        **{k: sd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "event_ms")},
+        "ms_by": "profiler"}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,300 @@
+#!/usr/bin/env python3
+"""The LM's NeutronTP sharding on N GPUs of one machine, one process a card
+over NCCL, on the mesh (data=1, model=N): what ``chip_smoke.py``'s phase
+28 on one card cannot reach — the explicit sharder's all-to-alls, ring
+attention and expert-parallel MoE with wire bytes.
+
+    scripts/launch_multihost_torch.sh -n 4 -t 900 -- \\
+        python3 scripts/torch_lm_sharded_nccl.py [--out FILE]
+
+Every process joins through the env contract
+(``runtime/distributed.py::initialize``) and runs, under
+``ExplicitSharder(make_host_mesh(model=N), ShardingRules())``:
+
+* **cross-checks** in fp32 at full width cut in depth, on 1 × 512 tokens
+  (behind the prefix): Granite-MoE-1B-A400M at 2 layers (16/8 heads: the
+  kv all-to-all; 32 experts: ``ep_moe``, at a capacity factor E/k that
+  drops nothing) and InternVL2-1B at 2 layers (14 heads: ring attention),
+  the first step's gradients (the shards reduced and gathered) leaf for
+  leaf within ‖Δ‖ ≤ 1e-5·‖ref‖ and two AdamW steps' losses within 1e-5
+  relative, against the unsharded ones on the rank's own card; Zamba2-2.7B at 6 layers (5 mamba2 + the
+  shared attention block, flash and SSD on the local heads) scoring
+  logits against the unsharded forward within 1e-5·max|ref|;
+* **training** at full width and depth, phase 27's configurations
+  (naive attention, bf16 compute over fp32 parameters, 4096 tokens):
+  Granite-MoE at batch 8 and InternVL2-1B at batch 4 (phase 27's one-card
+  batches), 1 warm-up + 3 timed steps, the median step, one step's ledger
+  (wire bytes a rank, forward + backward + recompute) and, for Granite,
+  one step audited (``analysis/audit.py``, clean);
+* **scoring** Zamba2-2.7B at full width, 2 × 2048 tokens: 9 flash and 45
+  SSD launches a rank (flash on (2, 2048, 8, 80), SSD on 20 heads), the
+  median forward;
+* on rank 0, the flash and SSD kernels at those local shapes (phase 19's
+  timing rows: the kernel, its plain version, the library call, the
+  bound).
+
+Rank 0 prints the card's name and power limit and one JSON line, and
+writes ``--out``.  Exits non-zero if a hold fails.  ``--device cpu
+--small`` runs the same on gloo processes at reduced sizes, untimed (a
+rehearsal on the host).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+RTOL = 1e-5
+LR = 3e-4
+STEPS = 3
+TRAIN = (("granite-moe-1b-a400m", 8), ("internvl2-1b", 4))
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _cfg(arch, small, **over):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch + ("-reduced" if small
+                                                  else "")), **over)
+
+
+def _sharder(mesh):
+    from repro_torch.sharding import ExplicitSharder, ShardingRules
+    return ExplicitSharder(mesh, ShardingRules("neutron_tp"))
+
+
+def _steps(cfg, sharder, params, batches):
+    """Losses of ``batches`` through the unsharded (``sharder`` None) or
+    the sharded AdamW step from ``params``."""
+    from repro_torch.optim import adamw
+    from repro_torch.params import tree_map
+    from repro_torch.train import (init_sharded_state, init_train_state,
+                                   make_train_step)
+    opt = adamw(LR)
+    state = init_train_state(tree_map(torch.clone, params), opt) \
+        if sharder is None else init_sharded_state(params, cfg, opt, sharder)
+    step = make_train_step(cfg, opt, sharder)
+    out = []
+    for b in batches:
+        state, m = step(state, b)
+        out.append(m["loss"].item())
+    return out
+
+
+def xcheck_training(arch, mesh, dev, small) -> dict:
+    import chip_smoke as cs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.sharding.specs import gather_params, place_params
+    from repro_torch.train import make_grad_fn
+    cfg = _cfg(arch, small, num_layers=2, dtype="float32")
+    if cfg.moe:
+        cfg = dataclasses.replace(cfg, moe_capacity_factor=float(
+            cfg.num_experts // cfg.num_experts_per_tok))
+    params = init_transformer(cfg, seed=0, device=dev)
+    data = SyntheticLM(cfg.vocab_size, seed=1).batches(
+        1, 64 if small else 512, cfg)
+    batches = [next(data) for _ in range(2)]
+    sharder = _sharder(mesh)
+    # the first step's gradients, each rank's shards reduced and gathered
+    grad_rel = cs.grads_held(
+        f"{arch} fp32 gradients", gather_params(make_grad_fn(cfg, sharder)(
+            place_params(params, cfg, sharder), batches[0])[0], cfg,
+            sharder), make_grad_fn(cfg)(params, batches[0])[0], RTOL)
+    want = _steps(cfg, None, params, batches)
+    got = _steps(cfg, sharder, params, batches)
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    if rel > RTOL:
+        raise AssertionError(f"{arch} fp32 cross-check: sharded {got}, "
+                             f"unsharded {want}: {rel:.2e}")
+    return {"sharded": got, "unsharded": want, "rel": rel,
+            "grad_rel": grad_rel}
+
+
+def xcheck_scoring(mesh, dev, small) -> dict:
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.sharding.specs import place_params
+    cfg = _cfg("zamba2-2.7b", small, num_layers=6, dtype="float32",
+               attn_impl="flash", ssm_impl="fused")
+    params = T.init_transformer(cfg, seed=0, device=dev)
+    tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=1)
+                                  .batches(1, 64 if small else 512))
+                             ["tokens"], device=dev)
+    sharder = _sharder(mesh)
+    with torch.no_grad():
+        want = T.forward(params, cfg, tokens)[0]
+        got, _ = T.forward(place_params(params, cfg, sharder), cfg, tokens,
+                           shard=sharder)
+        got = sharder.bound(*tokens.shape).unshard(got)
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > RTOL * scale:
+        raise AssertionError(f"zamba2 6-layer fp32 scoring: max|Δ| {err} "
+                             f"of max|ref| {scale}")
+    return {"max_abs_diff": err, "max_abs_ref": scale}
+
+
+def train_cell(arch, batch, mesh, dev, small, audited) -> dict:
+    from repro_torch.analysis import audit
+    from repro_torch.configs import get_shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.train import init_sharded_state, make_train_step
+    cfg = _cfg(arch, small)
+    seq = 64 if small else get_shape("train_4k").seq_len
+    sharder = _sharder(mesh)
+    opt = adamw(LR)
+    state = init_sharded_state(init_transformer(cfg, seed=0, device=dev),
+                               cfg, opt, sharder)
+    step = make_train_step(cfg, opt, sharder)
+    data = SyntheticLM(cfg.vocab_size, seed=0).batches(batch, seq, cfg)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for _ in range(1 + STEPS):
+        b = next(data)
+        _sync(dev)
+        t = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t) * 1e3)
+    holder = [state]
+
+    def one(b):
+        holder[0], m = step(holder[0], b)
+        return m["loss"].item()
+    with collect_comm() as ledger:
+        if audited:
+            _, cen = audit.census(one, next(data))
+        else:
+            one(next(data))
+    findings = [f.format() for f in audit.audit(cen, ledger)] \
+        if audited else None
+    if findings:
+        raise AssertionError(f"{arch} audit: {findings}")
+    if not all(v == v for v in losses):
+        raise AssertionError(f"{arch} losses {losses}")
+    return {"batch": batch, "seq": seq, "losses": losses,
+            "step_ms": statistics.median(ms[1:]), "step_ms_runs": ms,
+            "wire_bytes": ledger.wire_bytes(train=True),
+            "ledger": ledger.as_dict(), "audit": findings,
+            "peak_bytes": torch.cuda.max_memory_allocated()
+            if dev.type == "cuda" else None}
+
+
+def scoring_cell(mesh, dev, small) -> dict:
+    import chip_smoke as cs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.sharding.specs import place_params
+    cfg = _cfg("zamba2-2.7b", small, attn_impl="flash", ssm_impl="fused")
+    sharder = _sharder(mesh)
+    shards = place_params(T.init_transformer(cfg, seed=0, device=dev), cfg,
+                          sharder)
+    tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=0)
+                                  .batches(2, 64 if small else 2048))
+                             ["tokens"], device=dev)
+    with torch.no_grad():
+        cs._zero_lm_counts()
+        with collect_comm() as ledger:
+            T.forward(shards, cfg, tokens, shard=sharder)[0].sum().item()
+        counts = cs._read_lm_counts()
+        want = (cs._attn_layers(cfg), cfg.layer_kinds().count("mamba"))
+        if dev.type == "cuda" and counts != want:   # the CPU runs the plain
+            raise AssertionError(f"sharded scoring launches {counts}, "
+                                 f"expected {want}")
+        ms = []
+        for _ in range(3):
+            _sync(dev)
+            t = time.perf_counter()
+            T.forward(shards, cfg, tokens, shard=sharder)[0].sum().item()
+            ms.append((time.perf_counter() - t) * 1e3)
+    return {"launches": {"flash": counts[0], "ssd": counts[1]},
+            "ms": statistics.median(ms), "ms_runs": ms,
+            "wire_bytes": ledger.wire_bytes()}
+
+
+def kernel_rows(dev, n: int) -> dict:
+    """Phase 19's rows at the sharded scoring's local shapes."""
+    import chip_smoke as cs
+    gen = torch.Generator(device=dev).manual_seed(4)
+    return {"flash": cs._flash_row(gen, dev, 2, 32 // n, 32 // n, 2048, 80,
+                                   80),
+            "ssd": cs._ssd_row(gen, dev, 2, 2048, 80 // n, 64, 64, 256)}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=str(ROOT / "build" / "lm_sharded.json"))
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--small", action="store_true")
+    args = ap.parse_args(argv)
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import distributed as RD
+    ctx = RD.initialize(device=args.device)
+    dev = torch.device(ctx.device)
+    lead = ctx.process_id == 0
+    if dev.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = {}
+    try:
+        mesh = make_host_mesh(model=ctx.num_processes, data=1)
+        n = mesh.size
+        for arch in ("granite-moe-1b-a400m", "internvl2-1b"):
+            res[f"xcheck {arch}"] = xcheck_training(arch, mesh, dev,
+                                                    args.small)
+        res["xcheck zamba2 scoring"] = xcheck_scoring(mesh, dev, args.small)
+        if lead:
+            print(f"cross-checks ok: {json.dumps(res)}", flush=True)
+        for arch, batch in TRAIN:
+            res[arch] = train_cell(arch, batch, mesh, dev, args.small,
+                                   audited=arch.startswith("granite"))
+            if lead:
+                r = res[arch]
+                print(f"{arch} batch {batch}: step {r['step_ms']:.1f} ms "
+                      f"(runs {[round(v, 1) for v in r['step_ms_runs']]}), "
+                      f"losses {[round(v, 4) for v in r['losses']]}, "
+                      f"{r['wire_bytes'] / 1e9:.3f} GB on the wire a rank "
+                      f"a step", flush=True)
+        res["zamba2 scoring"] = scoring_cell(mesh, dev, args.small)
+        if lead and dev.type == "cuda":
+            res["kernels"] = kernel_rows(dev, n)
+    finally:
+        RD.shutdown()
+    if lead:
+        if dev.type == "cuda":
+            res["card"] = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"], capture_output=True, text=True,
+                check=True).stdout.strip().splitlines()[0]
+            print(res["card"])
+        res["seconds"] = time.perf_counter() - t0
+        res["ranks"] = ctx.num_processes
+        Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.out).write_text(json.dumps(res, indent=1))
+        print(json.dumps({k: v for k, v in res.items() if k != "kernels"}
+                         , default=str)[:6000])
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,12 +28,14 @@ which walks the traced program instead:
 
 Exactness contract, as the reference's: exact for the data-moving ops —
 ``all_to_all`` (forward ``calls`` against the forward pass,
-``mirrored_calls`` against the backward one), ``all_gather`` and its
-mirror, the reduce-scatter — and one-directional for ``psum`` /
+``mirrored_calls`` against the backward one), ``all_gather`` (and the
+LM's ``param_gather``) and its mirror, the reduce-scatter, and
+``ppermute`` as a send and a receive — and one-directional for ``psum`` /
 ``grad_psum``: the ledger may not claim more all-reduces than ran, but
-all-reduces it does not record are expected (below).  Any other
-collective (broadcast, barrier, send/recv, ...) has no ledger op kind and
-is always unledgered.
+all-reduces it does not record are expected (below).  A checkpoint's
+rerun of forward collectives (``recomputed_calls``) runs in the backward
+pass.  Any other collective (broadcast, barrier, ...) has no ledger op
+kind and is always unledgered.
 
 Stated departures the audit knows about:
 
@@ -84,7 +86,7 @@ C10D_OPS = {
 }
 
 #: Census ops held exactly, both directions.
-DATA_OPS = ("all_to_all", "all_gather", "reduce_scatter")
+DATA_OPS = ("all_to_all", "all_gather", "reduce_scatter", "send", "recv")
 
 #: The profiler's dtype names → the ledger's (numpy's).
 _DTYPES = {"float": "float32", "double": "float64", "c10::Half": "float16",
@@ -212,18 +214,28 @@ def expected_from_ledger(ledger: T.CommLedger, *,
     calls} of the data ops, exact; {dtype: calls} of all-reduces,
     a lower bound).  A forward op's ``calls`` go to the forward pass, its
     ``mirrored_calls`` to the backward one under the op the mirror runs:
-    the all-to-all's is an all-to-all, the all-gather's a reduce-scatter
-    (an all-reduce on gloo).  ``h2d`` is not a collective and is
-    skipped."""
+    the all-to-all's is an all-to-all, the all-gather's (and a parameter
+    gather's) a reduce-scatter (an all-reduce on gloo), the ppermute's a
+    ppermute: a send and a receive each.  ``recomputed_calls`` (a
+    checkpoint's rerun) go to the backward pass under the forward op.
+    ``h2d`` is not a collective and is skipped."""
     gloo = _gloo() if gloo is None else gloo
     exact: dict = collections.Counter()
     reduces: dict = collections.Counter()
     for (op, _, dtype), e in ledger.entries().items():
         if op == "all_to_all":
             exact[(op, dtype, "forward")] += e.calls
-            exact[(op, dtype, "backward")] += e.mirrored_calls
-        elif op == "all_gather":
+            exact[(op, dtype, "backward")] += e.mirrored_calls \
+                + e.recomputed_calls
+        elif op == "ppermute":
+            for p2p in ("send", "recv"):
+                exact[(p2p, dtype, "forward")] += e.calls
+                exact[(p2p, dtype, "backward")] += e.mirrored_calls \
+                    + e.recomputed_calls
+        elif op in ("all_gather", "param_gather"):
+            op = "all_gather"
             exact[(op, dtype, "forward")] += e.calls
+            exact[(op, dtype, "backward")] += e.recomputed_calls
             if gloo:
                 exact[("all_reduce", dtype, "backward")] += e.mirrored_calls
             else:
@@ -232,7 +244,7 @@ def expected_from_ledger(ledger: T.CommLedger, *,
         elif op == "psum_scatter":
             exact[("reduce_scatter", dtype, "forward")] += e.calls
         elif op in ("psum", "grad_psum"):
-            reduces[dtype] += e.calls + e.mirrored_calls
+            reduces[dtype] += e.calls + e.mirrored_calls + e.recomputed_calls
     return ({k: v for k, v in exact.items() if v},
             {k: v for k, v in reduces.items() if v})
 

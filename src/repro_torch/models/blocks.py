@@ -24,6 +24,7 @@ from ..nn import attention as attn
 from ..nn import layers as nl
 from ..nn import moe as moe_lib
 from ..nn import ssm as ssm_lib
+from ..nn.shard import NoShard, no_shard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,13 +98,15 @@ def _attn_out(p: dict, cfg: ArchConfig, x, a):
     return x + a
 
 
-def _ffn(p: dict, cfg: ArchConfig, kind: str, x, *, dropless=False):
+def _ffn(p: dict, cfg: ArchConfig, kind: str, x, *, dropless=False,
+         shard: NoShard = no_shard):
     """The MLP or MoE half of a block on the residual x.  Returns (x,
     aux_loss)."""
-    h = _norm(p["mlp_norm"], x, cfg)
+    h = shard(_norm(p["mlp_norm"], x, cfg), "act_tokens")
     aux = x.new_zeros((), dtype=torch.float32)
     if kind == "moe":
-        m, aux = moe_lib.moe_apply(p["moe"], cfg, h, dropless=dropless)
+        m, aux = moe_lib.moe_apply(p["moe"], cfg, h, dropless=dropless,
+                                   shard=shard)
     else:
         m = nl.mlp(p["mlp"], h, cfg.act)
     if cfg.post_norm:
@@ -111,19 +114,23 @@ def _ffn(p: dict, cfg: ArchConfig, kind: str, x, *, dropless=False):
     return x + m, aux
 
 
-def apply_block(p: dict, cfg: ArchConfig, kind: str, x, positions):
-    """Full-sequence block application (scoring).  Returns (x, aux_loss)."""
+def apply_block(p: dict, cfg: ArchConfig, kind: str, x, positions, *,
+                shard: NoShard = no_shard):
+    """Full-sequence block application (scoring, training).  Returns (x,
+    aux_loss).  Under a sharder x is this rank's block of the token
+    layout, ``positions`` its global positions."""
     if kind == "mamba":
         return x + ssm_lib.mamba2_forward(p["mixer"], cfg,
-                                          _norm(p["norm"], x, cfg)), \
+                                          _norm(p["norm"], x, cfg),
+                                          shard=shard), \
             x.new_zeros((), dtype=torch.float32)
     h = _norm(p["attn_norm"], x, cfg)
     if cfg.use_mla:
-        a = attn.mla_attention(p["attn"], cfg, h, positions)
+        a = attn.mla_attention(p["attn"], cfg, h, positions, shard=shard)
     else:
         a = attn.gqa_attention(p["attn"], cfg, h, positions,
-                               window=_window(cfg, kind))
-    return _ffn(p, cfg, kind, _attn_out(p, cfg, x, a))
+                               window=_window(cfg, kind), shard=shard)
+    return _ffn(p, cfg, kind, _attn_out(p, cfg, x, a), shard=shard)
 
 
 def apply_block_prefill(p: dict, cfg: ArchConfig, kind: str, x, positions,

@@ -20,6 +20,12 @@ stub frontend), projected by ``mm_proj`` and placed before the token
 embeddings by :func:`assemble_inputs`; positions run over prefix and
 tokens.
 
+Under a sharder (``repro_torch.sharding``), :func:`forward` runs this
+rank's part of a (data, model) mesh's program on parameter shards: the
+token layout in, the blocks' weights gathered at use (and again in a
+checkpoint's recompute), the logits of the rank's tokens out.  Prefill and
+decode run on one card and refuse a sharder.
+
 Decode caches mirror the group structure; :func:`decode_step` writes the
 new token's state into the cache tensors in place (see
 ``nn/attention.py``) and returns caches with the advanced length.  A
@@ -35,11 +41,14 @@ from typing import Optional, Union
 
 import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from ..configs.base import ArchConfig
 from ..nn import layers as nl
+from ..nn.shard import NoShard, no_shard
 from ..params import tree_map
+from ..runtime import telemetry
 from . import blocks as B
 
 _KEEP_F32 = ("router", "norm")   # routing logits + norm scales stay fp32
@@ -61,8 +70,10 @@ def init_transformer(cfg: ArchConfig, seed: int = 0, device="cuda",
     leaves the reference keeps fp32 (norms, the MoE router, mamba2's decay
     rates and skip).  A repeated block is drawn one repeat at a time into
     its stacked leaves.  Modality configs get ``mm_proj``, a dense
-    (d_model, d_model) projection of the prefix without bias."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    (d_model, d_model) projection of the prefix without bias.  On the
+    meta device nothing is drawn: the tree's shapes and dtypes alone."""
+    gen = None if torch.device(device).type == "meta" else \
+        torch.Generator(device=device).manual_seed(seed)
     params: dict = {
         "embed": nl.init_embedding(gen, cfg.padded_vocab, cfg.d_model,
                                    dtype),
@@ -168,11 +179,29 @@ def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
             yield from zip(gspec.unit, unit)
 
 
-def _unit_step(cfg: ArchConfig, kinds, unit, positions, x):
-    """One repeat of a group's unit: (x, the unit's summed aux loss)."""
+def _sharded_groups(params, cfg: ArchConfig, dtype: torch.dtype, specs):
+    """:func:`_groups` of a tree of shards, each repeat's unit beside its
+    leaves' :class:`~repro_torch.sharding.specs.ParamSpec` (a stacked
+    leaf's without its repeats dim)."""
+    for (gspec, reps), gs in zip(_groups(params, cfg, dtype),
+                                 specs["groups"]):
+        if gspec.repeats > 1:
+            gs = [tree_map(lambda sp: sp.rep(), s) for s in gs]
+        us = [specs["shared_block"] if kind == "shared_attn" else s
+              for kind, s in zip(gspec.unit, gs)]
+        yield gspec, [(unit, us) for unit in reps]
+
+
+def _unit_step(cfg: ArchConfig, kinds, unit, positions, x, *,
+               shard: NoShard = no_shard, specs=None):
+    """One repeat of a group's unit: (x, the unit's summed aux loss).
+    Under a sharder each block's shards are gathered here, at use (and
+    again in a checkpoint's recompute)."""
     aux_sum = x.new_zeros((), dtype=torch.float32)
-    for kind, p_blk in zip(kinds, unit):
-        x, aux = B.apply_block(p_blk, cfg, kind, x, positions)
+    for i, (kind, p_blk) in enumerate(zip(kinds, unit)):
+        if specs is not None:
+            p_blk = shard.gather(p_blk, specs[i])
+        x, aux = B.apply_block(p_blk, cfg, kind, x, positions, shard=shard)
         aux_sum = aux_sum + aux
     return x, aux_sum
 
@@ -182,23 +211,40 @@ def _save_dots(ctx, op, *args, **kwargs):
         else CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _rematted(step, remat: Union[bool, str]):
+def _rematted(step, remat: Union[bool, str], sharded: bool = False):
     """``step`` under activation checkpointing where a gradient is being
     recorded (``remat`` True: recompute the whole unit in the backward;
     ``"dots"``: keep the plain matmuls' outputs); as is otherwise, so a
-    forward under ``no_grad`` runs once."""
+    forward under ``no_grad`` runs once.  ``sharded``: the recompute reruns
+    the unit's collectives, every one of them (no early stop, so every
+    rank reruns the same calls), recorded as recomputed calls into the
+    ledgers the forward saw (``telemetry.recompute_scope``)."""
     if not remat or not torch.is_grad_enabled():
         return step
     kw = {}
     if remat == "dots":
         kw["context_fn"] = functools.partial(
             create_selective_checkpoint_contexts, _save_dots)
-    return functools.partial(checkpoint, step, use_reentrant=False, **kw)
+    if not sharded:
+        return functools.partial(checkpoint, step, use_reentrant=False, **kw)
+    seen = []
+
+    def counted(x):
+        if not seen:
+            seen.append(telemetry.active_ledgers())
+            return step(x)
+        with telemetry.recompute_scope(seen[0]):
+            return step(x)
+
+    def run(x):
+        with set_checkpoint_early_stop(False):
+            return checkpoint(counted, x, use_reentrant=False, **kw)
+    return run
 
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeddings: Optional[torch.Tensor] = None, *,
-            remat: Union[bool, str] = True):
+            shard: NoShard = no_shard, remat: Union[bool, str] = True):
     """Full-sequence forward (scoring, training).  Returns (logits
     (B, P + S, V), aux_loss), aux_loss the sum of the MoE layers'
     load-balance losses (fp32).
@@ -206,25 +252,58 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     ``remat`` (True | False | ``"dots"``) applies where grad mode is on:
     each repeat of a repeated group (groups of one repeat are not) runs
     under ``torch.utils.checkpoint``, as the reference checkpoints its scan
-    body."""
+    body.
+
+    Under a :class:`~repro_torch.sharding.specs.Sharder` ``shard``,
+    ``params`` are this rank's shards (``sharding.specs.place_params``)
+    and ``tokens`` / ``prefix_embeddings`` the global batch; the logits
+    returned are this rank's block of the token layout (its batch block,
+    its sequence block, every vocab id: ``Sharder.unshard`` gathers them)
+    and aux_loss the global one: the embedding, final norm, head and
+    prefix projection gathered for the whole forward, each block's
+    weights at use; the input in the token layout at global positions
+    (prefix and tokens counted together)."""
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r} is not one of {REMAT}")
     dtype = compute_dtype(cfg)
-    x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if shard.active:
+        specs = shard.param_specs(cfg)
+        top = {k: shard.gather(params[k], specs[k]) for k in _TOP
+               if k in params}
+        tokens = torch.as_tensor(tokens, device=params["embed"].device)
+        if prefix_embeddings is not None:
+            prefix_embeddings = torch.as_tensor(prefix_embeddings,
+                                                device=tokens.device)
+        x = assemble_inputs(top, cfg, shard.take_batch(tokens),
+                            shard.take_batch(prefix_embeddings)).to(dtype)
+        shard = shard.bound(tokens.shape[0], x.shape[1])
+        x = shard(x, "act_tokens", src="act_seq")
+        positions = shard.positions(*x.shape[:2], x.device)
+        groups = _sharded_groups(params, cfg, dtype, specs)
+    else:
+        top = params
+        x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        groups = ((g, [(unit, None) for unit in reps])
+                  for g, reps in _groups(params, cfg, dtype))
     aux_total = x.new_zeros((), dtype=torch.float32)
-    for gspec, reps in _groups(params, cfg, dtype):
-        for unit in reps:
+    for gspec, reps in groups:
+        for unit, unit_specs in reps:
             step = functools.partial(_unit_step, cfg, gspec.unit, unit,
-                                     positions)
+                                     positions, shard=shard,
+                                     specs=unit_specs)
             if gspec.repeats > 1:
-                step = _rematted(step, remat)
+                step = _rematted(step, remat, shard.active)
             x, aux = step(x)
             aux_total = aux_total + aux
-    x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
+    x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(params, cfg, x), aux_total
+    return unembed(top, cfg, x), aux_total
+
+
+# gathered whole for the whole sharded forward
+_TOP = ("embed", "final_norm", "head", "mm_proj")
 
 
 def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
@@ -271,13 +350,21 @@ def _rep_cache(stacked, r: int):
         name: getattr(stacked, name)[r] for name in _tensor_fields(stacked)})
 
 
+def _refuse_sharded(what: str, shard) -> None:
+    if shard.active:
+        from ..sharding.specs import SERVING_ITEM
+        raise NotImplementedError(f"{what}(shard=...): {SERVING_ITEM}")
+
+
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeddings: Optional[torch.Tensor] = None, *,
-            max_len: int, long_context: bool = False):
+            max_len: int, long_context: bool = False,
+            shard: NoShard = no_shard):
     """Run the prompt (behind a modality config's prefix) through the
     stack, materializing decode caches (at ``long_context``, ring caches on
     gemma2's local layers).  Returns (logits (B, P + S, V), caches), the
-    caches' length P + S."""
+    caches' length P + S.  Runs on one card: a sharder raises."""
+    _refuse_sharded("prefill", shard)
     dtype = compute_dtype(cfg)
     x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
     b, s = x.shape[:2]
@@ -328,12 +415,14 @@ def _set_rep(stacked, r: int, new) -> None:
             dst.copy_(src)
 
 
-def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches):
+def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, *,
+                shard: NoShard = no_shard):
     """token (B, 1) → (logits (B, 1, V), caches advanced by one token).
 
     The weights are not pre-cast (the blocks cast each use), as the
     reference.  The cache tensors are updated in place: the caches passed
-    in are consumed."""
+    in are consumed.  Runs on one card: a sharder raises."""
+    _refuse_sharded("decode_step", shard)
     dtype = compute_dtype(cfg)
     x = (_embed(params, token) * math.sqrt(float(cfg.d_model))).to(dtype)
     new_caches = []

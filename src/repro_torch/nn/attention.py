@@ -4,8 +4,11 @@ scoring, prefill and decode — the port of ``repro/nn/attention.py``.
 
 Full-sequence attention runs naive (dense scores), ``blockwise`` (an
 online-softmax scan over KV blocks, plain torch) or ``flash`` (the CUDA
-kernel, :mod:`..kernels.flash_attn`).  The sharding hooks of the reference
-are dropped (the port runs the LM on one card).
+kernel, :mod:`..kernels.flash_attn`).  The full-sequence functions take
+the reference's ``shard`` hook (:data:`~repro_torch.nn.shard.no_shard` on
+one card): under a :class:`~repro_torch.sharding.specs.Sharder` the
+mixing phase runs head-sharded between the paper's split and gather
+(:func:`_mixing_attention`).  Prefill and decode run on one card.
 
 Decode caches:
   * :class:`KVCache`        — dense (B, S_max, H_kv, hd) k/v;
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.flash_attn.ops import flash_attention
 from . import layers as nl
+from .shard import NoShard, no_shard
 
 
 # ---------------------------------------------------------------------------
@@ -189,9 +193,8 @@ def gqa_project_qkv(p, cfg: ArchConfig, x, positions):
     return q, k, v
 
 
-def _mixing_attention(cfg: ArchConfig, q, k, v, *,
-                      window: Optional[int] = None,
-                      scale: Optional[float] = None):
+def attend(cfg: ArchConfig, q, k, v, *, window: Optional[int] = None,
+           scale: Optional[float] = None):
     """Causal full-sequence attention: naive, blockwise or through the
     flash kernel."""
     if cfg.attn_impl == "flash":
@@ -209,12 +212,53 @@ def _mixing_attention(cfg: ArchConfig, q, k, v, *,
                           scale=scale)
 
 
+def _kv_for_local_q(k, v, hq: int, shard):
+    """k/v for this rank's q heads when the q heads are sharded and the kv
+    heads whole (their count does not divide the model axis): the static
+    slice of the kv groups those q heads use where the groups align with
+    the shard, else each q head's kv head (MHA)."""
+    m = shard.rules.model_axis
+    n, r = shard.size(m), shard.index(m)
+    hq_l, g = hq // n, hq // k.shape[2]
+    if hq_l % g == 0 or g % hq_l == 0:
+        start, width = (r * hq_l) // g, max(1, hq_l // g)
+        return k.narrow(2, start, width), v.narrow(2, start, width)
+    return (k.repeat_interleave(g, dim=2).narrow(2, r * hq_l, hq_l),
+            v.repeat_interleave(g, dim=2).narrow(2, r * hq_l, hq_l))
+
+
+def _mixing_attention(cfg: ArchConfig, q, k, v, *,
+                      window: Optional[int] = None,
+                      scale: Optional[float] = None,
+                      shard: NoShard = no_shard):
+    """Causal full-sequence attention (:func:`attend`) in the mixing
+    phase's layout (on one card, q, k and v as they are).  Under a
+    sharder, q, k and v arrive in the token layout: the explicit hook runs
+    where it applies; else they move to the fitted ``act_heads`` /
+    ``act_kv_heads`` (an all-to-all where the heads divide, an all-gather
+    of the sequence where the spec replicates), and the output moves back
+    to the token layout."""
+    if shard.explicit_a2a is not None:
+        out = shard.explicit_a2a(cfg, q, k, v, window=window, scale=scale)
+        if out is not None:      # None → divisibility fallback below
+            return out
+    hq, hkv = q.shape[2], k.shape[2]
+    qh = shard(q, "act_heads")
+    kh = shard(k, "act_kv_heads")
+    vh = shard(v, "act_kv_heads")
+    if qh.shape[2] != hq and kh.shape[2] == hkv:
+        kh, vh = _kv_for_local_q(kh, vh, hq, shard)
+    out = attend(cfg, qh, kh, vh, window=window, scale=scale)
+    return shard(out, "act_tokens", src="act_heads",
+                 shape=(shard.batch, shard.seq, hq, out.shape[-1]))
+
+
 def gqa_attention(p, cfg: ArchConfig, x, positions, *,
-                  window: Optional[int] = None):
+                  window: Optional[int] = None, shard: NoShard = no_shard):
     """Full-sequence attention (scoring / prefill without a cache)."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
-    out = _mixing_attention(cfg, q, k, v, window=window)
-    return _out_proj(out, p["wo"])
+    out = _mixing_attention(cfg, q, k, v, window=window, shard=shard)
+    return shard(_out_proj(out, p["wo"]), "act_tokens")
 
 
 @dataclasses.dataclass
@@ -341,7 +385,7 @@ def _mla_latent(p, cfg: ArchConfig, x, positions):
     return c_kv, k_rope
 
 
-def _mla_full(p, cfg: ArchConfig, x, positions):
+def _mla_full(p, cfg: ArchConfig, x, positions, shard: NoShard = no_shard):
     """Full-sequence MLA: keys and values decompressed from the latents,
     the shared rope key broadcast over the heads, attention at the scale
     of the hd + rope_hd query width (hd_v = hd).  Returns (y, c_kv,
@@ -354,13 +398,15 @@ def _mla_full(p, cfg: ArchConfig, x, positions):
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
         b, s, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
-    out = _mixing_attention(cfg, q, k, v, scale=_mla_scale(cfg))
+    out = _mixing_attention(cfg, q, k, v, scale=_mla_scale(cfg),
+                            shard=shard)
     return _out_proj(out, p["wo"]), c_kv, k_rope
 
 
-def mla_attention(p, cfg: ArchConfig, x, positions):
+def mla_attention(p, cfg: ArchConfig, x, positions, *,
+                  shard: NoShard = no_shard):
     """Full-sequence MLA (scoring / prefill without a cache)."""
-    return _mla_full(p, cfg, x, positions)[0]
+    return shard(_mla_full(p, cfg, x, positions, shard)[0], "act_tokens")
 
 
 @dataclasses.dataclass

@@ -6,6 +6,8 @@ package's distributions (``repro/nn/param.py::param``): normal with scale
 1/√fan_in (fan_in = shape[0], or the last dim of a 1-d leaf), embeddings
 at scale 1.0, zeros and ones.  The numbers differ from JAX's PRNG; parity
 tests carry the reference's weights over with ``params.from_numpy_tree``.
+A ``gen`` of None draws nothing: the leaves are shape-only tensors on the
+meta device.
 """
 from __future__ import annotations
 
@@ -17,17 +19,18 @@ import torch.nn.functional as F
 
 def param(gen: torch.Generator, shape: tuple, *, scale: float | None = None,
           init: str = "normal", dtype=torch.float32) -> torch.Tensor:
-    """One parameter leaf on ``gen``'s device."""
+    """One parameter leaf on ``gen``'s device (meta where it is None)."""
+    device = "meta" if gen is None else gen.device
     if init == "zeros":
-        return torch.zeros(shape, dtype=dtype, device=gen.device)
+        return torch.zeros(shape, dtype=dtype, device=device)
     if init == "ones":
-        return torch.ones(shape, dtype=dtype, device=gen.device)
+        return torch.ones(shape, dtype=dtype, device=device)
     if init != "normal":
         raise ValueError(init)
     if scale is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
         scale = 1.0 / math.sqrt(max(fan_in, 1))
-    v = torch.randn(shape, generator=gen, device=gen.device)
+    v = torch.randn(shape, generator=gen, device=device)
     return (scale * v).to(dtype)
 
 

@@ -7,6 +7,15 @@ between chunks.  ``ssm_impl="jnp"`` runs :func:`ssd_chunked` in plain
 torch ops; ``"fused"`` runs the intra-chunk part through the CUDA kernel
 (:func:`repro_torch.kernels.ssd.ssd_chunked_fused`).  As in the reference,
 :func:`mamba2_prefill` always runs :func:`ssd_chunked`.
+
+Under a sharder (:func:`mamba2_forward`'s ``shard``) the block's input is
+this rank's block of the token layout.  The causal conv runs there, on
+the sequence shard behind the previous shard's last ``conv_kernel − 1``
+positions (``Sharder.halo``: a ppermute; without it the shard boundaries
+would be silently wrong); then the per-head inputs move to
+``act_ssm_heads`` (an all-to-all) and the SSD runs on the local heads over
+the whole sequence, with B and C, which every head shares, gathered over
+the sequence; the output moves back.
 """
 from __future__ import annotations
 
@@ -18,6 +27,7 @@ import torch.nn.functional as F
 from ..configs.base import ArchConfig
 from ..kernels.ssd.ops import inter_chunk, pad_to_chunk, ssd_chunked_fused
 from . import layers as nl
+from .shard import NoShard, no_shard
 
 
 def init_mamba2(gen: torch.Generator, cfg: ArchConfig,
@@ -48,12 +58,14 @@ def _split_proj(cfg: ArchConfig, zxbcdt: torch.Tensor):
     return z, xbc, dt
 
 
-def _causal_conv(xbc: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over (B, S, C); kernel (K, C)."""
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 shard: NoShard = no_shard) -> torch.Tensor:
+    """Depthwise causal conv over (B, S, C); kernel (K, C).  The K − 1
+    positions before the sequence are zeros, or under a sharder the
+    previous sequence shard's (``shard.halo``)."""
     k = w.shape[0]
     s = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, k - 1, 0))
+    pad = shard.halo(xbc, k - 1)
     out = sum(pad[:, i: i + s] * w[i] for i in range(k))
     return F.silu(out + b)
 
@@ -107,12 +119,13 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     return y.reshape(bsz, s, h, p)[:, :s_orig], final
 
 
-def _mixer_inputs(p: dict, cfg: ArchConfig, x: torch.Tensor):
+def _mixer_inputs(p: dict, cfg: ArchConfig, x: torch.Tensor,
+                  shard: NoShard = no_shard):
     """in_proj → conv → (z, xbc_raw, xh, B, C, softplus'd dt, a)."""
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
     xbc = _causal_conv(xbc_raw, p["conv_w"].to(x.dtype),
-                       p["conv_b"].to(x.dtype))
+                       p["conv_b"].to(x.dtype), shard)
     di, n = cfg.d_inner, cfg.ssm_state_dim
     xh = xbc[..., :di].reshape(*xbc.shape[:2], cfg.ssm_heads,
                                cfg.ssm_head_dim)
@@ -123,23 +136,34 @@ def _mixer_inputs(p: dict, cfg: ArchConfig, x: torch.Tensor):
     return z, xbc_raw, xh, b_mat, c_mat, dt_sp, a
 
 
-def _mixer_output(p: dict, cfg: ArchConfig, x, z, xh, y):
-    y = y + xh.float() * p["d_skip"][:, None]              # D skip
-    y = y.to(x.dtype).reshape(*x.shape[:2], cfg.d_inner)
+def _mixer_output(p: dict, cfg: ArchConfig, x, z, xh, y,
+                  shard: NoShard = no_shard, heads=None):
+    y = y + xh.float() * shard.local(p["d_skip"], "act_ssm_heads", 2,
+                                     heads)[:, None]     # D skip
+    y = shard(y.to(x.dtype), "act_tokens", src="act_ssm_heads", shape=heads)
+    y = y.reshape(*x.shape[:2], cfg.d_inner)
     y = nl.rms_norm(y * F.silu(z), p["norm"].float(), cfg.norm_eps)
     return y @ p["out_proj"].to(x.dtype)
 
 
-def mamba2_forward(p: dict, cfg: ArchConfig, x: torch.Tensor):
-    """Full-sequence mamba2 block (scoring).  x: (B, S, D)."""
-    z, _, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x)
-    if cfg.ssm_impl == "fused":
-        y, _ = ssd_chunked_fused(xh.float(), dt_sp, a, b_mat.float(),
-                                 c_mat.float(), cfg.ssm_chunk)
-    else:
-        y, _ = ssd_chunked(xh.float(), dt_sp, a, b_mat.float(),
-                           c_mat.float(), cfg.ssm_chunk)
-    return _mixer_output(p, cfg, x, z, xh, y)
+def _ssd(cfg: ArchConfig, xh, dt_sp, a, b_mat, c_mat):
+    fn = ssd_chunked_fused if cfg.ssm_impl == "fused" else ssd_chunked
+    return fn(xh.float(), dt_sp, a, b_mat.float(), c_mat.float(),
+              cfg.ssm_chunk)[0]
+
+
+def mamba2_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                   shard: NoShard = no_shard):
+    """Full-sequence mamba2 block (scoring, training).  x: (B, S, D); under
+    a sharder this rank's block of the token layout (module docstring)."""
+    z, _, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x, shard)
+    heads = (shard.batch, shard.seq, cfg.ssm_heads, cfg.ssm_head_dim)
+    xh = shard(xh, "act_ssm_heads")
+    dt_sp = shard(dt_sp[..., None], "act_ssm_heads")[..., 0]
+    a = shard.local(a, "act_ssm_heads", 2, heads)
+    y = _ssd(cfg, xh, dt_sp, a, shard(b_mat, "act_seq"),
+             shard(c_mat, "act_seq"))
+    return _mixer_output(p, cfg, x, z, xh, y, shard, heads)
 
 
 @dataclasses.dataclass

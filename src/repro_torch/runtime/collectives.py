@@ -14,7 +14,11 @@ initialised by the caller.
   uses the whole gathered tensor (GAT's attention scores, the replica
   gathers' rows), so the gradient of one rank's slice is the sum of every
   rank's use of it.  NCCL runs it as one ``reduce_scatter_tensor``; gloo,
-  which has none, as an all-reduce and a slice.
+  which has none, as an all-reduce and a slice.  ``op="param_gather"``
+  records a sharded parameter's gather at use under its own op kind.
+* :func:`ppermute` sends along a permutation of the group's ranks (point
+  to point, one ``batch_isend_irecv``); its backward sends the cotangent
+  along the inverse permutation.
 * :func:`psum` sums across ranks.  Its backward passes the cotangent
   through unchanged: the summed value is the same on every rank, and each
   rank seeds its backward from it, so the gradient of what each rank
@@ -111,18 +115,19 @@ def all_to_all(x: torch.Tensor, group=None, *, split_axis: int,
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, axis):
-        ctx.args = (group, axis)
+    def forward(ctx, x, group, axis, op, dim):
+        ctx.args = (group, axis, op, dim)
         ctx.ledgers = T.active_ledgers()
-        _record("all_gather", axis, x, group, ctx.ledgers)
+        _record(op, axis, x, group, ctx.ledgers)
+        x = x.contiguous()
         parts = [torch.empty_like(x) for _ in range(axis_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts)
+        dist.all_gather(parts, x, group=group)
+        return torch.cat(parts, dim=dim)
 
     @staticmethod
     def backward(ctx, g):
-        group, axis = ctx.args
-        n, g = axis_size(group), g.contiguous()
+        group, axis, op, dim = ctx.args
+        n, g = axis_size(group), g.movedim(dim, 0).contiguous()
         if dist.get_backend(group) == dist.Backend.NCCL:
             out = g.new_empty((g.shape[0] // n,) + tuple(g.shape[1:]))
             dist.reduce_scatter_tensor(out, g, op=dist.ReduceOp.SUM,
@@ -134,16 +139,71 @@ class _AllGather(torch.autograd.Function):
             g = g.clone()
             dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
             out = g.chunk(n)[axis_index(group)]
-        _record("all_gather", axis, out, group, ctx.ledgers, backward=True)
-        return out, None, None
+        _record(op, axis, out, group, ctx.ledgers, backward=True)
+        return out.movedim(0, dim), None, None, None, None
 
 
-def all_gather(x: torch.Tensor, group=None, *,
-               axis: str = "model") -> torch.Tensor:
-    """Every rank's ``x`` concatenated along dim 0 in rank order (JAX's
-    tiled ``all_gather`` on axis 0).  Its backward is the reduce-scatter
-    (module docstring)."""
-    return _AllGather.apply(x, group, axis)
+def all_gather(x: torch.Tensor, group=None, *, axis: str = "model",
+               op: str = "all_gather", dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``dim`` in rank order (JAX's
+    tiled ``all_gather``), contiguous.  Its backward is the reduce-scatter
+    (module docstring).  ``op`` is the ledger's op kind:
+    ``"param_gather"`` for a sharded parameter gathered at use."""
+    return _AllGather.apply(x, group, axis, op, dim)
+
+
+def _send_recv(x: torch.Tensor, group, perm) -> torch.Tensor:
+    """One ``batch_isend_irecv`` of ``perm``: this rank sends ``x`` to the
+    rank it maps to and receives from the rank that maps to it (zeros
+    where none does); a pair (i, i) is a local copy."""
+    me = axis_index(group)
+    dst = [j for i, j in perm if i == me]
+    src = [i for i, j in perm if j == me]
+    x = x.contiguous()
+    out = torch.zeros_like(x)
+    ops = []
+    if dst and dst[0] != me:
+        ops.append(dist.P2POp(dist.isend, x,
+                              dist.get_global_rank(group, dst[0])
+                              if group is not None else dst[0], group))
+    if src and src[0] != me:
+        ops.append(dist.P2POp(dist.irecv, out,
+                              dist.get_global_rank(group, src[0])
+                              if group is not None else src[0], group))
+    if src and src[0] == me:
+        out.copy_(x)
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, perm, axis):
+        ctx.args = (group, perm, axis)
+        ctx.ledgers = T.active_ledgers()
+        _record("ppermute", axis, x, group, ctx.ledgers)
+        return _send_recv(x, group, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, perm, axis = ctx.args
+        _record("ppermute", axis, g, group, ctx.ledgers, backward=True)
+        return (_send_recv(g, group, [(j, i) for i, j in perm]),
+                None, None, None)
+
+
+def ppermute(x: torch.Tensor, group=None, perm=(), *,
+             axis: str = "model") -> torch.Tensor:
+    """Send ``x`` along the permutation ``perm`` of ``group``'s ranks
+    (pairs (source, destination)): rank j receives the ``x`` of the rank i
+    with (i, j) in ``perm``, zeros where no pair ends at j (JAX's
+    ``ppermute``).  Its backward sends the cotangent back along the
+    inverse permutation.  Point-to-point, as one ``batch_isend_irecv``
+    (gloo and NCCL), recorded at the ring factor 1."""
+    perm = tuple((int(i), int(j)) for i, j in perm)
+    return _Ppermute.apply(x, group, perm, axis)
 
 
 class _Psum(torch.autograd.Function):

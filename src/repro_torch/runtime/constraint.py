@@ -179,11 +179,34 @@ def _check_stageable(src: dict, dst: dict, src_spec, dst_spec) -> None:
                 f"axes dim {d} keeps")
 
 
+def move_local(y: torch.Tensor, src_spec, dst_spec, mesh, *,
+               gather_op: str = "all_gather") -> torch.Tensor:
+    """The transition ``src_spec → dst_spec`` of a global tensor, on this
+    rank's shard ``y``, through the choke point: the dropped axes'
+    all-gathers innermost first (recorded as ``gather_op``), the moved
+    axes' all-to-alls, the added axes' slices (the staging of
+    :func:`repro_torch.runtime.telemetry.implied_collectives`)."""
+    src = T._spec_placement(src_spec, y.ndim)
+    dst = T._spec_placement(dst_spec, y.ndim)
+    _check_stageable(src, dst, src_spec, dst_spec)
+    for a in reversed([a for a in src if a not in dst]):
+        y = C.all_gather(y, mesh.group_of(a), axis=a, op=gather_op,
+                         dim=src[a])
+    for a in src:
+        if a in dst and src[a] != dst[a]:
+            y = C.all_to_all(y, mesh.group_of(a), split_axis=dst[a],
+                             concat_axis=src[a], axis=a)
+    for a in dst:
+        if a not in src:
+            d, g = dst[a], mesh.group_of(a)
+            y = C.replica_slice(y.movedim(d, 0),
+                                C.Replicas((a,), (g,), g)).movedim(0, d)
+    return y
+
+
 def _move(x, src_spec, dst_spec, *, mirror: bool, anchored: bool):
     """Run the transition ``src_spec → dst_spec`` of DTensor ``x`` through
-    the choke point: the dropped axes' all-gathers innermost first, the
-    moved axes' all-to-alls, the added axes' slices (the staging of
-    :func:`repro_torch.runtime.telemetry.implied_collectives`)."""
+    the choke point (:func:`move_local` on its shard)."""
     mesh = current_mesh()
     if x.placements != placements(src_spec, mesh):
         raise ValueError(
@@ -194,23 +217,7 @@ def _move(x, src_spec, dst_spec, *, mirror: bool, anchored: bool):
             "a transition with mirror=False on a tensor that requires "
             "grad: its backward would run and be recorded — pass "
             "mirror=True")
-    src = T._spec_placement(src_spec, x.ndim)
-    dst = T._spec_placement(dst_spec, x.ndim)
-    _check_stageable(src, dst, src_spec, dst_spec)
-    y = x.to_local()
-    for a in reversed([a for a in src if a not in dst]):
-        d = src[a]
-        y = C.all_gather(y.movedim(d, 0), mesh.group_of(a),
-                         axis=a).movedim(0, d)
-    for a in src:
-        if a in dst and src[a] != dst[a]:
-            y = C.all_to_all(y, mesh.group_of(a), split_axis=dst[a],
-                             concat_axis=src[a], axis=a)
-    for a in dst:
-        if a not in src:
-            d, g = dst[a], mesh.group_of(a)
-            y = C.replica_slice(y.movedim(d, 0),
-                                C.Replicas((a,), (g,), g)).movedim(0, d)
+    y = move_local(x.to_local(), src_spec, dst_spec, mesh)
     T.record_transition(tuple(x.shape), str(x.dtype).removeprefix("torch."),
                         src_spec, dst_spec, mirror=mirror, anchored=anchored)
     return from_local(y, dst_spec, mesh)

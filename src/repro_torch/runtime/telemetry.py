@@ -80,6 +80,42 @@ How the port's semantics differ from the reference's:
   declared, so :func:`backward_scope` records it as the backward call of
   its key — what autograd's mirror records in the in-memory epoch.
 
+* **The sharded LM** (``repro_torch.sharding``) records what its
+  per-rank program runs, where the reference's partitioner records
+  nothing but its explicit sharder's collectives:
+
+  - each parameter gathered at use (FSDP over the data axes, heads, FFN,
+    vocab and experts over the model axis) is a ``param_gather`` entry
+    of its axis, at an all-gather's ring cost; its backward is the
+    gradients' reduce-scatter (the mirror);
+  - the loss's summed cross-entropy and token count travel as one
+    stacked ``psum`` over every rank (``model+data``), and each MoE
+    layer's router mass, assignment counts and token count as one more;
+    the gradients of the axes a parameter is replicated over are one
+    ``grad_psum`` per axis (and dtype);
+  - the plain ``Sharder``'s transitions, which XLA chooses for the
+    reference, are the staging of ``constraint.move_local``: q, k and v
+    move to the fitted head layouts by an all-to-all where the heads
+    divide the model axis and an all-gather of the sequence where they
+    do not, the output back by an all-to-all or a slice; mamba2's x and
+    dt by an all-to-all, B and C by an all-gather, its conv's halo by a
+    ppermute; the plain MoE gathers the routing and the token rows over
+    the token axes and the expert outputs over the model axis;
+  - a repeated layer group records each repeat's calls, where the
+    reference traces its layer scan's body once (no ``loop_scope``
+    there): R× its entries;
+  - ring attention skips the last rotation, whose chunk no step reads:
+    2(n − 1) ppermutes a layer, forward and mirrored, against the
+    reference's 2n;
+  - **recomputation**: a checkpointed unit (``remat``) reruns its
+    collectives in the backward pass; they are recorded when they run,
+    as ``recomputed_calls`` / ``recomputed_wire_bytes`` of their key
+    (:func:`recompute_scope`; shown by ``as_dict`` only where non-zero,
+    added by ``train=True`` queries).  The port has no ``loop_scope``
+    and records every execution, so a step's ledger counts each
+    recomputed call once more; the ring's own per-step checkpoint holds
+    no collective.
+
 Host→device staging (the out-of-core path) is counted beside the
 collectives under op kind :data:`H2D_OP` (:func:`record_h2d`).
 
@@ -99,7 +135,7 @@ import torch
 __all__ = ["CommEntry", "CommLedger", "H2D_OP", "TelemetryError",
            "TransitionRecord", "active_ledgers", "backward_scope",
            "collect_comm", "implied_collectives", "normalize_spec",
-           "record", "record_h2d", "record_transition",
+           "recompute_scope", "record", "record_h2d", "record_transition",
            "ring_wire_factor"]
 
 
@@ -109,10 +145,12 @@ class TelemetryError(RuntimeError):
 
 
 #: Op kinds :func:`record` accepts, each with the collective whose ring
-#: cost it pays: the reference's five, and the gradient all-reduce.
+#: cost it pays: the reference's five, the gradient all-reduce and the
+#: sharded LM's parameter gather.
 OP_COST = {"psum": "psum", "all_gather": "all_gather",
            "all_to_all": "all_to_all", "ppermute": "ppermute",
-           "psum_scatter": "psum_scatter", "grad_psum": "psum"}
+           "psum_scatter": "psum_scatter", "grad_psum": "psum",
+           "param_gather": "all_gather"}
 
 
 #: Ledger op kind of host→device staging (out-of-core streaming).  Not a
@@ -148,13 +186,21 @@ class CommEntry:
     wire_bytes: float = 0.0       # per-device ring wire bytes, forward
     mirrored_calls: float = 0.0   # backward-pass executions
     mirrored_wire_bytes: float = 0.0
+    recomputed_calls: float = 0.0  # forward calls rerun by a checkpoint
+    recomputed_wire_bytes: float = 0.0
 
     def merge(self, other: "CommEntry") -> None:
-        self.calls += other.calls
-        self.payload_bytes += other.payload_bytes
-        self.wire_bytes += other.wire_bytes
-        self.mirrored_calls += other.mirrored_calls
-        self.mirrored_wire_bytes += other.mirrored_wire_bytes
+        for f in dataclasses.fields(self):
+            setattr(self, f.name,
+                    getattr(self, f.name) + getattr(other, f.name))
+
+    def as_dict(self) -> dict:
+        """The counters; the recomputed ones only where non-zero, so an
+        entry without recomputation reads as the reference's."""
+        d = dataclasses.asdict(self)
+        if not (self.recomputed_calls or self.recomputed_wire_bytes):
+            del d["recomputed_calls"], d["recomputed_wire_bytes"]
+        return d
 
 
 def normalize_spec(spec) -> tuple:
@@ -207,13 +253,19 @@ class CommLedger:
         self._transitions: list[TransitionRecord] = []
 
     def add(self, op: str, axes, dtype: str, *, payload: float, wire: float,
-            calls: float = 1.0, backward: bool = False) -> None:
+            calls: float = 1.0, backward: bool = False,
+            recomputed: bool = False) -> None:
         """Count ``calls`` executions of one collective.  ``backward=True``:
         they ran in the backward pass, and count as mirrored calls and
-        wire bytes only."""
+        wire bytes only; ``recomputed=True``: a checkpoint reran a forward
+        call in the backward pass, counted as recomputed calls and wire
+        bytes only."""
         key = (op, _axis_label(axes), str(dtype))
         entry = self._entries.setdefault(key, CommEntry())
-        if backward:
+        if recomputed:
+            entry.recomputed_calls += calls
+            entry.recomputed_wire_bytes += wire * calls
+        elif backward:
             entry.mirrored_calls += calls
             entry.mirrored_wire_bytes += wire * calls
         else:
@@ -237,8 +289,11 @@ class CommLedger:
     def wire_bytes(self, op: str | None = None, axis: str | None = None, *,
                    train: bool = False) -> float:
         """Per-device ring wire bytes; ``train=True`` adds the backward
-        pass's (forward + backward of one step)."""
-        return sum(e.wire_bytes + (e.mirrored_wire_bytes if train else 0.0)
+        pass's (forward + backward of one step: the mirrors and the
+        recomputed forward calls)."""
+        return sum(e.wire_bytes + (e.mirrored_wire_bytes
+                                   + e.recomputed_wire_bytes
+                                   if train else 0.0)
                    for e in self._select(op, axis))
 
     def payload_bytes(self, op: str | None = None,
@@ -247,7 +302,8 @@ class CommLedger:
 
     def call_count(self, op: str | None = None, axis: str | None = None, *,
                    train: bool = False) -> float:
-        return sum(e.calls + (e.mirrored_calls if train else 0.0)
+        return sum(e.calls + (e.mirrored_calls + e.recomputed_calls
+                              if train else 0.0)
                    for e in self._select(op, axis))
 
     def entries(self) -> dict[tuple[str, str, str], CommEntry]:
@@ -255,7 +311,7 @@ class CommLedger:
 
     def as_dict(self) -> dict:
         """JSON-friendly view: ``{"op|axis|dtype": {counters...}}``."""
-        return {"|".join(k): dataclasses.asdict(v)
+        return {"|".join(k): v.as_dict()
                 for k, v in sorted(self._entries.items())}
 
     @classmethod
@@ -286,6 +342,8 @@ class CommLedger:
 _LEDGERS: ContextVar[tuple[CommLedger, ...]] = ContextVar(
     "repro_torch_comm_ledgers", default=())
 _AS_BACKWARD: ContextVar[bool] = ContextVar("repro_torch_as_backward",
+                                           default=False)
+_RECOMPUTING: ContextVar[bool] = ContextVar("repro_torch_recomputing",
                                            default=False)
 
 
@@ -336,6 +394,22 @@ def backward_scope() -> Iterator[None]:
         _AS_BACKWARD.reset(token)
 
 
+@contextlib.contextmanager
+def recompute_scope(ledgers: tuple[CommLedger, ...]) -> Iterator[None]:
+    """Record the forward collectives run inside the block, into
+    ``ledgers`` (those the first run saw: autograd recomputes a CUDA
+    backward on a thread of its own), as recomputed calls of their keys:
+    a checkpointed unit rerun in the backward pass.  The mirrors that the
+    rerun's own autograd nodes would record never run (the backward uses
+    the first run's nodes), so none are counted twice."""
+    token = _RECOMPUTING.set(True)
+    try:
+        with ledgers_scope(ledgers):
+            yield
+    finally:
+        _RECOMPUTING.reset(token)
+
+
 def record(op: str, axes, x: torch.Tensor, *, group_size: int,
            backward: bool = False,
            ledgers: tuple[CommLedger, ...] | None = None) -> None:
@@ -352,6 +426,7 @@ def record(op: str, axes, x: torch.Tensor, *, group_size: int,
     if not ledgers:
         return
     backward = backward or _AS_BACKWARD.get()
+    recomputed = not backward and _RECOMPUTING.get()
     if op not in OP_COST:
         raise TelemetryError(f"unknown collective op kind {op!r} "
                              f"(known: {sorted(OP_COST)})")
@@ -359,7 +434,7 @@ def record(op: str, axes, x: torch.Tensor, *, group_size: int,
     dtype = str(x.dtype).removeprefix("torch.")
     # the ring factor is defined on the RESULT size: all_gather grows the
     # input g×, psum_scatter shrinks it g×, the rest preserve it
-    if op == "all_gather":
+    if OP_COST[op] == "all_gather":
         wire = (group_size - 1) * payload
     elif op == "psum_scatter":
         wire = ring_wire_factor(op, group_size) * payload / group_size
@@ -367,7 +442,7 @@ def record(op: str, axes, x: torch.Tensor, *, group_size: int,
         wire = ring_wire_factor(OP_COST[op], group_size) * payload
     for ledger in ledgers:
         ledger.add(op, axes, dtype, payload=payload, wire=wire,
-                   backward=backward)
+                   backward=backward, recomputed=recomputed)
 
 
 # ---------------------------------------------------------------------------

@@ -15,18 +15,23 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..models import transformer as T
+from ..nn.shard import no_shard
 
 
-def make_serve_fns(cfg: ArchConfig, *, long_context: bool = False):
+def make_serve_fns(cfg: ArchConfig, sharder=None, *,
+                   long_context: bool = False):
     """(prefill_fn, decode_fn) closures over ``cfg``; ``long_context`` puts
-    gemma2's local layers on the O(window) ring cache."""
+    gemma2's local layers on the O(window) ring cache.  ``sharder`` is
+    their ``shard``: ``prefill`` and ``decode_step`` run on one card and
+    refuse one."""
+    shard = sharder or no_shard
 
     def prefill_fn(params, tokens, prefix=None, *, max_len: int):
         return T.prefill(params, cfg, tokens, prefix, max_len=max_len,
-                         long_context=long_context)
+                         long_context=long_context, shard=shard)
 
     def decode_fn(params, token, caches):
-        return T.decode_step(params, cfg, token, caches)
+        return T.decode_step(params, cfg, token, caches, shard=shard)
 
     return prefill_fn, decode_fn
 
@@ -41,18 +46,20 @@ class GenerationResult:
 def generate(params, cfg: ArchConfig, prompt, n_steps: int, *,
              prefix=None, temperature: float = 0.0, seed: int = 0,
              max_len: Optional[int] = None, long_context: bool = False,
-             device="cuda") -> GenerationResult:
+             device="cuda", sharder=None) -> GenerationResult:
     """Greedy / temperature sampling for a batch of prompts (B, S) on
     ``device``, where ``params`` must lie; a modality config's prompts go
     behind ``prefix`` (B, P, D), whose P positions the caches hold too.
-    Returns the prompts and the new tokens (not the prefix)."""
+    Returns the prompts and the new tokens (not the prefix).  Runs on one
+    card: a ``sharder`` raises in ``prefill``."""
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
     if prefix is not None:
         prefix = torch.as_tensor(np.asarray(prefix), device=device)
     b, s = prompt.shape
     off = cfg.num_prefix_embeddings if cfg.modality else 0
     max_len = max_len or (s + n_steps + off)
-    prefill_fn, decode_fn = make_serve_fns(cfg, long_context=long_context)
+    prefill_fn, decode_fn = make_serve_fns(cfg, sharder,
+                                           long_context=long_context)
     logits, caches = prefill_fn(params, prompt, prefix, max_len=max_len)
     gen = torch.Generator(device=device).manual_seed(seed)
     last = logits[:, -1]

@@ -9,6 +9,7 @@ tokens; logits within 1e-4·(1 + max|ref|)) and decode logits against one
 JAX run on naive + jnp (its flash + fused path agrees with that to ~1e-6),
 and ``SyntheticLM`` batches byte for byte."""
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +29,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.optim import adamw
 from repro_torch.params import from_numpy_tree, to_numpy_tree, tree_leaves
 from repro_torch.serve import generate
+from repro_torch.serve.engine import make_serve_fns
+from repro_torch.sharding import Sharder, ShardingRules
 from repro_torch.train import make_train_step
 
 IMPLS = [("flash", "fused"), ("naive", "jnp")]
@@ -77,9 +80,20 @@ def test_unported_options_raise():
         "blockwise"
     with pytest.raises(ValueError, match="attn_impl='ring'"):
         dataclasses.replace(cfg, attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="item 25a"):
-        make_train_step(get_config("internvl2-1b"), adamw(1e-3),
-                        sharder=object())
+    # a sharded step is made (the sharded LM, ROADMAP item 25a, is
+    # ported); the megatron strategy and sharded serving raise, naming
+    # their items
+    mesh = types.SimpleNamespace(shape={"model": 4, "data": 2})
+    sharder = Sharder(mesh, ShardingRules())
+    assert callable(make_train_step(get_config("internvl2-1b"), adamw(1e-3),
+                                    sharder=sharder))
+    with pytest.raises(NotImplementedError, match="item 30"):
+        Sharder(mesh, ShardingRules("megatron"))
+    prefill_fn, decode_fn = make_serve_fns(cfg, sharder)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        prefill_fn({}, torch.zeros(1, 4, dtype=torch.long), max_len=8)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        decode_fn({}, torch.zeros(1, 1, dtype=torch.long), [])
 
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "zamba2-2.7b-reduced"])

@@ -1,0 +1,150 @@
+"""The LM's sharding rules against the JAX package's, no processes: the
+logical-axis names tree of every config's parameters (``split_params``'s
+names, from the reference's abstract init), every leaf's ``param_spec``
+and every activation kind's ``act_spec`` (and its ``_fit_spec``) under the
+three strategies, on stand-in meshes of (data, model) = (16, 16) and
+(2, 4) and a (pod, data, model) one; the shapes tree against
+``init_transformer``'s; and the refusals of what is not ported — the
+megatron strategy and sharded serving, each naming its ROADMAP item."""
+import dataclasses
+import types
+
+import jax
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import transformer as JT
+from repro.nn.param import split_params
+from repro.sharding import specs as jspecs
+from repro_torch import configs, optim
+from repro_torch.models import transformer as TT
+from repro_torch.nn import param as tparam
+from repro_torch.params import tree_map
+from repro_torch.serve import engine
+from repro_torch.sharding import specs as tspecs
+from repro_torch.train import make_train_step, sharded_setup
+from test_torch_lm_configs import one_torch_thread  # noqa: F401
+
+ARCHS = jconfigs.list_archs()
+MESHES = {"16x16": {"data": 16, "model": 16}, "2x4": {"data": 2, "model": 4},
+          "pod": {"pod": 2, "data": 2, "model": 4}}
+STRATEGIES = ("neutron_tp", "megatron", "dp")
+KINDS = ("act_tokens", "act_heads", "act_kv_heads", "act_ssm_heads",
+         "act_vocab", "expert_buf")
+
+
+def _mesh(name):
+    return types.SimpleNamespace(shape=dict(MESHES[name]))
+
+
+def _rules(mod, strategy, mesh_name):
+    data_axes = ("pod", "data") if mesh_name == "pod" else ("data",)
+    return mod.ShardingRules(strategy=strategy, data_axes=data_axes)
+
+
+def _tuple(spec):
+    return tuple(tuple(e) if isinstance(e, list) else e for e in spec)
+
+
+@pytest.fixture(scope="module")
+def reference_trees():
+    """Each config's (shapes, names) trees from the reference's abstract
+    init (traced, not drawn)."""
+    out = {}
+    for arch in ARCHS:
+        cfg = jconfigs.get_config(arch)
+        abstract = jax.eval_shape(lambda k, c=cfg: JT.init_transformer(k, c),
+                                  jax.random.PRNGKey(0))
+        vals, names = split_params(abstract)
+        out[arch] = (jax.tree.map(lambda v: tuple(v.shape), vals), names)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_names_and_shapes_equal_reference(arch, reference_trees):
+    shapes, names = reference_trees[arch]
+    cfg = configs.get_config(arch)
+    assert tparam.param_names(cfg) == names
+    assert tparam.param_shapes(cfg) == shapes
+    reduced = configs.get_config(arch + "-reduced")
+    params = TT.init_transformer(reduced, device="cpu")
+    assert tree_map(lambda t: tuple(t.shape), params) == \
+        tparam.param_shapes(reduced)
+
+
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_specs_equal_reference(arch, mesh_name, reference_trees):
+    shapes, names = reference_trees[arch]
+    mesh = _mesh(mesh_name)
+    for strategy in STRATEGIES:
+        ref = _rules(jspecs, strategy, mesh_name)
+        port = _rules(tspecs, strategy, mesh_name)
+        want = jax.tree.map(
+            lambda n, s: _tuple(ref.param_spec(n, s, mesh)), names, shapes,
+            is_leaf=lambda x: isinstance(x, tuple))
+        got = port.param_shardings(names, shapes, mesh)
+        assert got == want, (arch, strategy)
+
+
+@pytest.mark.parametrize("mesh_name", MESHES)
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_act_specs_and_fit_equal_reference(strategy, mesh_name):
+    mesh = _mesh(mesh_name)
+    ref = _rules(jspecs, strategy, mesh_name)
+    port = _rules(tspecs, strategy, mesh_name)
+    shapes = [(2, 32, 8, 16), (32, 6, 12, 8), (64, 64, 3, 5), (16, 4, 64)]
+    for kind in KINDS + ("no_such_kind",):
+        want = ref.act_spec(kind, 4)
+        got = port.act_spec(kind, 4)
+        assert got == (None if want is None else _tuple(want)), kind
+        if want is None:
+            continue
+        for shape in shapes:
+            assert tspecs._fit_spec(got, shape, mesh) == _tuple(
+                jspecs._fit_spec(want, shape, mesh)), (kind, shape)
+    for kind in ("cache_seq", "cache_seq_latent"):
+        assert ref.act_spec(kind, 4) is not None
+        with pytest.raises(NotImplementedError, match="item 29"):
+            port.act_spec(kind, 4)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        tspecs.cache_shardings(port, mesh, None)
+
+
+def test_unported_strategy_and_serving_raise():
+    """megatron raises where a sharder is made (and so in
+    ``sharded_setup``), naming item 30; sharded serving raises in
+    ``prefill``, ``decode_step``, ``make_serve_fns`` and ``generate``,
+    naming item 29 (``make_serve_fns`` passes its sharder to the first
+    two)."""
+    mesh = _mesh("2x4")
+    rules = tspecs.ShardingRules("megatron")
+    with pytest.raises(NotImplementedError, match="item 30"):
+        tspecs.Sharder(mesh, rules)
+    cfg = configs.get_config("internlm2-1.8b-reduced")
+    shape = dataclasses.replace(configs.get_shape("train_4k"),
+                                global_batch=2, seq_len=16)
+    with pytest.raises(NotImplementedError, match="item 30"):
+        sharded_setup(cfg, shape, mesh, rules)
+    with pytest.raises(ValueError, match="strategy"):
+        tspecs.Sharder(mesh, tspecs.ShardingRules("fsdp_only"))
+    with pytest.raises(ValueError, match="hybrid_mesh"):
+        tspecs.Sharder(types.SimpleNamespace(shape={"model": 4}),
+                       tspecs.ShardingRules())
+    sharder = tspecs.Sharder(mesh, tspecs.ShardingRules())
+    with pytest.raises(ValueError, match="pass its sharder"):
+        make_train_step(cfg, optim.adamw(1e-3), in_shardings=({}, {}))
+    params = TT.init_transformer(cfg, device="cpu")
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        TT.prefill(params, cfg, tokens, max_len=8, shard=sharder)
+    caches = TT.init_caches(cfg, 1, 8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 29"):
+        TT.decode_step(params, cfg, tokens[:, :1], caches, shard=sharder)
+    prefill_fn, _ = engine.make_serve_fns(cfg, sharder)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        prefill_fn(params, tokens, max_len=8)
+    with pytest.raises(NotImplementedError, match="item 29"):
+        engine.generate(params, cfg, tokens.numpy(), 2, device="cpu",
+                        sharder=sharder)

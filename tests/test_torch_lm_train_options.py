@@ -3,10 +3,11 @@ them (reduced configs, fp32, 2 × 16 tokens): one ``sgd`` step's
 parameters against the reference's at 1e-5·(1 + max|ref|);
 ``remat`` True / False / ``"dots"`` giving equal losses and gradients,
 the recompute counted and nothing recomputed under ``no_grad``; the
-softcapped logits equal with and without a gradient; ``donate``; and the
-refusals: a sharder or shardings (ROADMAP queue 1 item 25a), and a config
-whose forward calls a forward-only kernel, beside the reference's own
-failure on the same config."""
+softcapped logits equal with and without a gradient; ``donate``; a sharded
+step at one gloo rank against the unsharded one, with its refusals
+(shardings that are not the sharder's, the megatron strategy: ROADMAP
+queue 1 item 30); and a config whose forward calls a forward-only kernel,
+refused beside the reference's own failure on the same config."""
 import dataclasses
 from unittest import mock
 
@@ -186,14 +187,53 @@ def test_donate(arch):
     assert all(torch.equal(m[k], m_d[k]) for k in m)
 
 
-def test_sharded_training_raises():
-    tcfg = configs.get_config("internvl2-1b-reduced")
-    opt = optim.adamw(1e-3)
-    for kw in (dict(sharder=object()), dict(in_shardings=(None, None))):
-        with pytest.raises(NotImplementedError, match="item 25a"):
-            make_train_step(tcfg, opt, **kw)
-    with pytest.raises(NotImplementedError, match="item 25a"):
-        make_loss_fn(tcfg, sharder=object())
+def test_sharded_training_raises(tmp_path):
+    """Sharded training is ported (ROADMAP item 25a): at one gloo rank on a
+    (data=1, model=1) mesh, ``sharded_setup``'s step (its
+    ``in_shardings`` the setup's own) and ``make_loss_fn(sharder=)`` give
+    the unsharded step's metrics and parameters within 1e-6.  What still
+    raises: ``in_shardings`` that are not the sharder's layouts or come
+    without a sharder, and the megatron strategy (item 30)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import Sharder, ShardingRules
+    from repro_torch.train import init_sharded_state, sharded_setup
+    tcfg, params, batch = _port_model("internvl2-1b")
+    shape = dataclasses.replace(configs.get_shape("train_4k"),
+                                global_batch=2, seq_len=SEQ)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        setup = sharded_setup(tcfg, shape, mesh, ShardingRules(), lr=1e-3)
+        state = init_sharded_state(params, tcfg, setup["optimizer"],
+                                   setup["sharder"])
+        state, got = setup["train_step"](state, batch)
+        opt = optim.adamw(1e-3)
+        want_state, want = make_train_step(tcfg, opt, donate=False)(
+            init_train_state(params, opt), batch)
+        for key in want:
+            assert abs(got[key].item() - want[key].item()) <= 1e-6 * max(
+                1.0, abs(want[key].item())), key
+        for a, b in zip(tree_leaves(state.params),
+                        tree_leaves(want_state.params)):
+            assert (a - b).abs().max().item() <= 1e-6 * (
+                1 + b.abs().max().item())
+        total, (loss, _) = make_loss_fn(tcfg, setup["sharder"])(
+            state.params, batch)
+        assert torch.isfinite(total) and loss.item() > 0
+        with pytest.raises(ValueError, match="layouts"):
+            make_train_step(tcfg, opt, setup["sharder"],
+                            in_shardings=(setup["state_shardings"], {}))
+        with pytest.raises(ValueError, match="pass its sharder"):
+            make_train_step(tcfg, opt, in_shardings=(
+                setup["state_shardings"], setup["batch_shardings"]))
+        with pytest.raises(NotImplementedError, match="item 30"):
+            sharded_setup(tcfg, shape, mesh, ShardingRules("megatron"))
+        with pytest.raises(NotImplementedError, match="item 30"):
+            Sharder(mesh, ShardingRules("megatron"))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch,over,ref_error", [
