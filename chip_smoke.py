@@ -350,14 +350,30 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the ledger's recomputed calls) and one profiled; step ms,
               busy, idle share, peak memory.
 
+29. shard-serve — sharded LM serving (``make_serve_fns(cfg, sharder)``)
+              on ``make_host_mesh(model=1, data=1)`` over a fresh NCCL
+              group of one rank: Zamba2-2.7B at full width and depth, 2 ×
+              2048 prefilled and 32 greedy steps through the
+              ``ExplicitSharder``'s closures beside phase 16's unsharded
+              ``generate`` — identical tokens, the prefill logits bitwise
+              (else within 1e-5·max|ref|), 9 flash launches in the sharded
+              prefill and none in its decode steps, no wire bytes; both
+              paths' prefill and decode medians, a decode step of each
+              profiled.  Then fp32 at full width cut in depth, under
+              deterministic algorithms: gemma2 at 4 layers on 1 × 4608
+              (ring and dense caches) and DeepSeek at 3 on 1 × 512, each
+              ``seq_shard_cache`` layout against the unsharded twin
+              (tokens identical, logits within 1e-5·max|ref|).
+
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the flash kernel at Zamba2's shape,
 gemma2's global and local layers', MLA's, InternVL2-1B's and
 MusicGen-large's, the fp32 (FMA) flash kernel at the fp32 cross-checks'
 (1, 32, 512, 80) with SDPA fp32 as its yardstick, the SSD kernel at
-Zamba2's and Mamba2-1.3B's, and flash and SSD again on phase 28's sharded
-scoring path, each with its path's launches (each flash shape's its own
+Zamba2's and Mamba2-1.3B's, flash and SSD again on phase 28's sharded
+scoring path and flash on phase 29's sharded prefill, each with its
+path's launches (each flash shape's its own
 case's count from the main-path runs).
 In it, ``ms_by`` says how each row's ``ms`` and ``library_ms``
 were timed: ``"profiler"`` (device time from ``torch.profiler``) or
@@ -2357,7 +2373,7 @@ def serve(dev):
     cfg, params, n_params = _lm_model("zamba2-2.7b", dev)
     batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
     _, info = _serve_cell(cfg, params, batch["tokens"], dev)
-    print("[17/28] LM main path, scoring: forward + lm_loss")
+    print("[17/29] LM main path, scoring: forward + lm_loss")
     score_info = _score_cell(cfg, params, batch, dev, plain_twin=True)
     return cfg, params, batch, {"params": n_params, **info}, score_info
 
@@ -3370,6 +3386,277 @@ def sharded_lm(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Sharded LM serving on a (data=1, model=1) mesh (phase 29)
+# ---------------------------------------------------------------------------
+
+SEQ_MODES = (False, True, "model")     # ShardingRules.seq_shard_cache
+# arch, overrides, prompt length, long_context settings
+SERVE_XCHECKS = (
+    ("gemma2-9b", dict(num_layers=4), 4608, (True, False)),
+    ("deepseek-v2-lite-16b", dict(num_layers=3), 512, (False,)),
+)
+
+
+def greedy(prefill_fn, decode_fn, params, tokens, steps: int, *,
+           max_len: int, sharder=None, ms=None, ledgers=None):
+    """``tokens`` (B, S) prefilled and ``steps`` greedy decode steps
+    through serving closures: (the prefill logits, the tokens (B, S +
+    steps + 1), each step's logits (B, V)).  Under ``sharder`` each output
+    is the rank's block of the token layout, gathered
+    (``Sharder.unshard``) before its argmax.  ``ms``, a list, gets the
+    prefill's and then each decode step's wall time; ``ledgers``, a list,
+    each decode step's collective ledger."""
+    from repro_torch.runtime.telemetry import collect_comm
+    b, s = tokens.shape
+    ms = [] if ms is None else ms
+
+    def whole(x, n):
+        return x if sharder is None else sharder.bound(b, n).unshard(x)
+
+    def timed(fn):
+        if tokens.is_cuda:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if tokens.is_cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        return out
+    logits, caches = timed(lambda: prefill_fn(params, tokens,
+                                              max_len=max_len))
+    logits = whole(logits, s)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    out, step_logits = [tokens, tok], []
+    for _ in range(steps):
+        with collect_comm() as led:
+            last, caches = timed(lambda: decode_fn(params, tok, caches))
+        if ledgers is not None:
+            ledgers.append(led)
+        last = whole(last, 1)[:, -1]
+        tok = torch.argmax(last, dim=-1)[:, None].to(torch.int32)
+        out.append(tok)
+        step_logits.append(last)
+    return logits, torch.cat(out, dim=1).cpu().numpy(), step_logits
+
+
+def held_serving(tag: str, got, want, rtol: float = KERNEL_TOL) -> float:
+    """Hold one ``greedy`` run to another: identical tokens, the prefill
+    and every step's logits within rtol·max|ref| (bitwise reported);
+    returns the largest max|Δ|."""
+    if not np.array_equal(got[1], want[1]):
+        raise AssertionError(f"{tag}: greedy tokens differ: "
+                             f"{got[1][:, -8:]} vs {want[1][:, -8:]}")
+    pairs = [(got[0], want[0])] + list(zip(got[2], want[2]))
+    errs = [(g - w).abs().max().item() for g, w in pairs]
+    worst = max(e / w.abs().max().item() for e, (_, w) in zip(errs, pairs))
+    ok = worst <= rtol
+    print(f"  {tag}: tokens identical over {len(pairs) - 1} steps, logits "
+          + ("bitwise equal" if not any(errs) else
+             f"max|Δ| {max(errs):.3e} ({worst:.2e} of max|ref|)")
+          + f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: logits differ by {worst:.3e} of "
+                             f"max|ref|")
+    return max(errs)
+
+
+def _serving_twin(cfg, params, tokens, steps, max_len, dev):
+    """The unsharded closures: prefill and decode medians, one decode step
+    more profiled (the caches hold ``max_len`` + 1 positions)."""
+    from repro_torch.serve import make_serve_fns
+    prefill_fn, decode_fn = make_serve_fns(cfg)
+    pre = []
+    for _ in range(LM_RUNS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, caches = prefill_fn(params, tokens, max_len=max_len + 1)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t) * 1e3)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+    del logits
+    dec = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        last, caches = decode_fn(params, tok, caches)
+        tok = torch.argmax(last[:, -1], dim=-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        dec.append((time.perf_counter() - t) * 1e3)
+    prof = _profile(lambda: decode_fn(params, tok, caches),
+                    "unsharded decode step")
+    return {"prefill_ms_runs": pre, "prefill_ms": statistics.median(pre),
+            "decode_ms_runs": dec, "decode_ms": statistics.median(dec),
+            "profile_decode": prof}
+
+
+def _sharded_generate(dev, mesh, card: str) -> dict:
+    """Zamba2-2.7B at full width and depth (flash, bf16 compute on fp32
+    weights): 2 × 2048 prefilled and ``LM_STEPS`` greedy steps through
+    ``make_serve_fns(cfg, ExplicitSharder(...))`` beside phase 16's
+    unsharded ``generate``: identical tokens, prefill logits bitwise (else
+    within 1e-5·max|ref|), 9 flash launches in the sharded prefill and
+    none in its decode steps (counts zeroed just before each), no wire
+    bytes; both paths' prefill and decode medians, one decode step of
+    each profiled."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.serve import generate, make_serve_fns
+    from repro_torch.sharding import ExplicitSharder, ShardingRules
+    from repro_torch.sharding.specs import place_params
+    cfg, params, _ = _lm_model("zamba2-2.7b", dev)
+    prompt = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))[
+        "tokens"]
+    tokens = torch.as_tensor(prompt, device=dev)
+    b, s = tokens.shape
+    steps, max_len = LM_STEPS, s + LM_STEPS
+    with torch.no_grad():
+        res = generate(params, cfg, prompt, steps, device=dev)
+        want_logits, want_tokens = res.prefill_logits, res.tokens
+        del res
+        sharder = ExplicitSharder(mesh, ShardingRules("neutron_tp"))
+        shards = place_params(params, cfg, sharder)
+        prefill_fn, decode_fn = make_serve_fns(cfg, sharder)
+        _zero_lm_counts()
+        with collect_comm() as pre_led:
+            logits, caches = prefill_fn(shards, tokens, max_len=max_len)
+        pre_counts, cases = _read_lm_counts(), _flash_case_counts()
+        print(f"  sharded prefill {b} × {s}: launches flash {pre_counts[0]}"
+              f" ({cases}), ssd {pre_counts[1]}")
+        _expect("sharded prefill launches (flash, ssd)", pre_counts,
+                (_attn_layers(cfg), 0))
+        _expect("sharded prefill flash launches by case", cases,
+                _lm_flash_cases(cfg))
+        logits = sharder.bound(b, s).unshard(logits)
+        bitwise = torch.equal(logits, want_logits)
+        diff = _held("sharded prefill logits vs unsharded", logits,
+                     want_logits, KERNEL_TOL, 0.0)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None].to(torch.int32)
+        del logits, want_logits
+        out, dec_ms, led_step = [prompt, tok.cpu().numpy()], [], None
+        _zero_lm_counts()
+        with collect_comm() as dec_led:
+            for i in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with collect_comm() as one:
+                    last, caches = decode_fn(shards, tok, caches)
+                last = sharder.bound(b, 1).unshard(last)
+                tok = torch.argmax(last[:, -1], dim=-1)[:, None].to(
+                    torch.int32)
+                torch.cuda.synchronize()
+                dec_ms.append((time.perf_counter() - t) * 1e3)
+                out.append(tok.cpu().numpy())
+                led_step = led_step or one.as_dict()
+        _expect(f"sharded decode launches over {steps} steps (flash, ssd)",
+                _read_lm_counts(), (0, 0))
+        # generate's tokens: the prompt, the prefill's token and the
+        # first steps - 1 decode steps' (it does not sample the last)
+        got_tokens = np.concatenate(out, axis=1)[:, :s + steps]
+        if not np.array_equal(got_tokens, want_tokens):
+            raise AssertionError(f"sharded serving tokens differ from "
+                                 f"generate's: {got_tokens[:, s:]} vs "
+                                 f"{want_tokens[:, s:]}")
+        wire = pre_led.wire_bytes() + dec_led.wire_bytes()
+        _expect("sharded serving wire bytes at N = 1", wire, 0)
+        print(f"  sharded serving tokens identical to generate's over "
+              f"{steps} steps; prefill logits "
+              + ("bitwise equal" if bitwise else f"max|Δ| {diff:.3e}")
+              + f"; one decode step's ledger calls "
+              f"{ {k: e['calls'] for k, e in led_step.items()} }")
+        pre_ms = []
+        for _ in range(LM_RUNS):
+            caches = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, caches = prefill_fn(shards, tokens, max_len=max_len)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t) * 1e3)
+        del logits
+        prof = _profile(lambda: decode_fn(shards, tok, caches),
+                        "sharded decode step")
+        caches = None
+        twin = _serving_twin(cfg, params, tokens, steps, max_len, dev)
+    pre, dec = statistics.median(pre_ms), statistics.median(dec_ms)
+    print(f"  sharded prefill {pre:.2f} ms (median of {pre_ms}), unsharded "
+          f"{twin['prefill_ms']:.2f} ({twin['prefill_ms_runs']}); sharded "
+          f"decode {dec:.2f} ms a step (median of {steps}), unsharded "
+          f"{twin['decode_ms']:.2f}; wire bytes a decode step 0; {card}")
+    del params, shards
+    _lm_free()
+    return {"launches": {"flash": pre_counts[0], "ssd": pre_counts[1],
+                         "flash_by_case": cases},
+            "bitwise": bitwise, "max_abs_diff": diff,
+            "prefill_ledger": pre_led.as_dict(), "decode_ledger": led_step,
+            "prefill_ms": pre, "prefill_ms_runs": pre_ms,
+            "decode_ms": dec, "decode_ms_runs": dec_ms,
+            "profile_decode": prof, "unsharded": twin}
+
+
+def _serving_xchecks(dev, mesh) -> dict:
+    """fp32 at full width cut in depth (``SERVE_XCHECKS``): each config's
+    greedy serving through ``make_serve_fns(cfg, ExplicitSharder(...))``
+    under each ``seq_shard_cache`` layout against its unsharded twin, at
+    each of its ``long_context`` settings, under deterministic
+    algorithms: tokens identical, logits within 1e-5·max|ref|."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.sharding import ExplicitSharder, ShardingRules
+    from repro_torch.sharding.specs import place_params
+    out = {}
+    with torch.no_grad(), _deterministic("phase 29 cross-checks"):
+        for arch, over, s, lcs in SERVE_XCHECKS:
+            cfg, params, _ = _lm_model(arch, dev, **over)
+            cfg = dataclasses.replace(cfg, dtype="float32")
+            tokens = torch.as_tensor(next(SyntheticLM(
+                cfg.vocab_size, seed=1).batches(1, s))["tokens"], device=dev)
+            max_len = s + LM_XCHECK_STEPS
+            for lc in lcs:
+                want = greedy(*make_serve_fns(cfg, long_context=lc), params,
+                              tokens, LM_XCHECK_STEPS, max_len=max_len)
+                for mode in SEQ_MODES:
+                    sharder = ExplicitSharder(mesh, ShardingRules(
+                        seq_shard_cache=mode))
+                    shards = place_params(params, cfg, sharder)
+                    got = greedy(*make_serve_fns(cfg, sharder,
+                                                 long_context=lc),
+                                 shards, tokens, LM_XCHECK_STEPS,
+                                 max_len=max_len, sharder=sharder)
+                    tag = (f"{cfg.name} fp32 1×{s}"
+                           f"{' long_context' if lc else ''} "
+                           f"seq_shard_cache={mode!r}")
+                    out[tag] = held_serving(tag, got, want)
+                    del shards, got
+                del want
+            del params
+            _lm_free()
+    return out
+
+
+def sharded_serving(dev, card: str) -> dict:
+    """Phase 29: sharded LM serving on a (data=1, model=1) mesh of one
+    NCCL rank — Zamba2-2.7B's sharded prefill and greedy decode beside
+    ``generate``, then the fp32 cross-checks of the three cache
+    layouts."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        out = {"zamba2": _sharded_generate(dev, mesh, card)}
+        out["xchecks"] = _serving_xchecks(dev, mesh)
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 29 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The single-device trainer, R-GCN, checkpoints, the example (phase 20)
 # ---------------------------------------------------------------------------
 
@@ -3851,7 +4138,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
 
     t_start = time.perf_counter()
-    print("[1/28] device")
+    print("[1/29] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3869,101 +4156,105 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    print("[2/28] build")
+    print("[2/29] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/28] spmm kernel against its plain version")
+    print("[3/29] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/28] flash kernel against its plain version")
+    print("[4/29] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/28] ssd kernel against its plain version")
+    print("[5/29] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/28] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/29] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/28] naive TP GCN training (a split and a gather per "
+        print("[7/29] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/28] DP halo-exchange GCN training (k=1)")
+        print("[8/29] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/28] out-of-core streamed GCN training (pinned host "
+        print("[9/29] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/28] GAT decoupled-pipelined TP training (the score "
+        print("[10/29] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/28] GAT naive TP training")
+        print("[11/29] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/28] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/29] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/28] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/29] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/28] the constraint engine backend (DTensor, "
+        print("[14/29] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/28] spmm timing at the GCN paths' shapes")
+        print("[15/29] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/28] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/29] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info, score_info = serve(dev)
-    print("[18/28] fp32 cross-check at full width, kernels vs plain")
+    print("[18/29] fp32 cross-check at full width, kernels vs plain")
     fp32_err, fp32_launches = cross_check_fp32(
         cfg, params, batch["tokens"][:1, :512], batch["targets"][:1, :512],
         dev)
     del params
     _lm_free()
-    print("[19/28] flash and ssd timing at the LM paths' shapes")
+    print("[19/29] flash and ssd timing at the LM paths' shapes")
     t = time.perf_counter()
     lm_rows = lm_timing(dev)
     _lm_free()
     print(f"  phase 19 took {time.perf_counter() - t:.1f} s")
-    print("[20/28] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    print("[20/29] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
-    print("[21/28] multihost: the placed bundle, the launcher under the env "
+    print("[21/29] multihost: the placed bundle, the launcher under the env "
           "contract")
     multihost_info = multihost(dev, card)
     _lm_free()
-    print("[22/28] gemma2-9b at full width and depth: generate 1 × 8192 "
+    print("[22/29] gemma2-9b at full width and depth: generate 1 × 8192 "
           "with ring caches and with dense caches, scoring")
     gemma_info = gemma2(dev)
-    print("[23/28] deepseek-v2-lite-16b at full width and depth: generate "
+    print("[23/29] deepseek-v2-lite-16b at full width and depth: generate "
           "2 × 2048 (MLA, MoE), scoring")
     deepseek_info = deepseek(dev)
-    print("[24/28] mamba2-1.3b at full width and depth: scoring, generate")
+    print("[24/29] mamba2-1.3b at full width and depth: scoring, generate")
     mamba_info = mamba2(dev)
-    print("[25/28] fp32 cross-checks of the new configs, kernels vs plain")
+    print("[25/29] fp32 cross-checks of the new configs, kernels vs plain")
     xcheck_errs, xcheck_launches = lm_cross_checks(dev)
-    print("[26/28] InternVL2-1B and MusicGen-large at full width and depth: "
+    print("[26/29] InternVL2-1B and MusicGen-large at full width and depth: "
           "generate 2 × 2048 behind the prefix, scoring")
     mm_info = multimodal(dev)
-    print("[27/28] LM training at full width and depth: InternVL2-1B and "
+    print("[27/29] LM training at full width and depth: InternVL2-1B and "
           "Granite-MoE-1B-A400M, the fp32 cross-checks, the kernels' "
           "refusals")
     t = time.perf_counter()
     train_info = lm_train(dev, card)
     print(f"  phase 27 took {time.perf_counter() - t:.1f} s")
-    print("[28/28] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
+    print("[28/29] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
           "Zamba2-2.7B's sharded scoring (flash, SSD), Granite-MoE's "
           "sharded training step")
     shard_info = sharded_lm(dev, card)
+    print("[29/29] sharded LM serving on a (data=1, model=1) mesh: "
+          "Zamba2-2.7B's sharded prefill (flash) and greedy decode, the "
+          "fp32 cross-checks of the three cache layouts")
+    serve_shard_info = sharded_serving(dev, card)
     script_s = time.perf_counter() - t_start
-    print(f"  phases 1–28 took {script_s:.1f} s")
+    print(f"  phases 1–29 took {script_s:.1f} s")
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -3982,6 +4273,7 @@ def main() -> int:
                       "fp32_xcheck_logits_err": xcheck_errs,
                       "multimodal": mm_info, "lm_train": train_info,
                       "sharded_lm": shard_info,
+                      "sharded_serving": serve_shard_info,
                       "script_s": script_s, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
@@ -4082,6 +4374,16 @@ def main() -> int:
         "held_against": "ref.flash_ref", "shape": fl["shape"],
         "path": "zamba2-2.7b sharded scoring (phase 28, mesh 1×1)",
         "launches": shard_info["scoring"]["launches"]["flash"],
+        "max_abs_err": max(flash_err, fl["max_abs_err"]),
+        **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}, "ms_by": "events"}, {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                  "flash_attention_mma.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+        "held_against": "ref.flash_ref", "shape": fl["shape"],
+        "path": "zamba2-2.7b sharded serving prefill (phase 29, mesh 1×1)",
+        "launches": serve_shard_info["zamba2"]["launches"]["flash"],
         "max_abs_err": max(flash_err, fl["max_abs_err"]),
         **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")}, "ms_by": "events"}, {

@@ -31,10 +31,28 @@ Every process joins through the env contract
   median forward;
 * on rank 0, the flash and SSD kernels at those local shapes (phase 19's
   timing rows: the kernel, its plain version, the library call, the
-  bound).
+  bound);
+* **serving** Zamba2-2.7B at full width (flash, bf16 compute), 2 × 2048
+  prefilled and 32 greedy steps through ``make_serve_fns(cfg,
+  ExplicitSharder(...))`` under ``seq_shard_cache`` False and
+  ``"model"``, beside the unsharded closures on the rank's own card: 9
+  flash launches a rank in the sharded prefill (the local heads, (2,
+  2048, 8, 80) at N = 4) and none in decode, the prefill and decode
+  medians of both, the wire bytes of a decode step (its ledger), and how
+  far the bf16 tokens and prefill logits agree (``_agreement``: bf16
+  rounds otherwise on the per-rank shapes, so this is reported, and the
+  arithmetic is held in fp32 below);
+* **serving cross-checks** in fp32, each against its unsharded twin on
+  the rank's card — tokens identical, logits within 1e-5·max|ref|:
+  Zamba2-2.7B at full width and depth on 1 × 2048, gemma2 at 4 layers on
+  1 × 4608 with ring caches (``long_context``) and DeepSeek at 3 layers
+  on 1 × 512 (at a capacity factor E/k that drops nothing: ``ep_moe``'s
+  capacity is the rank's), under False and ``"model"`` on (data 1, model
+  N) and under True on (data 2, model N/2) at batch 1.
 
-Rank 0 prints the card's name and power limit and one JSON line, and
-writes ``--out``.  Exits non-zero if a hold fails.  ``--device cpu
+``--only training`` or ``--only serving`` runs one part.  Rank 0 prints
+the card's name and power limit and one JSON line, and writes
+``--out``.  Exits non-zero if a hold fails.  ``--device cpu
 --small`` runs the same on gloo processes at reduced sizes, untimed (a
 rehearsal on the host).
 """
@@ -49,6 +67,7 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -231,6 +250,124 @@ def scoring_cell(mesh, dev, small) -> dict:
             "wire_bytes": ledger.wire_bytes()}
 
 
+def _agreement(got, want, s: int) -> dict:
+    """How far one bf16 greedy run (``chip_smoke.greedy``) agrees with
+    another: the tokens, each sequence's first step whose token differs
+    (None where none does) and the prefill logits' largest |Δ| over
+    max|ref|.  At N > 1 the per-rank program's GEMMs run on other shapes
+    (a sequence shard's rows, a rank's heads), so bf16 rounds otherwise
+    and a near-tie can flip a greedy token; the fp32 cross-checks hold
+    the arithmetic."""
+    differs = got[1][:, s:] != want[1][:, s:]
+    return {"tokens_identical": not differs.any(),
+            "first_differing_step": [int(np.argmax(d)) if d.any() else None
+                                     for d in differs],
+            "prefill_rel_diff": (got[0] - want[0]).abs().max().item()
+            / want[0].abs().max().item()}
+
+
+def serving_cell(mesh, dev, small) -> dict:
+    import chip_smoke as cs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.sharding import ExplicitSharder, ShardingRules
+    from repro_torch.sharding.specs import place_params
+    cfg = _cfg("zamba2-2.7b", small, attn_impl="flash", ssm_impl="fused")
+    params = init_transformer(cfg, seed=0, device=dev)
+    tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=0)
+                                  .batches(2, 64 if small else 2048))
+                             ["tokens"], device=dev)
+    steps = 8 if small else 32
+    max_len = tokens.shape[1] + steps
+    out = {}
+    def prefill_runs(prefill_fn, p, first):
+        """The greedy run's prefill time and two more."""
+        runs = [first]
+        for _ in range(2):
+            _sync(dev)
+            t = time.perf_counter()
+            prefill_fn(p, tokens, max_len=max_len)
+            _sync(dev)
+            runs.append((time.perf_counter() - t) * 1e3)
+        return {"prefill_ms": statistics.median(runs),
+                "prefill_ms_runs": runs}
+
+    with torch.no_grad():
+        ms = []
+        fns = make_serve_fns(cfg)
+        want = cs.greedy(*fns, params, tokens, steps, max_len=max_len, ms=ms)
+        out["unsharded"] = {**prefill_runs(fns[0], params, ms[0]),
+                            "decode_ms": statistics.median(ms[1:]),
+                            "decode_ms_runs": ms[1:]}
+        for mode in (False, "model"):
+            sharder = ExplicitSharder(mesh, ShardingRules(
+                seq_shard_cache=mode))
+            shards = place_params(params, cfg, sharder)
+            fns = make_serve_fns(cfg, sharder)
+            ms, ledgers = [], []
+            cs._zero_lm_counts()
+            got = cs.greedy(*fns, shards, tokens, steps, max_len=max_len,
+                            sharder=sharder, ms=ms, ledgers=ledgers)
+            counts = cs._read_lm_counts()
+            if dev.type == "cuda" and counts != (cs._attn_layers(cfg), 0):
+                raise AssertionError(f"sharded serving launches {counts}")
+            wire = [led.wire_bytes() for led in ledgers]
+            out[f"seq_shard_cache={mode}"] = {
+                **_agreement(got, want, tokens.shape[1]),
+                "launches": {"flash": counts[0], "ssd": counts[1]},
+                **prefill_runs(fns[0], shards, ms[0]),
+                "decode_ms": statistics.median(ms[1:]),
+                "decode_ms_runs": ms[1:],
+                "decode_wire_bytes": wire[0],
+                "decode_wire_bytes_equal": len(set(wire)) == 1,
+                "decode_ledger": ledgers[0].as_dict(),
+                "max_abs_diff": max((g - w).abs().max().item() for g, w in
+                                    [(got[0], want[0])] + list(zip(
+                                        got[2], want[2])))}
+            del shards, got
+    return out
+
+
+def serving_xchecks(meshes, dev, small) -> dict:
+    import chip_smoke as cs
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.sharding import ExplicitSharder, ShardingRules
+    from repro_torch.sharding.specs import place_params
+    out = {}
+    for arch, over, s, lc in (
+            ("zamba2-2.7b", {}, 2048, False),
+            ("gemma2-9b", {"num_layers": 4}, 4608, True),
+            ("deepseek-v2-lite-16b", {"num_layers": 3}, 512, False)):
+        cfg = _cfg(arch, small, dtype="float32", attn_impl="flash", **over)
+        if cfg.moe:     # ep_moe's capacity is per rank: drop nothing
+            cfg = dataclasses.replace(cfg, moe_capacity_factor=float(
+                cfg.num_experts // cfg.num_experts_per_tok))
+        params = init_transformer(cfg, seed=0, device=dev)
+        tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=1)
+                                      .batches(1, 96 if small else s))
+                                 ["tokens"], device=dev)
+        steps = cs.LM_XCHECK_STEPS
+        max_len = tokens.shape[1] + steps
+        with torch.no_grad():
+            want = cs.greedy(*make_serve_fns(cfg, long_context=lc), params,
+                             tokens, steps, max_len=max_len)
+            for mesh_name, mode in (("1xN", False), ("1xN", "model"),
+                                    ("2xN/2", True)):
+                sharder = ExplicitSharder(meshes[mesh_name], ShardingRules(
+                    seq_shard_cache=mode))
+                got = cs.greedy(*make_serve_fns(cfg, sharder,
+                                                long_context=lc),
+                                place_params(params, cfg, sharder), tokens,
+                                steps, max_len=max_len, sharder=sharder)
+                tag = f"{arch} fp32 on {mesh_name} seq_shard_cache={mode!r}"
+                out[tag] = cs.held_serving(tag, got, want, RTOL)
+        del params
+    return out
+
+
 def kernel_rows(dev, n: int) -> dict:
     """Phase 19's rows at the sharded scoring's local shapes."""
     import chip_smoke as cs
@@ -240,11 +377,52 @@ def kernel_rows(dev, n: int) -> dict:
             "ssd": cs._ssd_row(gen, dev, 2, 2048, 80 // n, 64, 64, 256)}
 
 
+def training_part(mesh, n, dev, small, lead) -> dict:
+    res = {}
+    for arch in ("granite-moe-1b-a400m", "internvl2-1b"):
+        res[f"xcheck {arch}"] = xcheck_training(arch, mesh, dev, small)
+    res["xcheck zamba2 scoring"] = xcheck_scoring(mesh, dev, small)
+    if lead:
+        print(f"cross-checks ok: {json.dumps(res)}", flush=True)
+    for arch, batch in TRAIN:
+        res[arch] = train_cell(arch, batch, mesh, dev, small,
+                               audited=arch.startswith("granite"))
+        if lead:
+            r = res[arch]
+            print(f"{arch} batch {batch}: step {r['step_ms']:.1f} ms "
+                  f"(runs {[round(v, 1) for v in r['step_ms_runs']]}), "
+                  f"losses {[round(v, 4) for v in r['losses']]}, "
+                  f"{r['wire_bytes'] / 1e9:.3f} GB on the wire a rank "
+                  f"a step", flush=True)
+    res["zamba2 scoring"] = scoring_cell(mesh, dev, small)
+    if lead and dev.type == "cuda":
+        res["kernels"] = kernel_rows(dev, n)
+    return res
+
+
+def serving_part(mesh, n, dev, small, lead) -> dict:
+    from repro_torch.launch.mesh import make_host_mesh
+    res = {"zamba2 serving": serving_cell(mesh, dev, small)}
+    if lead:
+        brief = {k: {f: v.get(f) for f in (
+            "prefill_ms", "decode_ms", "decode_wire_bytes",
+            "tokens_identical", "first_differing_step", "prefill_rel_diff")}
+                 for k, v in res["zamba2 serving"].items()}
+        print(f"zamba2 serving: {json.dumps(brief)}", flush=True)
+    res["serving xchecks"] = serving_xchecks(
+        {"1xN": mesh, "2xN/2": make_host_mesh(model=n // 2, data=2)}, dev,
+        small)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "lm_sharded.json"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--small", action="store_true")
+    ap.add_argument("--only", choices=("training", "serving"),
+                    help="run the training and scoring part or the "
+                         "serving part alone (default: both)")
     args = ap.parse_args(argv)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime import distributed as RD
@@ -259,27 +437,13 @@ def main(argv=None) -> int:
     try:
         mesh = make_host_mesh(model=ctx.num_processes, data=1)
         n = mesh.size
-        for arch in ("granite-moe-1b-a400m", "internvl2-1b"):
-            res[f"xcheck {arch}"] = xcheck_training(arch, mesh, dev,
-                                                    args.small)
-        res["xcheck zamba2 scoring"] = xcheck_scoring(mesh, dev, args.small)
-        if lead:
-            print(f"cross-checks ok: {json.dumps(res)}", flush=True)
-        for arch, batch in TRAIN:
-            res[arch] = train_cell(arch, batch, mesh, dev, args.small,
-                                   audited=arch.startswith("granite"))
-            if lead:
-                r = res[arch]
-                print(f"{arch} batch {batch}: step {r['step_ms']:.1f} ms "
-                      f"(runs {[round(v, 1) for v in r['step_ms_runs']]}), "
-                      f"losses {[round(v, 4) for v in r['losses']]}, "
-                      f"{r['wire_bytes'] / 1e9:.3f} GB on the wire a rank "
-                      f"a step", flush=True)
-        res["zamba2 scoring"] = scoring_cell(mesh, dev, args.small)
-        if lead and dev.type == "cuda":
-            res["kernels"] = kernel_rows(dev, n)
+        if args.only != "serving":
+            res.update(training_part(mesh, n, dev, args.small, lead))
+        if args.only != "training":
+            res.update(serving_part(mesh, n, dev, args.small, lead))
     finally:
         RD.shutdown()
+
     if lead:
         if dev.type == "cuda":
             res["card"] = subprocess.run(

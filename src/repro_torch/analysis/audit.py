@@ -29,7 +29,9 @@ which walks the traced program instead:
 Exactness contract, as the reference's: exact for the data-moving ops —
 ``all_to_all`` (forward ``calls`` against the forward pass,
 ``mirrored_calls`` against the backward one), ``all_gather`` (and the
-LM's ``param_gather``) and its mirror, the reduce-scatter, and
+LM's gathers under their own op kinds: ``param_gather``, and serving's
+``cache_place``, ``softmax_gather`` and ``conv_gather``) and its mirror,
+the reduce-scatter, and
 ``ppermute`` as a send and a receive — and one-directional for ``psum`` /
 ``grad_psum``: the ledger may not claim more all-reduces than ran, but
 all-reduces it does not record are expected (below).  A checkpoint's
@@ -214,8 +216,8 @@ def expected_from_ledger(ledger: T.CommLedger, *,
     calls} of the data ops, exact; {dtype: calls} of all-reduces,
     a lower bound).  A forward op's ``calls`` go to the forward pass, its
     ``mirrored_calls`` to the backward one under the op the mirror runs:
-    the all-to-all's is an all-to-all, the all-gather's (and a parameter
-    gather's) a reduce-scatter (an all-reduce on gloo), the ppermute's a
+    the all-to-all's is an all-to-all, the all-gather's (and that of every
+    op kind with an all-gather's cost) a reduce-scatter (an all-reduce on gloo), the ppermute's a
     ppermute: a send and a receive each.  ``recomputed_calls`` (a
     checkpoint's rerun) go to the backward pass under the forward op.
     ``h2d`` is not a collective and is skipped."""
@@ -232,7 +234,7 @@ def expected_from_ledger(ledger: T.CommLedger, *,
                 exact[(p2p, dtype, "forward")] += e.calls
                 exact[(p2p, dtype, "backward")] += e.mirrored_calls \
                     + e.recomputed_calls
-        elif op in ("all_gather", "param_gather"):
+        elif T.OP_COST.get(op) == "all_gather":
             op = "all_gather"
             exact[(op, dtype, "forward")] += e.calls
             exact[(op, dtype, "backward")] += e.recomputed_calls

@@ -134,21 +134,26 @@ def apply_block(p: dict, cfg: ArchConfig, kind: str, x, positions, *,
 
 
 def apply_block_prefill(p: dict, cfg: ArchConfig, kind: str, x, positions,
-                        max_len: int, *, long_context: bool = False):
+                        max_len: int, *, long_context: bool = False,
+                        shard: NoShard = no_shard):
     """Full-sequence block that also materializes the decode cache.
-    Returns (x, cache)."""
+    Returns (x, cache); under a sharder the rank's token block and cache
+    shards."""
     if kind == "mamba":
         y, cache = ssm_lib.mamba2_prefill(p["mixer"], cfg,
-                                          _norm(p["norm"], x, cfg))
+                                          _norm(p["norm"], x, cfg),
+                                          shard=shard)
         return x + y, cache
     h = _norm(p["attn_norm"], x, cfg)
     if cfg.use_mla:
-        a, cache = attn.mla_prefill(p["attn"], cfg, h, positions, max_len)
+        a, cache = attn.mla_prefill(p["attn"], cfg, h, positions, max_len,
+                                    shard=shard)
     else:
         a, cache = attn.gqa_prefill(p["attn"], cfg, h, positions, max_len,
                                     window=_window(cfg, kind),
-                                    long_context=long_context)
-    return _ffn(p, cfg, kind, _attn_out(p, cfg, x, a))[0], cache
+                                    long_context=long_context, shard=shard)
+    return _ffn(p, cfg, kind, _attn_out(p, cfg, x, a), shard=shard)[0], \
+        cache
 
 
 # ---------------------------------------------------------------------------
@@ -169,20 +174,24 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     return attn.init_kv_cache(cfg, batch, max_len, dtype, device)
 
 
-def apply_block_decode(p: dict, cfg: ArchConfig, kind: str, x, cache):
+def apply_block_decode(p: dict, cfg: ArchConfig, kind: str, x, cache, *,
+                       shard: NoShard = no_shard):
     """One-token step.  Returns (x, new_cache).  A local layer on the dense
     cache attends to every cached token, with no window: the reference's
-    decode does the same."""
+    decode does the same.  Under a sharder x is the rank's batch block,
+    replicated over the model axis, and the cache the rank's shards."""
     if kind == "mamba":
         y, cache = ssm_lib.mamba2_decode(p["mixer"], cfg,
-                                         _norm(p["norm"], x, cfg), cache)
+                                         _norm(p["norm"], x, cfg), cache,
+                                         shard=shard)
         return x + y, cache
     h = _norm(p["attn_norm"], x, cfg)
     if cfg.use_mla:
-        a, cache = attn.mla_decode(p["attn"], cfg, h, cache)
+        a, cache = attn.mla_decode(p["attn"], cfg, h, cache, shard=shard)
     elif isinstance(cache, attn.WindowKVCache):
-        a, cache = attn.gqa_decode_windowed(p["attn"], cfg, h, cache)
+        a, cache = attn.gqa_decode_windowed(p["attn"], cfg, h, cache,
+                                            shard=shard)
     else:
-        a, cache = attn.gqa_decode(p["attn"], cfg, h, cache)
+        a, cache = attn.gqa_decode(p["attn"], cfg, h, cache, shard=shard)
     x = _attn_out(p, cfg, x, a)
-    return _ffn(p, cfg, kind, x, dropless=True)[0], cache
+    return _ffn(p, cfg, kind, x, dropless=True, shard=shard)[0], cache

@@ -23,8 +23,15 @@ tokens.
 Under a sharder (``repro_torch.sharding``), :func:`forward` runs this
 rank's part of a (data, model) mesh's program on parameter shards: the
 token layout in, the blocks' weights gathered at use (and again in a
-checkpoint's recompute), the logits of the rank's tokens out.  Prefill and
-decode run on one card and refuse a sharder.
+checkpoint's recompute), the logits of the rank's tokens out.
+:func:`prefill` runs the same program and returns the rank's shards of
+the caches (``cache_shardings``' layouts); :func:`decode_step` takes the
+global token batch, runs the rank's batch block with the NN phase
+replicated over the model axis, gathers the weights at use (each
+block's shards and the head's cast to the compute dtype before the
+gather, as ``_cast_compute`` casts them: the same values as the in-block
+casts, half the bytes in bf16) and returns the rank's block of the logits
+and its cache shards.
 
 Decode caches mirror the group structure; :func:`decode_step` writes the
 new token's state into the cache tensors in place (see
@@ -172,13 +179,6 @@ def _groups(params, cfg: ArchConfig, dtype: torch.dtype):
                       for unit in reps]
 
 
-def _layers(params, cfg: ArchConfig, dtype: torch.dtype):
-    """(kind, block params) for every layer in order, weights pre-cast."""
-    for gspec, reps in _groups(params, cfg, dtype):
-        for unit in reps:
-            yield from zip(gspec.unit, unit)
-
-
 def _sharded_groups(params, cfg: ArchConfig, dtype: torch.dtype, specs):
     """:func:`_groups` of a tree of shards, each repeat's unit beside its
     leaves' :class:`~repro_torch.sharding.specs.ParamSpec` (a stacked
@@ -242,6 +242,36 @@ def _rematted(step, remat: Union[bool, str], sharded: bool = False):
     return run
 
 
+def _inputs(params, cfg: ArchConfig, tokens, prefix_embeddings, shard,
+            dtype):
+    """(top-level leaves, the input embeddings in the compute dtype, their
+    positions, the sharder bound to the global batch and length, the
+    groups of :func:`_groups` with each unit's leaf specs — or None
+    unsharded).  Under a sharder: the top-level leaves gathered, the
+    global batch's rank block in the token layout at global positions."""
+    if not shard.active:
+        x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device)[None].expand(b, s)
+        groups = ((g, [(unit, None) for unit in reps])
+                  for g, reps in _groups(params, cfg, dtype))
+        return params, x, positions, shard, groups
+    specs = shard.param_specs(cfg)
+    top = {k: shard.gather(params[k], specs[k]) for k in _TOP
+           if k in params}
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    if prefix_embeddings is not None:
+        prefix_embeddings = torch.as_tensor(prefix_embeddings,
+                                            device=tokens.device)
+    x = assemble_inputs(top, cfg, shard.take_batch(tokens),
+                        shard.take_batch(prefix_embeddings)).to(dtype)
+    shard = shard.bound(tokens.shape[0], x.shape[1])
+    x = shard(x, "act_tokens", src="act_seq")
+    positions = shard.positions(*x.shape[:2], x.device)
+    return top, x, positions, shard, _sharded_groups(params, cfg, dtype,
+                                                     specs)
+
+
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeddings: Optional[torch.Tensor] = None, *,
             shard: NoShard = no_shard, remat: Union[bool, str] = True):
@@ -266,27 +296,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
     if remat not in REMAT:
         raise ValueError(f"remat={remat!r} is not one of {REMAT}")
     dtype = compute_dtype(cfg)
-    if shard.active:
-        specs = shard.param_specs(cfg)
-        top = {k: shard.gather(params[k], specs[k]) for k in _TOP
-               if k in params}
-        tokens = torch.as_tensor(tokens, device=params["embed"].device)
-        if prefix_embeddings is not None:
-            prefix_embeddings = torch.as_tensor(prefix_embeddings,
-                                                device=tokens.device)
-        x = assemble_inputs(top, cfg, shard.take_batch(tokens),
-                            shard.take_batch(prefix_embeddings)).to(dtype)
-        shard = shard.bound(tokens.shape[0], x.shape[1])
-        x = shard(x, "act_tokens", src="act_seq")
-        positions = shard.positions(*x.shape[:2], x.device)
-        groups = _sharded_groups(params, cfg, dtype, specs)
-    else:
-        top = params
-        x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
-        b, s = x.shape[:2]
-        positions = torch.arange(s, device=x.device)[None].expand(b, s)
-        groups = ((g, [(unit, None) for unit in reps])
-                  for g, reps in _groups(params, cfg, dtype))
+    top, x, positions, shard, groups = _inputs(
+        params, cfg, tokens, prefix_embeddings, shard, dtype)
     aux_total = x.new_zeros((), dtype=torch.float32)
     for gspec, reps in groups:
         for unit, unit_specs in reps:
@@ -350,12 +361,6 @@ def _rep_cache(stacked, r: int):
         name: getattr(stacked, name)[r] for name in _tensor_fields(stacked)})
 
 
-def _refuse_sharded(what: str, shard) -> None:
-    if shard.active:
-        from ..sharding.specs import SERVING_ITEM
-        raise NotImplementedError(f"{what}(shard=...): {SERVING_ITEM}")
-
-
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeddings: Optional[torch.Tensor] = None, *,
             max_len: int, long_context: bool = False,
@@ -363,31 +368,32 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
     """Run the prompt (behind a modality config's prefix) through the
     stack, materializing decode caches (at ``long_context``, ring caches on
     gemma2's local layers).  Returns (logits (B, P + S, V), caches), the
-    caches' length P + S.  Runs on one card: a sharder raises."""
-    _refuse_sharded("prefill", shard)
+    caches' length P + S.  Under a sharder, as :func:`forward`: the
+    rank's block of the logits' token layout and its cache shards."""
     dtype = compute_dtype(cfg)
-    x = assemble_inputs(params, cfg, tokens, prefix_embeddings).to(dtype)
-    b, s = x.shape[:2]
-    positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    layers = _layers(params, cfg, dtype)
+    top, x, positions, shard, groups = _inputs(
+        params, cfg, tokens, prefix_embeddings, shard.serving(max_len),
+        dtype)
     caches = []
-    for gspec in B.layer_groups(cfg):
+    for gspec, reps in groups:
         per_rep = []
-        for _ in range(gspec.repeats):
+        for unit, unit_specs in reps:
             unit_caches = []
-            for _kind in gspec.unit:
-                kind, p_blk = next(layers)
+            for i, (kind, p_blk) in enumerate(zip(gspec.unit, unit)):
+                if unit_specs is not None:
+                    p_blk = shard.gather(p_blk, unit_specs[i])
                 x, c = B.apply_block_prefill(p_blk, cfg, kind, x, positions,
                                              max_len,
-                                             long_context=long_context)
+                                             long_context=long_context,
+                                             shard=shard)
                 unit_caches.append(c)
             per_rep.append(unit_caches)
         caches.append(per_rep[0] if gspec.repeats == 1 else
                       [_stack_caches([rep[u] for rep in per_rep])
                        for u in range(len(gspec.unit))])
-    x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
+    x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(params, cfg, x), caches
+    return unembed(top, cfg, x), caches
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -421,33 +427,59 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, *,
 
     The weights are not pre-cast (the blocks cast each use), as the
     reference.  The cache tensors are updated in place: the caches passed
-    in are consumed.  Runs on one card: a sharder raises."""
-    _refuse_sharded("decode_step", shard)
+    in are consumed.  Under a sharder ``params`` and ``caches`` are the
+    rank's shards, ``token`` the global batch, the sharder bound to the
+    caches' ``max_len`` (``Sharder.serving``, which ``make_serve_fns``
+    does); the logits returned are the rank's batch block (module
+    docstring)."""
     dtype = compute_dtype(cfg)
-    x = (_embed(params, token) * math.sqrt(float(cfg.d_model))).to(dtype)
+    specs = None
+    top = params
+    if shard.active:
+        if shard.cache_len is None:
+            raise ValueError(
+                "a sharded decode step needs the caches' max_len, which a "
+                "rank's shard does not show: pass shard=sharder.serving("
+                "max_len) (make_serve_fns' closures do)")
+        specs = shard.param_specs(cfg)
+        top = {k: shard.gather(_cast_compute(params[k], dtype, k)
+                               if k == "head" else params[k], specs[k])
+               for k in _TOP if k in params and k != "mm_proj"}
+        token = torch.as_tensor(token, device=params["embed"].device)
+        shard = shard.bound(token.shape[0], 1)
+        token = shard.take_batch(token)
+    x = (_embed(top, token) * math.sqrt(float(cfg.d_model))).to(dtype)
     new_caches = []
-    for gspec, gp, gc in zip(B.layer_groups(cfg), params["groups"], caches):
+    for gi, (gspec, gp, gc) in enumerate(zip(B.layer_groups(cfg),
+                                             params["groups"], caches)):
         new_gc = list(gc)
         for r in range(gspec.repeats):
             for u, (kind, p_blk) in enumerate(zip(gspec.unit, gp)):
+                sp = None if specs is None else specs["groups"][gi][u]
                 if kind == "shared_attn":
                     p_blk = params["shared_block"]
+                    sp = None if specs is None else specs["shared_block"]
                 elif gspec.repeats > 1:
                     p_blk = _rep(p_blk, r)
+                    if sp is not None:
+                        sp = tree_map(lambda t: t.rep(), sp)
+                if sp is not None:
+                    p_blk = shard.gather(_cast_compute(p_blk, dtype), sp)
                 if gspec.repeats == 1:
                     x, new_gc[u] = B.apply_block_decode(p_blk, cfg, kind, x,
-                                                        gc[u])
+                                                        gc[u], shard=shard)
                     continue
                 x, c_new = B.apply_block_decode(p_blk, cfg, kind, x,
-                                                _rep_cache(gc[u], r))
+                                                _rep_cache(gc[u], r),
+                                                shard=shard)
                 _set_rep(gc[u], r, c_new)
         if gspec.repeats > 1:
             new_gc = [dataclasses.replace(c, length=c.length + 1)
                       for c in gc]
         new_caches.append(new_gc)
-    x = nl.rms_norm(x, params["final_norm"].float(), cfg.norm_eps,
+    x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(params, cfg, x), new_caches
+    return unembed(top, cfg, x), new_caches
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,17 @@ kernel, :mod:`..kernels.flash_attn`).  The full-sequence functions take
 the reference's ``shard`` hook (:data:`~repro_torch.nn.shard.no_shard` on
 one card): under a :class:`~repro_torch.sharding.specs.Sharder` the
 mixing phase runs head-sharded between the paper's split and gather
-(:func:`_mixing_attention`).  Prefill and decode run on one card.
+(:func:`_mixing_attention`).  So does a sharded prefill's, which then
+builds each cache in its ``cache_shardings`` layout from the prompt's
+token layout (``Sharder.to_cache``).  A sharded decode step runs the NN
+phase on the rank's batch block, replicated over the model axis; q and
+the new k/v move to the cache's layout (a slice of the heads where they
+are sharded), the rank that holds the token's slot writes it, and
+attention over a sequence split over ranks is a split softmax: each rank
+takes, in fp32 over its own slots, its max, sum and output (the softcap
+before the max), and one gather of those partials over the cache's
+sequence axis merges them (:func:`_split_softmax`).  No decode step
+gathers a cache.
 
 Decode caches:
   * :class:`KVCache`        — dense (B, S_max, H_kv, hd) k/v;
@@ -268,22 +278,47 @@ class KVCache:
     length: int         # valid prefix length
 
 
+def _padded(max_len: int):
+    """Makes the dense cache from the prompt's positions (zeros after)."""
+    def build(t):
+        buf = t.new_zeros((t.shape[0], max_len) + t.shape[2:])
+        buf[:, :t.shape[1]] = t
+        return buf
+    return build
+
+
+def _ring(s: int, window: int):
+    """Makes the ring cache from the last positions of an s-long prompt
+    (at most ``window``), scattered into their slots."""
+    def build(t):
+        slots = torch.arange(s - t.shape[1], s, device=t.device) % window
+        ring = t.new_zeros((t.shape[0], window) + t.shape[2:])
+        ring[:, slots] = t
+        return ring
+    return build
+
+
 def gqa_prefill(p, cfg: ArchConfig, x, positions, max_len: int, *,
-                window: Optional[int] = None, long_context: bool = False):
+                window: Optional[int] = None, long_context: bool = False,
+                shard: NoShard = no_shard):
     """Full-sequence attention that also materializes the decode cache: the
     window's ring cache for a windowed layer at ``long_context``, else the
-    dense one."""
+    dense one.  Under a sharder x is the rank's block of the token layout
+    and the cache the rank's shards (module docstring)."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
-    out = _mixing_attention(cfg, q, k, v, window=window)
-    y = _out_proj(out, p["wo"])
+    out = _mixing_attention(cfg, q, k, v, window=window, shard=shard)
+    y = shard(_out_proj(out, p["wo"]), "act_tokens")
+    b, s = shard.batch or x.shape[0], shard.seq or x.shape[1]
     if window and long_context:
-        return y, _fill_window_cache(k, v, window)
-    b, sq = x.shape[:2]
-    kc = k.new_zeros((b, max_len) + k.shape[2:])
-    vc = v.new_zeros((b, max_len) + v.shape[2:])
-    kc[:, :sq] = k
-    vc[:, :sq] = v
-    return y, KVCache(k=kc, v=vc, length=sq)
+        shape, keep = (b, window) + k.shape[2:], min(s, window)
+        build = _ring(s, window)
+        return y, WindowKVCache(
+            k=shard.to_cache(k, "k", shape, build, keep),
+            v=shard.to_cache(v, "v", shape, build, keep), length=s,
+            window=window)
+    shape, build = (b, max_len) + k.shape[2:], _padded(max_len)
+    return y, KVCache(k=shard.to_cache(k, "k", shape, build),
+                      v=shard.to_cache(v, "v", shape, build), length=s)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -294,21 +329,76 @@ def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
                    length=0)
 
 
-def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache):
-    """One-token decode against a dense cache.  x: (B, 1, D).  Writes the
-    token's k/v into ``cache.k``/``cache.v`` in place."""
+def _merged(o, m, l, lay):
+    """The softmax-weighted sum from each rank's partial output ``o``
+    (unnormalised), max ``m`` and sum ``l`` over its own slots, fp32, by
+    one gather over the cache's sequence axis."""
+    parts = lay.partials(torch.cat([o, m, l], dim=-1))
+    hv = o.shape[-1]
+    mx = parts[..., hv:hv + 1]
+    w = torch.exp(mx - mx.amax(dim=0))
+    return (w * parts[..., :hv]).sum(dim=0) / (w * parts[..., hv + 1:]).sum(
+        dim=0)
+
+
+def _split_softmax(s, vals, eq: str, lay):
+    """softmax(s) contracted with ``vals`` by ``eq`` (the probabilities
+    first), where s (..., S_l), masked and softcapped, fp32, holds this
+    rank's slots of a sequence split over ``lay.split``'s ranks."""
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    o = torch.einsum(eq, p, vals)
+    return _merged(o, m, p.sum(dim=-1, keepdim=True), lay)
+
+
+def _gqa_decode(p, cfg: ArchConfig, x, cache, shard: NoShard, *,
+                ring: bool):
+    """One-token decode against the dense (``ring`` False) or the ring
+    cache, written in place at slot ``pos`` (``pos % window``)."""
     pos = cache.length
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     q, k_new, v_new = gqa_project_qkv(p, cfg, x, positions)
-    cache.k[:, pos] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, pos] = v_new[:, 0].to(cache.v.dtype)
+    b, hd = shard.batch or x.shape[0], q.shape[3]
+    extent = cache.window if ring else shard.cache_len or cache.k.shape[1]
+    lay = shard.cache_layout("k", (b, extent, cfg.num_kv_heads, hd))
+    heads = {0: 0, 2: 2}
+    q, k_new, v_new = (lay.take(t, heads) for t in (q, k_new, v_new))
+    slot = pos % cache.window if ring else pos
     skv = cache.k.shape[1]
-    mask = (torch.arange(skv, device=x.device)[None, :] <= pos)[None]
-    out = attention_core(q, cache.k, cache.v, mask,
-                         softcap=cfg.attn_softcap)
-    y = _out_proj(out, p["wo"])
-    return y, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+    j = lay.local_slot(slot, skv)
+    if j is not None:
+        cache.k[:, j] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[:, j] = v_new[:, 0].to(cache.v.dtype)
+    idx = lay.offset(skv) + torch.arange(skv, device=x.device)
+    if ring:
+        # a slot is valid iff it holds one of the last `window` tokens
+        age = (slot - idx) % cache.window                   # 0 = newest
+        valid = age <= min(pos, cache.window - 1)
+    else:
+        valid = idx <= pos
+    if lay.split is None:
+        out = attention_core(q, cache.k, cache.v, valid[None, None],
+                             softcap=cfg.attn_softcap)
+    else:
+        bl, hkv = q.shape[0], cache.k.shape[2]
+        qg = q.reshape(bl, 1, hkv, q.shape[2] // hkv, hd)
+        sc = torch.einsum("bskgh,btkh->bkgst", qg.float(),
+                          cache.k.float()) * hd ** -0.5
+        sc = torch.where(valid, nl.softcap(sc, cfg.attn_softcap), -1e30)
+        out = _split_softmax(sc, cache.v.float(), "bkgst,btkh->bkgsh", lay)
+        out = out.permute(0, 3, 1, 2, 4).reshape(bl, 1, -1, out.shape[-1])
+        out = out.to(cache.v.dtype)
+    out = lay.give(out, heads)
+    return _out_proj(out, p["wo"]), pos + 1
+
+
+def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache, *,
+               shard: NoShard = no_shard):
+    """One-token decode against a dense cache.  x: (B, 1, D).  Writes the
+    token's k/v into ``cache.k``/``cache.v`` in place."""
+    y, length = _gqa_decode(p, cfg, x, cache, shard, ring=False)
+    return y, KVCache(k=cache.k, v=cache.v, length=length)
 
 
 # ---- sliding-window ring cache --------------------------------------------
@@ -323,14 +413,11 @@ class WindowKVCache:
 
 def _fill_window_cache(k, v, window: int) -> WindowKVCache:
     """The last ``window`` positions scattered into their ring slots."""
-    b, s = k.shape[:2]
+    s = k.shape[1]
+    build = _ring(s, window)
     start = max(0, s - window)
-    slots = torch.arange(start, s, device=k.device) % window
-    kr = k.new_zeros((b, window) + k.shape[2:])
-    vr = v.new_zeros((b, window) + v.shape[2:])
-    kr[:, slots] = k[:, start:s]
-    vr[:, slots] = v[:, start:s]
-    return WindowKVCache(k=kr, v=vr, length=s, window=window)
+    return WindowKVCache(k=build(k[:, start:]), v=build(v[:, start:]),
+                         length=s, window=window)
 
 
 def init_window_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
@@ -342,23 +429,13 @@ def init_window_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
                          length=0, window=w)
 
 
-def gqa_decode_windowed(p, cfg: ArchConfig, x, cache: WindowKVCache):
+def gqa_decode_windowed(p, cfg: ArchConfig, x, cache: WindowKVCache, *,
+                        shard: NoShard = no_shard):
     """One-token decode against the O(window) ring cache; writes the token's
     k/v into slot ``pos % window`` in place."""
-    pos, w = cache.length, cache.window
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                           device=x.device)
-    q, k_new, v_new = gqa_project_qkv(p, cfg, x, positions)
-    slot = pos % w
-    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
-    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
-    # a slot is valid iff it holds one of the last `window` tokens <= pos
-    age = (slot - torch.arange(w, device=x.device)) % w    # 0 = newest
-    mask = (age <= min(pos, w - 1))[None, None]             # (1, 1, w)
-    out = attention_core(q, cache.k, cache.v, mask,
-                         softcap=cfg.attn_softcap)
-    y = _out_proj(out, p["wo"])
-    return y, WindowKVCache(k=cache.k, v=cache.v, length=pos + 1, window=w)
+    y, length = _gqa_decode(p, cfg, x, cache, shard, ring=True)
+    return y, WindowKVCache(k=cache.k, v=cache.v, length=length,
+                            window=cache.window)
 
 
 # ---------------------------------------------------------------------------
@@ -416,15 +493,18 @@ class MLACache:
     length: int
 
 
-def mla_prefill(p, cfg: ArchConfig, x, positions, max_len: int):
+def mla_prefill(p, cfg: ArchConfig, x, positions, max_len: int, *,
+                shard: NoShard = no_shard):
     """MLA prefill: full-sequence attention and the compressed cache."""
-    y, c_kv, k_rope = _mla_full(p, cfg, x, positions)
-    b, s = x.shape[:2]
-    ckv = c_kv.new_zeros((b, max_len, cfg.kv_lora_rank))
-    kr = k_rope.new_zeros((b, max_len, cfg.rope_head_dim))
-    ckv[:, :s] = c_kv
-    kr[:, :s] = k_rope
-    return y, MLACache(c_kv=ckv, k_rope=kr, length=s)
+    y, c_kv, k_rope = _mla_full(p, cfg, x, positions, shard)
+    b, s = shard.batch or x.shape[0], shard.seq or x.shape[1]
+    build = _padded(max_len)
+    return shard(y, "act_tokens"), MLACache(
+        c_kv=shard.to_cache(c_kv, "c_kv", (b, max_len, cfg.kv_lora_rank),
+                            build),
+        k_rope=shard.to_cache(k_rope, "k_rope",
+                              (b, max_len, cfg.rope_head_dim), build),
+        length=s)
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -437,28 +517,44 @@ def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int,
         length=0)
 
 
-def mla_decode(p, cfg: ArchConfig, x, cache: MLACache):
+def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, *,
+               shard: NoShard = no_shard):
     """One-token MLA decode on the compressed cache, written in place.
 
     The absorbed-matmul trick: the queries are pulled into latent space
     (q·W_kb), so attention runs against the (S, r) latents directly and
     the cache stays compressed; the output leaves latent space through
-    W_vb."""
+    W_vb.  Under a sharder the latents' sequence may be split over ranks
+    (a split softmax, module docstring); the latent dim never is."""
     pos = cache.length
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_new, kr_new = _mla_latent(p, cfg, x, positions)
-    cache.c_kv[:, pos] = c_new[:, 0].to(cache.c_kv.dtype)
-    cache.k_rope[:, pos] = kr_new[:, 0].to(cache.k_rope.dtype)
+    b = shard.batch or x.shape[0]
+    lay = shard.cache_layout("c_kv", (b, shard.cache_len or
+                                      cache.c_kv.shape[1], cfg.kv_lora_rank))
+    q_nope, q_rope, c_new, kr_new = (lay.take(t, {0: 0}) for t in (
+        q_nope, q_rope, c_new, kr_new))
+    s_l = cache.c_kv.shape[1]
+    j = lay.local_slot(pos, s_l)
+    if j is not None:
+        cache.c_kv[:, j] = c_new[:, 0].to(cache.c_kv.dtype)
+        cache.k_rope[:, j] = kr_new[:, 0].to(cache.k_rope.dtype)
     c_kv = cache.c_kv.float()
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(x.dtype))
     scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv)
               + torch.einsum("bshk,btk->bhst", q_rope.float(),
                              cache.k_rope.float())) * _mla_scale(cfg)
-    mask = torch.arange(c_kv.shape[1], device=x.device) <= pos
-    probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1)
-    out_lat = torch.einsum("bhst,btr->bshr", probs, c_kv)
+    mask = lay.offset(s_l) + torch.arange(s_l, device=x.device) <= pos
+    scores = torch.where(mask, scores, -1e30)
+    if lay.split is None:
+        out_lat = torch.einsum("bhst,btr->bshr",
+                               torch.softmax(scores, dim=-1), c_kv)
+    else:
+        out_lat = _split_softmax(scores, c_kv, "bhst,btr->bhsr",
+                                 lay).transpose(1, 2)
+    out_lat = lay.give(out_lat, {0: 0})
     out = torch.einsum("bshr,rhk->bshk", out_lat.to(x.dtype),
                        p["wv_b"].to(x.dtype))
     y = _out_proj(out, p["wo"])

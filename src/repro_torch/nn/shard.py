@@ -4,7 +4,9 @@ The LM's modules take a ``shard`` argument at the reference's call sites
 (``repro/nn/attention.py``, ``ssm.py``, ``moe.py``,
 ``models/blocks.py``, ``models/transformer.py``).  :data:`no_shard` is the
 single-card default: every hook is the identity, and a module given it
-runs exactly its single-card ops.  A
+runs exactly its single-card ops.  The serving hooks build a cache leaf
+(``to_cache``) and describe its layout (``cache_layout``): here a leaf
+is whole (:class:`WholeCache`).  A
 :class:`repro_torch.sharding.specs.Sharder` overrides the hooks for a
 per-rank program on a mesh.
 """
@@ -21,7 +23,7 @@ class NoShard:
     active = False
     explicit_a2a = None
     ep_moe = None
-    batch = seq = None
+    batch = seq = cache_len = None
 
     def __call__(self, x, kind, src=None, shape=None):
         return x
@@ -36,5 +38,37 @@ class NoShard:
     def local(self, t, kind: str, dim: int, shape: tuple):
         return t
 
+    def serving(self, max_len: int) -> "NoShard":
+        return self
 
+    def to_cache(self, x, name: str, shape: tuple, build, keep=None):
+        """The cache leaf: ``build`` of ``x``'s last ``keep`` positions
+        (all by default)."""
+        keep = x.shape[1] if keep is None else keep
+        return build(x[:, x.shape[1] - keep:])
+
+    def cache_layout(self, name: str, shape: tuple) -> "WholeCache":
+        return _WHOLE
+
+
+class WholeCache:
+    """A cache leaf held whole (the hooks of
+    :class:`repro_torch.sharding.specs.CacheLayout`, each the identity)."""
+
+    split = None
+
+    def take(self, t, dims: dict):
+        return t
+
+    def give(self, t, dims: dict, op: str = "all_gather"):
+        return t
+
+    def offset(self, local_len: int) -> int:
+        return 0
+
+    def local_slot(self, slot: int, local_len: int):
+        return slot
+
+
+_WHOLE = WholeCache()
 no_shard = NoShard()

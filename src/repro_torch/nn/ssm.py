@@ -15,7 +15,14 @@ positions (``Sharder.halo``: a ppermute; without it the shard boundaries
 would be silently wrong); then the per-head inputs move to
 ``act_ssm_heads`` (an all-to-all) and the SSD runs on the local heads over
 the whole sequence, with B and C, which every head shares, gathered over
-the sequence; the output moves back.
+the sequence; the output moves back.  :func:`mamba2_prefill` runs the
+same mixing phase and leaves its two caches in their ``cache_shardings``
+layouts: the final state (B, H, P, N) already head-sharded, the conv
+state (B, K − 1, conv_dim) from the prompt's last K − 1 raw positions
+(the last sequence shard's) sharded over the conv channels.  A decode
+step convolves the rank's own channels, gathers the conv output over the
+model axis (ledger op ``conv_gather``: the heads' x, and B and C whole),
+updates the state of the rank's heads and gathers the heads' output.
 """
 from __future__ import annotations
 
@@ -173,17 +180,34 @@ class SSMCache:
     length: int
 
 
-def mamba2_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor):
+def mamba2_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
+                   shard: NoShard = no_shard):
     """Full-sequence mamba2 that also returns the decode cache; always the
-    plain-torch :func:`ssd_chunked`, as the reference."""
-    z, xbc_raw, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x)
-    y, final_state = ssd_chunked(xh.float(), dt_sp, a, b_mat.float(),
-                                 c_mat.float(), cfg.ssm_chunk)
-    out = _mixer_output(p, cfg, x, z, xh, y)
-    k = cfg.conv_kernel
-    cache = SSMCache(conv_state=xbc_raw[:, -(k - 1):].to(x.dtype),
-                     ssm_state=final_state, length=x.shape[1])
-    return out, cache
+    plain-torch :func:`ssd_chunked`, as the reference.  Under a sharder
+    (module docstring) the rank's block of the token layout in and out,
+    the cache the rank's shards."""
+    z, xbc_raw, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x, shard)
+    b, s = shard.batch or x.shape[0], shard.seq or x.shape[1]
+    heads = (b, s, cfg.ssm_heads, cfg.ssm_head_dim)
+    xh = shard(xh, "act_ssm_heads")
+    dt_sp = shard(dt_sp[..., None], "act_ssm_heads")[..., 0]
+    a = shard.local(a, "act_ssm_heads", 2, heads)
+    y, final_state = ssd_chunked(xh.float(), dt_sp, a,
+                                 shard(b_mat, "act_seq").float(),
+                                 shard(c_mat, "act_seq").float(),
+                                 cfg.ssm_chunk)
+    out = _mixer_output(p, cfg, x, z, xh, y, shard, heads)
+    state_shape = (b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state_dim)
+    if shard.active:   # the heads layout's (B, H) dims are the cache's
+        hs = shard.spec("act_ssm_heads", heads)
+        final_state = shard.move(final_state, (hs[0], hs[2], None, None),
+                                 shard.cache_spec("ssm_state", state_shape))
+    keep = min(s, cfg.conv_kernel - 1)
+    conv_state = shard.to_cache(xbc_raw.to(x.dtype), "conv_state",
+                                (b, keep, xbc_raw.shape[-1]), lambda t: t,
+                                keep)
+    return out, SSMCache(conv_state=conv_state, ssm_state=final_state,
+                         length=s)
 
 
 def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
@@ -198,28 +222,37 @@ def init_ssm_cache(cfg: ArchConfig, batch: int, dtype=torch.float32,
 
 
 def mamba2_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
-                  cache: SSMCache):
-    """Single-token step.  x: (B, 1, D) → (B, 1, D), new cache."""
+                  cache: SSMCache, *, shard: NoShard = no_shard):
+    """Single-token step.  x: (B, 1, D) → (B, 1, D), new cache.  Under a
+    sharder the rank's batch block, replicated over the model axis, and
+    the cache's shards (module docstring)."""
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xbc_new, dt = _split_proj(cfg, zxbcdt)              # (B,1,·)
-    window = torch.cat([cache.conv_state,
-                        xbc_new.to(cache.conv_state.dtype)], dim=1)
-    w = p["conv_w"].to(x.dtype)
-    conv_out = torch.einsum("bkc,kc->bc", window, w) + p["conv_b"].to(x.dtype)
-    xbc = F.silu(conv_out)[:, None]
+    b, nh, hp = shard.batch or x.shape[0], cfg.ssm_heads, cfg.ssm_head_dim
+    conv = shard.cache_layout("conv_state", (b, cfg.conv_kernel - 1,
+                                             xbc_new.shape[-1]))
+    ssm = shard.cache_layout("ssm_state", (b, nh, hp, cfg.ssm_state_dim))
+    window = torch.cat([cache.conv_state, conv.take(
+        xbc_new.to(cache.conv_state.dtype), {0: 0, 2: 2})], dim=1)
+    w = conv.take(p["conv_w"].to(x.dtype), {1: 2})
+    conv_out = torch.einsum("bkc,kc->bc", window, w) + conv.take(
+        p["conv_b"].to(x.dtype), {0: 2})
+    xbc = conv.give(F.silu(conv_out)[:, None], {0: 0, 2: 2},
+                    op="conv_gather")
     di, n = cfg.d_inner, cfg.ssm_state_dim
     b_mat = xbc[..., di: di + n][:, 0].float()             # (B, N)
     c_mat = xbc[..., di + n:][:, 0].float()
-    xh = xbc[..., :di].reshape(x.shape[0], cfg.ssm_heads,
-                               cfg.ssm_head_dim).float()
-    dt_sp = F.softplus(dt[:, 0].float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"])
+    xh = ssm.take(xbc[..., :di].reshape(x.shape[0], nh, hp), {0: 0, 1: 1})
+    xh = xh.float()
+    dt_sp = F.softplus(ssm.take(dt[:, 0], {0: 0, 1: 1}).float()
+                       + ssm.take(p["dt_bias"], {0: 1}))
+    a = -torch.exp(ssm.take(p["a_log"], {0: 1}))
     decay = torch.exp(dt_sp * a)                           # (B, H)
     state = cache.ssm_state * decay[..., None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt_sp, xh, b_mat)
     y = torch.einsum("bn,bhpn->bhp", c_mat, state)
-    y = y + xh * p["d_skip"][:, None]
-    y = y.reshape(x.shape[0], 1, di).to(x.dtype)
+    y = y + xh * ssm.take(p["d_skip"], {0: 1})[:, None]
+    y = ssm.give(y.to(x.dtype), {0: 0, 1: 1}).reshape(x.shape[0], 1, di)
     y = nl.rms_norm(y * F.silu(z), p["norm"].float(), cfg.norm_eps)
     out = y @ p["out_proj"].to(x.dtype)
     return out, SSMCache(conv_state=window[:, 1:], ssm_state=state,

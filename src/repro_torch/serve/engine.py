@@ -1,9 +1,17 @@
 """Serving engine: prefill, decode steps and batched generation — the port
-of ``repro/serve/engine.py`` on one card.
+of ``repro/serve/engine.py``.
 
 Greedy decoding is ``argmax`` (the first index wins ties, as in jnp).
 Temperature sampling draws from an explicit ``torch.Generator``; it is not
 held against JAX, whose PRNG the port cannot reproduce.
+
+``make_serve_fns(cfg, sharder)`` returns the per-rank program's closures
+(``models/transformer.py``): ``prefill_fn`` and ``decode_fn`` take the
+rank's parameter and cache shards and the global token batch and return
+the rank's block of the logits' token layout.  ``generate`` runs on one
+device, as the reference's (single host); a greedy loop over the sharded
+closures gathers the last position's logits (``Sharder.unshard``) before
+its ``argmax``.
 """
 from __future__ import annotations
 
@@ -22,16 +30,18 @@ def make_serve_fns(cfg: ArchConfig, sharder=None, *,
                    long_context: bool = False):
     """(prefill_fn, decode_fn) closures over ``cfg``; ``long_context`` puts
     gemma2's local layers on the O(window) ring cache.  ``sharder`` is
-    their ``shard``: ``prefill`` and ``decode_step`` run on one card and
-    refuse one."""
-    shard = sharder or no_shard
+    their ``shard``; ``decode_fn`` runs under it bound to the ``max_len``
+    of the last ``prefill_fn`` call (or the one it was made with,
+    ``Sharder.serving``)."""
+    shard = [sharder or no_shard]
 
     def prefill_fn(params, tokens, prefix=None, *, max_len: int):
+        shard[0] = shard[0].serving(max_len)
         return T.prefill(params, cfg, tokens, prefix, max_len=max_len,
-                         long_context=long_context, shard=shard)
+                         long_context=long_context, shard=shard[0])
 
     def decode_fn(params, token, caches):
-        return T.decode_step(params, cfg, token, caches, shard=shard)
+        return T.decode_step(params, cfg, token, caches, shard=shard[0])
 
     return prefill_fn, decode_fn
 
@@ -46,20 +56,18 @@ class GenerationResult:
 def generate(params, cfg: ArchConfig, prompt, n_steps: int, *,
              prefix=None, temperature: float = 0.0, seed: int = 0,
              max_len: Optional[int] = None, long_context: bool = False,
-             device="cuda", sharder=None) -> GenerationResult:
+             device="cuda") -> GenerationResult:
     """Greedy / temperature sampling for a batch of prompts (B, S) on
     ``device``, where ``params`` must lie; a modality config's prompts go
     behind ``prefix`` (B, P, D), whose P positions the caches hold too.
-    Returns the prompts and the new tokens (not the prefix).  Runs on one
-    card: a ``sharder`` raises in ``prefill``."""
+    Returns the prompts and the new tokens (not the prefix)."""
     prompt = torch.as_tensor(np.asarray(prompt), device=device)
     if prefix is not None:
         prefix = torch.as_tensor(np.asarray(prefix), device=device)
     b, s = prompt.shape
     off = cfg.num_prefix_embeddings if cfg.modality else 0
     max_len = max_len or (s + n_steps + off)
-    prefill_fn, decode_fn = make_serve_fns(cfg, sharder,
-                                           long_context=long_context)
+    prefill_fn, decode_fn = make_serve_fns(cfg, long_context=long_context)
     logits, caches = prefill_fn(params, prompt, prefix, max_len=max_len)
     gen = torch.Generator(device=device).manual_seed(seed)
     last = logits[:, -1]

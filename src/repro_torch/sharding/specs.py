@@ -48,6 +48,29 @@ collective of ``runtime/collectives.py`` (the staging of
 A replicated activation carries, on each rank, that rank's share of its
 cotangent: the loss sums count every rank's tokens, replicas included, so
 the gradients summed over all ranks are the reference's.
+
+Serving (``prefill``, ``decode_step``) stores every decode cache as
+:func:`cache_shardings` lays it out: a leaf found by its field name, its
+spec right-aligned (a cache stacked over a group's repeats keeps the
+layout) and fitted.  ``seq_shard_cache`` picks one of the reference's
+three layouts of a (B, S, H, hd) cache: False, heads over the model axis;
+True, the sequence over the data axes (batch 1); ``"model"``, the
+sequence over the model axis.  A prefill builds each cache from the
+prompt's token layout (:meth:`Sharder.to_cache`: the positions it keeps
+gathered, ledger op ``cache_place``, then the rank's block sliced); a
+decode step writes the token on the rank that owns its slot and runs
+attention over a split sequence as a split softmax (one gather of each
+rank's partial max, sum and output, ledger op ``softmax_gather``), so no
+decode step gathers a cache.  A per-rank shard does not show its global
+length: the sharder carries the dense and latent caches' ``max_len``
+(:meth:`Sharder.serving`; ``prefill`` binds it, ``make_serve_fns``
+hands it to its decode closure).  Stated departure: under ``dp`` with
+``seq_shard_cache="model"`` the reference's ``act_spec
+("cache_seq_latent")`` lays the latent cache's sequence over the model
+axis (the literal ``"model"`` of ``_cache_latent_spec``) while its
+``cache_shardings`` replicates it there (no model axis under ``dp``);
+both spec functions are copied verbatim, and the per-rank program stores
+the latent cache as ``cache_shardings`` says.
 """
 from __future__ import annotations
 
@@ -68,12 +91,8 @@ _MODEL_AXES = {"vocab", "heads", "kv_heads", "mlp", "experts", "inner",
                "ssm_heads"}
 _FSDP_AXES = {"embed"}
 
-SERVING_ITEM = ("sharded LM serving is not ported (ROADMAP queue 1 item "
-                "29): prefill, decode, generate and the cache layouts run "
-                "on one card")
 MEGATRON_ITEM = ("the megatron strategy is not ported (ROADMAP queue 1 "
                  "item 30): the port runs neutron_tp and dp")
-_CACHE_KINDS = ("cache_seq", "cache_seq_latent")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +100,11 @@ class ShardingRules:
     strategy: str = "neutron_tp"       # neutron_tp | megatron | dp
     data_axes: tuple[str, ...] = ("data",)   # ("pod", "data") multi-pod
     model_axis: str = "model"
+    # KV-cache sequence sharding: False → cache seq replicated (heads on
+    # model); True → seq over data (batch 1); "model" → seq over the
+    # model axis (the fix for GQA archs whose head counts do not divide
+    # the model axis)
+    seq_shard_cache: bool | str = False
 
     # ---- parameters ----------------------------------------------------
 
@@ -124,8 +148,6 @@ class ShardingRules:
             else self.data_axes[0]
 
     def act_spec(self, kind: str, ndim: int) -> Optional[tuple]:
-        if kind in _CACHE_KINDS:
-            raise NotImplementedError(f"act_spec({kind!r}): {SERVING_ITEM}")
         d, m = self._d(), self.model_axis
         if self.strategy == "dp":
             m = None
@@ -141,8 +163,30 @@ class ShardingRules:
             "act_vocab": (d, None, m),
             # (E, C, D): expert-major MoE buffer
             "expert_buf": (m, None, None),
+            # (B, S, H, hd) decode cache
+            "cache_seq": _cache_kv_spec(self.seq_shard_cache, d, m),
+            # (B, S, r) MLA latent cache
+            "cache_seq_latent": _cache_latent_spec(self.seq_shard_cache, d),
         }
         return table.get(kind)
+
+
+def _cache_kv_spec(seq_mode, d, m) -> tuple:
+    """(B, S, H, hd) cache layout for the three seq-sharding modes."""
+    if seq_mode == "model":
+        return (d, m, None, None)
+    if seq_mode:
+        return (None, d, m, None)
+    return (d, None, m, None)
+
+
+def _cache_latent_spec(seq_mode, d, m="model") -> tuple:
+    """(B, S, r) MLA latent cache layout."""
+    if seq_mode == "model":
+        return (d, m, None)
+    if seq_mode:
+        return (None, d, None)
+    return (d, None, None)
 
 
 def _map2(fn, a, b):
@@ -167,8 +211,59 @@ def _fit_spec(spec, shape: tuple, mesh) -> tuple:
     return tuple(fitted)
 
 
+def _cache_leaf_specs(rules: ShardingRules) -> dict:
+    """Field name → the trailing-dim spec of that decode-cache leaf."""
+    d = rules._d()
+    m = rules.model_axis if rules.strategy != "dp" else None
+    kv = _cache_kv_spec(rules.seq_shard_cache, d, m)
+    lat = _cache_latent_spec(rules.seq_shard_cache, d, m)
+    return {
+        # (B, S, H, hd)
+        "k": kv,
+        "v": kv,
+        # (B, S, r)
+        "c_kv": lat,
+        "k_rope": lat,
+        # (B, K-1, conv_dim)
+        "conv_state": (d, None, m),
+        # (B, H, P, N)
+        "ssm_state": (d, m, None, None),
+        "length": (),
+    }
+
+
+def _leaf_spec(by_name: dict, name: str, shape: tuple, mesh) -> tuple:
+    spec = by_name.get(name)
+    if spec is None:
+        return ()
+    full = (None,) * (len(shape) - len(spec)) + tuple(spec)
+    return _fit_spec(full, shape, mesh)
+
+
+def _map_caches(fn, caches, *others):
+    """``fn(name, leaf, *other leaves)`` on every field of every cache
+    dataclass in the tree ``caches`` (lists of lists), but a ring cache's
+    ``window``; a tree like ``caches``."""
+    if isinstance(caches, (list, tuple)):
+        return type(caches)(_map_caches(fn, c, *o)
+                            for c, *o in zip(caches, *others))
+    return dataclasses.replace(caches, **{
+        f.name: fn(f.name, getattr(caches, f.name),
+                   *(getattr(o, f.name) for o in others))
+        for f in dataclasses.fields(caches) if f.name != "window"})
+
+
 def cache_shardings(rules: ShardingRules, mesh, cache_shapes):
-    raise NotImplementedError(f"cache_shardings: {SERVING_ITEM}")
+    """The spec of every leaf of a decode-cache tree (possibly stacked over
+    a group's repeats; leaves are anything with a ``shape``, a ``length``
+    has none), as a tree like ``cache_shapes``.  Leaves are identified by
+    their field name; trailing-dim specs are right-aligned, so stacked
+    caches inherit the same layout, and fitted (:func:`_fit_spec`)."""
+    by_name = _cache_leaf_specs(rules)
+    return _map_caches(
+        lambda name, leaf: _leaf_spec(by_name, name,
+                                      tuple(getattr(leaf, "shape", ())),
+                                      mesh), cache_shapes)
 
 
 def _axes_of(spec) -> list[str]:
@@ -220,6 +315,7 @@ class Sharder(NoShard):
     rules: ShardingRules
     batch: Optional[int] = None
     seq: Optional[int] = None
+    cache_len: Optional[int] = None
 
     active = True
 
@@ -236,6 +332,11 @@ class Sharder(NoShard):
 
     def bound(self, batch: int, seq: int) -> "Sharder":
         return dataclasses.replace(self, batch=batch, seq=seq)
+
+    def serving(self, max_len: int) -> "Sharder":
+        """This sharder for caches whose dense and latent leaves hold
+        ``max_len`` positions (a rank's shard does not show it)."""
+        return dataclasses.replace(self, cache_len=max_len)
 
     # ---- layouts -------------------------------------------------------
 
@@ -315,6 +416,47 @@ class Sharder(NoShard):
         """A token-layout tensor (B_l, S_l, ...) gathered whole."""
         return self(x, "act_global")
 
+    # ---- decode caches -------------------------------------------------
+
+    def cache_spec(self, name: str, shape: tuple) -> tuple:
+        """The :func:`cache_shardings` spec of a cache leaf named ``name``
+        of global ``shape``."""
+        return _leaf_spec(_cache_leaf_specs(self.rules), name, shape,
+                          self.mesh)
+
+    def cache_layout(self, name: str, shape: tuple) -> "CacheLayout":
+        return CacheLayout(self, self.cache_spec(name, shape))
+
+    def to_cache(self, x, name: str, shape: tuple, build, keep=None):
+        """The cache leaf ``name`` of global ``shape`` from ``x`` (B_l,
+        S_l, ...), this rank's block of the prompt's token layout: the
+        last ``keep`` positions (all by default) gathered whole over the
+        sequence, with the batch and trailing dims as the cache keeps them
+        (ledger op ``cache_place``; a sequence shard at least ``keep``
+        long sends its tail only), ``build`` run on them, this rank's block
+        of the result sliced out, contiguous."""
+        keep = self.seq if keep is None else keep
+        src = self.spec("act_tokens", (self.batch, self.seq)
+                        + tuple(x.shape[2:]))
+        dst = self.cache_spec(name, shape)
+        mid = tuple(None if i == 1 or e != dst[i] else e
+                    for i, e in enumerate(src))
+        if src[1] is not None and x.shape[1] >= keep:
+            x = x[:, x.shape[1] - keep:]
+        y = self.move(x, src, mid, gather_op="cache_place")
+        return self.move(build(y[:, y.shape[1] - keep:]), mid,
+                         dst).contiguous().clone()
+
+    def group_of(self, entry):
+        """(process group, ledger axis label) of a spec entry: an axis, or
+        the data axes together (their replica group)."""
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        if len(axes) == 1:
+            return self.mesh.group_of(axes[0]), axes[0]
+        if axes != tuple(self.mesh.data_axes):
+            raise NotImplementedError(f"a dim sharded over {axes}")
+        return self.mesh.replica_group, axes
+
     # ---- reductions ----------------------------------------------------
 
     def _all_axes(self) -> tuple:
@@ -375,6 +517,67 @@ class Sharder(NoShard):
         return tree_map(lambda _: next(it), grads)
 
 
+@dataclasses.dataclass(frozen=True)
+class CacheLayout:
+    """A decode-cache leaf's layout on this rank (``Sharder.cache_layout``):
+    ``spec``, fitted to the leaf's global shape (one repeat's, unstacked),
+    dim 1 its sequence where it has one.
+
+    ``take`` moves a decode step's tensor from the token layout at S = 1
+    (the rank's batch block, every other dim whole; a tensor without a
+    batch dim is whole) to the leaf's layout on the dims ``dims`` maps
+    (tensor dim → leaf dim), ``give`` back (its gathers recorded as
+    ``op``).  ``local_slot`` is where this rank holds a global sequence
+    slot (None where another rank does), ``offset`` its block's first
+    slot, and ``split`` the sequence's group where more than one rank
+    shares it (else None); ``partials`` stacks every rank's ``t`` of that
+    group on a new dim 0 (ledger op ``softmax_gather``)."""
+
+    shard: Sharder
+    spec: tuple
+
+    def _specs(self, t, dims: dict) -> tuple:
+        et = self.shard.spec("act_tokens", (self.shard.batch, 1, 1))[0]
+        src, dst = [None] * t.dim(), [None] * t.dim()
+        for td, cd in dims.items():
+            src[td] = et if cd == 0 else None
+            dst[td] = self.spec[cd]
+        return tuple(src), tuple(dst)
+
+    def take(self, t, dims: dict):
+        src, dst = self._specs(t, dims)
+        return self.shard.move(t, src, dst)
+
+    def give(self, t, dims: dict, op: str = "all_gather"):
+        src, dst = self._specs(t, dims)
+        return self.shard.move(t, dst, src, gather_op=op)
+
+    def _seq(self):
+        e = self.spec[1]
+        if e is None:
+            return None
+        group, label = self.shard.group_of(e)
+        return group, label, C.axis_size(group), C.axis_index(group)
+
+    @property
+    def split(self):
+        seq = self._seq()
+        return seq if seq is not None and seq[2] > 1 else None
+
+    def offset(self, local_len: int) -> int:
+        seq = self._seq()
+        return 0 if seq is None else seq[3] * local_len
+
+    def local_slot(self, slot: int, local_len: int):
+        j = slot - self.offset(local_len)
+        return j if 0 <= j < local_len else None
+
+    def partials(self, t):
+        group, label, _, _ = self.split
+        return C.all_gather(t[None], group, axis=label, op="softmax_gather",
+                            dim=0)
+
+
 def make_sharder(mesh, rules: ShardingRules) -> Sharder:
     return Sharder(mesh=mesh, rules=rules)
 
@@ -399,3 +602,23 @@ def gather_params(shards, cfg, sharder: Sharder):
     with torch.no_grad():
         return _map2(lambda p, s: sharder.move(
             p, s.spec, (None,) * p.dim()), shards, specs)
+
+
+def place_caches(caches, sharder: Sharder):
+    """This rank's shard of every leaf of the whole decode-cache tree
+    ``caches`` (the same on every rank), by :func:`cache_shardings`;
+    copies."""
+    specs = cache_shardings(sharder.rules, sharder.mesh, caches)
+    return _map_caches(lambda name, t, s: sharder.move(
+        t, (None,) * t.dim(), s).clone() if torch.is_tensor(t) else t,
+        caches, specs)
+
+
+def gather_caches(shards, like, sharder: Sharder):
+    """The whole cache tree from every rank's shards; ``like`` is a tree
+    of the whole caches' shapes (``init_caches(..., device="meta")``)."""
+    specs = cache_shardings(sharder.rules, sharder.mesh, like)
+    with torch.no_grad():
+        return _map_caches(lambda name, t, s: sharder.move(
+            t, s, (None,) * t.dim()) if torch.is_tensor(t) else t,
+            shards, specs)

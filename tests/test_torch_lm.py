@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro.configs import get_config as j_get_config
 from repro.data.synthetic_lm import SyntheticLM as JSyntheticLM
@@ -30,7 +31,9 @@ from repro_torch.optim import adamw
 from repro_torch.params import from_numpy_tree, to_numpy_tree, tree_leaves
 from repro_torch.serve import generate
 from repro_torch.serve.engine import make_serve_fns
-from repro_torch.sharding import Sharder, ShardingRules
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.sharding import (ExplicitSharder, Sharder, ShardingRules,
+                                  place_params)
 from repro_torch.train import make_train_step
 
 IMPLS = [("flash", "fused"), ("naive", "jnp")]
@@ -74,26 +77,45 @@ def test_config_fields_equal_reference(name):
         j_get_config(name))
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(model, tmp_path):
     cfg = get_config("zamba2-2.7b")
     assert dataclasses.replace(cfg, attn_impl="blockwise").attn_impl == \
         "blockwise"
     with pytest.raises(ValueError, match="attn_impl='ring'"):
         dataclasses.replace(cfg, attn_impl="ring")
     # a sharded step is made (the sharded LM, ROADMAP item 25a, is
-    # ported); the megatron strategy and sharded serving raise, naming
-    # their items
+    # ported); the megatron strategy raises, naming its item
     mesh = types.SimpleNamespace(shape={"model": 4, "data": 2})
     sharder = Sharder(mesh, ShardingRules())
     assert callable(make_train_step(get_config("internvl2-1b"), adamw(1e-3),
                                     sharder=sharder))
     with pytest.raises(NotImplementedError, match="item 30"):
         Sharder(mesh, ShardingRules("megatron"))
-    prefill_fn, decode_fn = make_serve_fns(cfg, sharder)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        prefill_fn({}, torch.zeros(1, 4, dtype=torch.long), max_len=8)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        decode_fn({}, torch.zeros(1, 1, dtype=torch.long), [])
+    # sharded serving runs: Zamba2 reduced under the explicit
+    # sharder on a one-rank mesh gives the unsharded prefill and decode
+    # logits
+    cfg, params, batch = model
+    tcfg, tp = get_config("zamba2-2.7b-reduced"), from_numpy_tree(params,
+                                                                  "cpu")
+    tokens = torch.as_tensor(batch["tokens"][:, :PROMPT])
+    with torch.no_grad():
+        prefill_fn, decode_fn = make_serve_fns(tcfg)
+        want, caches = prefill_fn(tp, tokens, max_len=PROMPT + 1)
+        want_step = decode_fn(tp, tokens[:, :1], caches)[0]
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        sharder = ExplicitSharder(make_host_mesh(model=1, data=1),
+                                  ShardingRules())
+        shards = place_params(tp, tcfg, sharder)
+        with torch.no_grad():
+            prefill_fn, decode_fn = make_serve_fns(tcfg, sharder)
+            got, caches = prefill_fn(shards, tokens, max_len=PROMPT + 1)
+            _held(got, want.numpy(), 1e-6)
+            _held(decode_fn(shards, tokens[:, :1], caches)[0],
+                  want_step.numpy(), 1e-6)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("name", ["zamba2-2.7b", "zamba2-2.7b-reduced"])

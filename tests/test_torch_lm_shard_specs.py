@@ -4,20 +4,24 @@ names, from the reference's abstract init), every leaf's ``param_spec``
 and every activation kind's ``act_spec`` (and its ``_fit_spec``) under the
 three strategies, on stand-in meshes of (data, model) = (16, 16) and
 (2, 4) and a (pod, data, model) one; the shapes tree against
-``init_transformer``'s; and the refusals of what is not ported — the
-megatron strategy and sharded serving, each naming its ROADMAP item."""
+``init_transformer``'s; the cache kinds' specs and ``cache_shardings``;
+the refusal of what is not ported — the megatron strategy, naming its
+ROADMAP item — and sharded serving running on a one-rank mesh."""
 import dataclasses
+import inspect
 import types
 
 import jax
 import pytest
 import torch
+import torch.distributed as dist
 
 from repro import configs as jconfigs
 from repro.models import transformer as JT
 from repro.nn.param import split_params
 from repro.sharding import specs as jspecs
 from repro_torch import configs, optim
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as TT
 from repro_torch.nn import param as tparam
 from repro_torch.params import tree_map
@@ -105,19 +109,22 @@ def test_act_specs_and_fit_equal_reference(strategy, mesh_name):
             assert tspecs._fit_spec(got, shape, mesh) == _tuple(
                 jspecs._fit_spec(want, shape, mesh)), (kind, shape)
     for kind in ("cache_seq", "cache_seq_latent"):
-        assert ref.act_spec(kind, 4) is not None
-        with pytest.raises(NotImplementedError, match="item 29"):
-            port.act_spec(kind, 4)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        tspecs.cache_shardings(port, mesh, None)
+        assert port.act_spec(kind, 4) == _tuple(ref.act_spec(kind, 4))
+    caches = TT.init_caches(configs.get_config("internlm2-1.8b"), 16, 64,
+                            device="meta")
+    ((spec,),) = tspecs.cache_shardings(port, mesh, caches)
+    assert spec.k == _tuple(jspecs._fit_spec(
+        jspecs.P(None, *ref.act_spec("cache_seq", 4)),
+        caches[0][0].k.shape, mesh))
 
 
-def test_unported_strategy_and_serving_raise():
+def test_unported_strategy_and_serving_raise(tmp_path):
     """megatron raises where a sharder is made (and so in
-    ``sharded_setup``), naming item 30; sharded serving raises in
-    ``prefill``, ``decode_step``, ``make_serve_fns`` and ``generate``,
-    naming item 29 (``make_serve_fns`` passes its sharder to the first
-    two)."""
+    ``sharded_setup``), naming item 30.  Sharded serving runs:
+    ``prefill``, ``decode_step`` and ``make_serve_fns``' closures under a
+    sharder on a one-rank mesh give the unsharded logits (a decode step
+    needs the caches' ``max_len``, which the sharder carries), and
+    ``generate``, single-device as the reference's, takes no sharder."""
     mesh = _mesh("2x4")
     rules = tspecs.ShardingRules("megatron")
     with pytest.raises(NotImplementedError, match="item 30"):
@@ -132,19 +139,35 @@ def test_unported_strategy_and_serving_raise():
     with pytest.raises(ValueError, match="hybrid_mesh"):
         tspecs.Sharder(types.SimpleNamespace(shape={"model": 4}),
                        tspecs.ShardingRules())
-    sharder = tspecs.Sharder(mesh, tspecs.ShardingRules())
     with pytest.raises(ValueError, match="pass its sharder"):
         make_train_step(cfg, optim.adamw(1e-3), in_shardings=({}, {}))
     params = TT.init_transformer(cfg, device="cpu")
-    tokens = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        TT.prefill(params, cfg, tokens, max_len=8, shard=sharder)
-    caches = TT.init_caches(cfg, 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 29"):
-        TT.decode_step(params, cfg, tokens[:, :1], caches, shard=sharder)
-    prefill_fn, _ = engine.make_serve_fns(cfg, sharder)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        prefill_fn(params, tokens, max_len=8)
-    with pytest.raises(NotImplementedError, match="item 29"):
-        engine.generate(params, cfg, tokens.numpy(), 2, device="cpu",
-                        sharder=sharder)
+    tokens = torch.arange(4)[None] % cfg.vocab_size
+    assert "sharder" not in inspect.signature(engine.generate).parameters
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        sharder = tspecs.Sharder(make_host_mesh(model=1, data=1),
+                                 tspecs.ShardingRules())
+        shards = tspecs.place_params(params, cfg, sharder)
+        with torch.no_grad():
+            want, caches = TT.prefill(params, cfg, tokens, max_len=8)
+            want_step = TT.decode_step(params, cfg, tokens[:, :1],
+                                       caches)[0]
+            got, caches = TT.prefill(shards, cfg, tokens, max_len=8,
+                                     shard=sharder)
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+            with pytest.raises(ValueError, match="max_len"):
+                TT.decode_step(shards, cfg, tokens[:, :1], caches,
+                               shard=sharder)
+            got_step = TT.decode_step(shards, cfg, tokens[:, :1], caches,
+                                      shard=sharder.serving(8))[0]
+            torch.testing.assert_close(got_step, want_step, rtol=0,
+                                       atol=1e-6)
+            prefill_fn, decode_fn = engine.make_serve_fns(cfg, sharder)
+            caches = prefill_fn(shards, tokens, max_len=8)[1]
+            torch.testing.assert_close(decode_fn(
+                shards, tokens[:, :1], caches)[0], want_step, rtol=0,
+                atol=1e-6)
+    finally:
+        dist.destroy_process_group()
