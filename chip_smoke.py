@@ -365,6 +365,26 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               ``seq_shard_cache`` layout against the unsharded twin
               (tokens identical, logits within 1e-5·max|ref|).
 
+30. megatron — the megatron strategy (column- and row-parallel NN
+              phase, ``Sharder(mesh, ShardingRules("megatron"))``) on
+              ``make_host_mesh(model=1, data=1)`` over a fresh NCCL group
+              of one rank.  Zamba2-2.7B at full width, bf16 compute:
+              scoring 2 × 2048 beside the unsharded forward (9 flash and
+              45 SSD launches, logits bitwise, else within
+              1e-5·max|ref|), and serving 2 × 2048 + 32 greedy steps
+              through ``make_serve_fns(cfg, sharder)`` beside ``generate``
+              (9 flash launches in the prefill, 0 a decode step, tokens
+              identical, prefill logits bitwise, else within
+              1e-5·max|ref|); each ledger holds the row-parallel sums
+              (``tp_psum``: 109 a forward or decode step), no parameter
+              gathered over the model axis and no wire byte.
+              Granite-MoE-1B-A400M through ``sharded_setup(...,
+              ShardingRules("megatron"))`` at batch 4: step 0 under
+              deterministic algorithms (the loss bitwise, else within
+              1e-5 relative; every gradient leaf within 1e-5·‖ref‖), the
+              step's ``tp_psum`` calls and mirrors, two timed steps, no
+              kernel launch.
+
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the flash kernel at Zamba2's shape,
@@ -372,7 +392,8 @@ gemma2's global and local layers', MLA's, InternVL2-1B's and
 MusicGen-large's, the fp32 (FMA) flash kernel at the fp32 cross-checks'
 (1, 32, 512, 80) with SDPA fp32 as its yardstick, the SSD kernel at
 Zamba2's and Mamba2-1.3B's, flash and SSD again on phase 28's sharded
-scoring path and flash on phase 29's sharded prefill, each with its
+scoring path, flash on phase 29's sharded prefill, and flash and SSD on
+phase 30's megatron scoring and serving, each with its
 path's launches (each flash shape's its own
 case's count from the main-path runs).
 In it, ``ms_by`` says how each row's ``ms`` and ``library_ms``
@@ -2373,7 +2394,7 @@ def serve(dev):
     cfg, params, n_params = _lm_model("zamba2-2.7b", dev)
     batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
     _, info = _serve_cell(cfg, params, batch["tokens"], dev)
-    print("[17/29] LM main path, scoring: forward + lm_loss")
+    print("[17/30] LM main path, scoring: forward + lm_loss")
     score_info = _score_cell(cfg, params, batch, dev, plain_twin=True)
     return cfg, params, batch, {"params": n_params, **info}, score_info
 
@@ -3657,6 +3678,284 @@ def sharded_serving(dev, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The megatron strategy on a (data=1, model=1) mesh (phase 30)
+# ---------------------------------------------------------------------------
+
+def _tp_psum_calls(cfg, n: int) -> int:
+    """``tp_psum`` calls of one megatron forward or decode step at model
+    degree ``n`` (``runtime/telemetry.py``): the vocab-split embedding's
+    lookup; each attention layer's out-projection (the shared block at
+    each use) where the heads divide; each MLP's down projection where
+    d_ff does; a MoE layer's combine where the experts divide and its
+    shared experts' where their width does; a mamba2 layer's gated-norm
+    sum where its heads divide and its out_proj where d_inner does."""
+    def split(size):
+        return int(size % n == 0)
+    total = split(cfg.padded_vocab)
+    for kind in cfg.layer_kinds():
+        if kind == "mamba":
+            total += split(cfg.ssm_heads) + split(cfg.d_inner)
+        else:
+            total += split(cfg.num_heads)
+            if kind == "moe":
+                total += split(cfg.num_experts) + (
+                    split(cfg.moe_d_ff * cfg.num_shared_experts)
+                    if cfg.num_shared_experts else 0)
+            else:
+                total += split(cfg.d_ff)
+    return total
+
+
+def _megatron_ledger(tag: str, led: dict, cfg) -> dict:
+    """Hold a megatron forward's or decode step's ledger at N = 1: the
+    row-parallel sums ``_tp_psum_calls``, no parameter gathered over the
+    model axis, no wire byte; returns the calls by key."""
+    calls = {k: e["calls"] for k, e in led.items()}
+    _expect(f"{tag} tp_psum calls", sum(
+        c for k, c in calls.items() if k.startswith("tp_psum|model")),
+        _tp_psum_calls(cfg, 1))
+    gathered = [k for k in calls if k.startswith("param_gather|model")]
+    _expect(f"{tag} parameter gathers over the model axis", gathered, [])
+    _expect(f"{tag} wire bytes at N = 1",
+            sum(e["wire_bytes"] for e in led.values()), 0)
+    return calls
+
+
+def _megatron_scoring(dev, sharder, card: str) -> dict:
+    """Zamba2-2.7B at full width, bf16 compute: ``forward(shard=
+    Sharder(megatron))`` on phase 17's 2 × 2048 tokens under no_grad
+    beside the unsharded forward: 9 flash and 45 SSD launches, logits
+    bitwise (else within 1e-5·max|ref|, the difference printed), the
+    ledger held (``_megatron_ledger``); both forwards' medians."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.sharding.specs import place_params
+    cfg, params, _ = _lm_model("zamba2-2.7b", dev)
+    tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=0)
+                                  .batches(2, 2048))["tokens"], device=dev)
+    shards = place_params(params, cfg, sharder)
+    with torch.no_grad(), _deterministic("phase 30 scoring"):
+        want, _ = T.forward(params, cfg, tokens)
+        _zero_lm_counts()
+        with collect_comm() as ledger:
+            got, _ = T.forward(shards, cfg, tokens, shard=sharder)
+        counts = _read_lm_counts()
+        _expect("megatron scoring launches (flash, ssd)", counts,
+                (_attn_layers(cfg), cfg.layer_kinds().count("mamba")))
+        bitwise = torch.equal(got, want)
+        diff = _held("megatron scoring logits vs unsharded", got, want,
+                     KERNEL_TOL, 0.0)
+        print(f"  megatron scoring logits {tuple(got.shape)}: "
+              + ("bitwise equal" if bitwise else f"max|Δ| {diff:.3e}")
+              + " to the unsharded forward's")
+        del got, want
+        calls = _megatron_ledger("megatron scoring", ledger.as_dict(), cfg)
+        print(f"  ledger calls of the megatron scoring forward: {calls}")
+        ms = {}
+        for name, fn in (("unsharded", lambda: T.forward(params, cfg,
+                                                          tokens)),
+                         ("megatron", lambda: T.forward(
+                             shards, cfg, tokens, shard=sharder))):
+            runs = []
+            for _ in range(LM_RUNS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                fn()[0].sum().item()
+                runs.append((time.perf_counter() - t) * 1e3)
+            ms[name] = runs
+    print(f"  forward ms unsharded {statistics.median(ms['unsharded']):.2f} "
+          f"({ms['unsharded']}), megatron "
+          f"{statistics.median(ms['megatron']):.2f} ({ms['megatron']}); "
+          f"{card}")
+    del params, shards
+    _lm_free()
+    return {"launches": {"flash": counts[0], "ssd": counts[1]},
+            "bitwise": bitwise, "max_abs_diff": diff, "ledger_calls": calls,
+            "ms": ms}
+
+
+def _megatron_serving(dev, sharder, card: str) -> dict:
+    """Zamba2-2.7B at full width (flash, bf16 compute): 2 × 2048 prefilled
+    and ``LM_STEPS`` greedy steps through ``make_serve_fns(cfg,
+    Sharder(megatron))`` beside ``generate``: identical tokens, prefill
+    logits bitwise (else within 1e-5·max|ref|), 9 flash launches in the
+    prefill and none in its decode steps (counts zeroed just before each),
+    a decode step's ledger held (``_megatron_ledger``); the prefill and
+    decode medians, one decode step profiled."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.serve import generate, make_serve_fns
+    from repro_torch.sharding.specs import place_params
+    cfg, params, _ = _lm_model("zamba2-2.7b", dev)
+    prompt = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))[
+        "tokens"]
+    tokens = torch.as_tensor(prompt, device=dev)
+    b, s = tokens.shape
+    steps, max_len = LM_STEPS, s + LM_STEPS
+    with torch.no_grad():
+        res = generate(params, cfg, prompt, steps, device=dev)
+        want_logits, want_tokens = res.prefill_logits, res.tokens
+        del res
+        shards = place_params(params, cfg, sharder)
+        prefill_fn, decode_fn = make_serve_fns(cfg, sharder)
+        _zero_lm_counts()
+        logits, caches = prefill_fn(shards, tokens, max_len=max_len)
+        pre_counts = _read_lm_counts()
+        _expect("megatron prefill launches (flash, ssd)", pre_counts,
+                (_attn_layers(cfg), 0))
+        bitwise = torch.equal(logits, want_logits)
+        diff = _held("megatron prefill logits vs unsharded", logits,
+                     want_logits, KERNEL_TOL, 0.0)
+        del want_logits
+        ms, ledgers = [], []
+        _zero_lm_counts()
+        got = greedy(lambda *a, **k: (logits, caches), decode_fn, shards,
+                     tokens, steps, max_len=max_len, sharder=sharder,
+                     ms=ms, ledgers=ledgers)
+        _expect(f"megatron decode launches over {steps} steps (flash, ssd)",
+                _read_lm_counts(), (0, 0))
+        got_tokens = got[1][:, :s + steps]
+        if not np.array_equal(got_tokens, want_tokens):
+            raise AssertionError(f"megatron serving tokens differ from "
+                                 f"generate's: {got_tokens[:, s:]} vs "
+                                 f"{want_tokens[:, s:]}")
+        calls = _megatron_ledger("megatron decode step",
+                                 ledgers[0].as_dict(), cfg)
+        if any(led.as_dict() != ledgers[0].as_dict() for led in ledgers):
+            raise AssertionError("megatron decode steps' ledgers differ")
+        print(f"  megatron serving tokens identical to generate's over "
+              f"{steps} steps; prefill logits "
+              + ("bitwise equal" if bitwise else f"max|Δ| {diff:.3e}")
+              + f"; one decode step's ledger calls {calls}")
+        pre_ms = []
+        for _ in range(LM_RUNS):
+            caches = None
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, caches = prefill_fn(shards, tokens, max_len=max_len + 1)
+            torch.cuda.synchronize()
+            pre_ms.append((time.perf_counter() - t) * 1e3)
+        tok = torch.as_tensor(got_tokens[:, -1:], device=dev)
+        prof = _profile(lambda: decode_fn(shards, tok, caches),
+                        "megatron decode step")
+        caches = None
+    pre, dec = statistics.median(pre_ms), statistics.median(ms[1:])
+    print(f"  megatron prefill {pre:.2f} ms (median of {pre_ms}); decode "
+          f"{dec:.2f} ms a step (median of {steps}); {card}")
+    del params, shards
+    _lm_free()
+    return {"launches": {"flash": pre_counts[0], "ssd": pre_counts[1]},
+            "bitwise": bitwise, "max_abs_diff": diff,
+            "decode_ledger_calls": calls, "prefill_ms": pre,
+            "prefill_ms_runs": pre_ms, "decode_ms": dec,
+            "decode_ms_runs": ms[1:], "profile_decode": prof}
+
+
+def _megatron_training(dev, mesh, card: str) -> dict:
+    """Granite-MoE-1B-A400M at full width and depth, phase 28's
+    configuration, through ``sharded_setup(..., ShardingRules(
+    "megatron"))`` at batch ``SHARD_TRAIN_BATCH``: step 0 under
+    deterministic algorithms against the unsharded step on the same batch
+    (the loss bitwise, else within ``SHARD_RTOL``), its gradients (the
+    shards reduced and gathered) leaf for leaf within ``SHARD_RTOL``
+    (``grads_held``), the step's ledger held (the forward's row-parallel
+    sums and their mirrors), two timed steps, no kernel launch."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.sharding import ShardingRules
+    from repro_torch.sharding.specs import gather_params, place_params
+    from repro_torch.train import (init_sharded_state, make_grad_fn,
+                                   sharded_setup)
+    cfg = get_config(SHARD_TRAIN_ARCH)
+    shape = dataclasses.replace(get_shape("train_4k"),
+                                global_batch=SHARD_TRAIN_BATCH)
+    setup = sharded_setup(cfg, shape, mesh, ShardingRules("megatron"),
+                          lr=TRAIN_LR)
+    sharder = setup["sharder"]
+    params = init_transformer(cfg, seed=0, device=dev)
+    data = SyntheticLM(cfg.vocab_size, seed=0).batches(
+        SHARD_TRAIN_BATCH, shape.seq_len, cfg)
+    batches = [next(data) for _ in range(3)]
+    _zero_lm_counts()
+    with _deterministic("phase 30 step 0"):
+        want_g, (_, want, _) = make_grad_fn(cfg)(params, batches[0])
+        want = want.item()
+        got_g = gather_params(make_grad_fn(cfg, sharder)(
+            place_params(params, cfg, sharder), batches[0])[0], cfg, sharder)
+        grad_rel = grads_held("megatron step 0 gradients vs unsharded",
+                              got_g, want_g)
+        del got_g, want_g
+        _lm_free()
+        state = init_sharded_state(params, cfg, setup["optimizer"],
+                                   sharder)
+        del params
+        _lm_free()
+        with collect_comm() as ledger:
+            state, m = setup["train_step"](state, batches[0])
+        got = m["loss"].item()
+    print(f"  megatron step 0 loss {got:.7f}, unsharded {want:.7f}: "
+          + ("bitwise equal" if got == want else
+             f"relative |Δ| {abs(got - want) / abs(want):.2e}"))
+    if abs(got - want) > SHARD_RTOL * abs(want):
+        raise AssertionError(f"megatron step 0 differs: {got} vs {want}")
+    led = ledger.as_dict()
+    tp = led.get("tp_psum|model|bfloat16", {})
+    _expect("megatron step's tp_psum calls (forward, backward)",
+            (tp.get("calls"), tp.get("mirrored_calls")),
+            (_tp_psum_calls(cfg, 1) - 1, _tp_psum_calls(cfg, 1) - 1))
+    _expect("megatron step's fp32 tp_psum calls (the embedding's)",
+            led.get("tp_psum|model|float32", {}).get("calls"), 1)
+    losses, ms = [got], []
+    for b in batches[1:]:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, m = setup["train_step"](state, b)
+        losses.append(m["loss"].item())
+        ms.append((time.perf_counter() - t) * 1e3)
+    _expect("megatron training launches (flash, ssd)", _read_lm_counts(),
+            (0, 0))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"megatron training losses {losses}")
+    med = statistics.median(ms)
+    print(f"  losses {[round(v, 4) for v in losses]}; step {med:.2f} ms "
+          f"({[round(v, 2) for v in ms]}); {card}")
+    del state
+    _lm_free()
+    return {"batch": SHARD_TRAIN_BATCH, "loss_step0": got,
+            "loss_unsharded": want, "bitwise": got == want,
+            "grad_rel": grad_rel, "losses": losses, "step_ms": med,
+            "step_ms_runs": ms, "ledger": led}
+
+
+def megatron(dev, card: str) -> dict:
+    """Phase 30: the megatron strategy on a (data=1, model=1) mesh of one
+    NCCL rank — Zamba2-2.7B's scoring and serving (flash, SSD) under
+    ``Sharder(megatron)``, then Granite-MoE's sharded training step."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding import Sharder, ShardingRules
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        sharder = Sharder(mesh, ShardingRules("megatron"))
+        out = {"scoring": _megatron_scoring(dev, sharder, card),
+               "serving": _megatron_serving(dev, sharder, card),
+               "training": _megatron_training(dev, mesh, card)}
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 30 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # The single-device trainer, R-GCN, checkpoints, the example (phase 20)
 # ---------------------------------------------------------------------------
 
@@ -4138,7 +4437,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
 
     t_start = time.perf_counter()
-    print("[1/29] device")
+    print("[1/30] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4156,105 +4455,109 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    print("[2/29] build")
+    print("[2/30] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/29] spmm kernel against its plain version")
+    print("[3/30] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/29] flash kernel against its plain version")
+    print("[4/30] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/29] ssd kernel against its plain version")
+    print("[5/30] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/29] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/30] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/29] naive TP GCN training (a split and a gather per "
+        print("[7/30] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/29] DP halo-exchange GCN training (k=1)")
+        print("[8/30] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/29] out-of-core streamed GCN training (pinned host "
+        print("[9/30] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/29] GAT decoupled-pipelined TP training (the score "
+        print("[10/30] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/29] GAT naive TP training")
+        print("[11/30] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/29] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/30] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/29] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/30] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/29] the constraint engine backend (DTensor, "
+        print("[14/30] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/29] spmm timing at the GCN paths' shapes")
+        print("[15/30] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/29] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/30] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info, score_info = serve(dev)
-    print("[18/29] fp32 cross-check at full width, kernels vs plain")
+    print("[18/30] fp32 cross-check at full width, kernels vs plain")
     fp32_err, fp32_launches = cross_check_fp32(
         cfg, params, batch["tokens"][:1, :512], batch["targets"][:1, :512],
         dev)
     del params
     _lm_free()
-    print("[19/29] flash and ssd timing at the LM paths' shapes")
+    print("[19/30] flash and ssd timing at the LM paths' shapes")
     t = time.perf_counter()
     lm_rows = lm_timing(dev)
     _lm_free()
     print(f"  phase 19 took {time.perf_counter() - t:.1f} s")
-    print("[20/29] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    print("[20/30] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
-    print("[21/29] multihost: the placed bundle, the launcher under the env "
+    print("[21/30] multihost: the placed bundle, the launcher under the env "
           "contract")
     multihost_info = multihost(dev, card)
     _lm_free()
-    print("[22/29] gemma2-9b at full width and depth: generate 1 × 8192 "
+    print("[22/30] gemma2-9b at full width and depth: generate 1 × 8192 "
           "with ring caches and with dense caches, scoring")
     gemma_info = gemma2(dev)
-    print("[23/29] deepseek-v2-lite-16b at full width and depth: generate "
+    print("[23/30] deepseek-v2-lite-16b at full width and depth: generate "
           "2 × 2048 (MLA, MoE), scoring")
     deepseek_info = deepseek(dev)
-    print("[24/29] mamba2-1.3b at full width and depth: scoring, generate")
+    print("[24/30] mamba2-1.3b at full width and depth: scoring, generate")
     mamba_info = mamba2(dev)
-    print("[25/29] fp32 cross-checks of the new configs, kernels vs plain")
+    print("[25/30] fp32 cross-checks of the new configs, kernels vs plain")
     xcheck_errs, xcheck_launches = lm_cross_checks(dev)
-    print("[26/29] InternVL2-1B and MusicGen-large at full width and depth: "
+    print("[26/30] InternVL2-1B and MusicGen-large at full width and depth: "
           "generate 2 × 2048 behind the prefix, scoring")
     mm_info = multimodal(dev)
-    print("[27/29] LM training at full width and depth: InternVL2-1B and "
+    print("[27/30] LM training at full width and depth: InternVL2-1B and "
           "Granite-MoE-1B-A400M, the fp32 cross-checks, the kernels' "
           "refusals")
     t = time.perf_counter()
     train_info = lm_train(dev, card)
     print(f"  phase 27 took {time.perf_counter() - t:.1f} s")
-    print("[28/29] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
+    print("[28/30] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
           "Zamba2-2.7B's sharded scoring (flash, SSD), Granite-MoE's "
           "sharded training step")
     shard_info = sharded_lm(dev, card)
-    print("[29/29] sharded LM serving on a (data=1, model=1) mesh: "
+    print("[29/30] sharded LM serving on a (data=1, model=1) mesh: "
           "Zamba2-2.7B's sharded prefill (flash) and greedy decode, the "
           "fp32 cross-checks of the three cache layouts")
     serve_shard_info = sharded_serving(dev, card)
+    print("[30/30] the megatron strategy on a (data=1, model=1) mesh: "
+          "Zamba2-2.7B's scoring (flash, SSD) and serving (flash), "
+          "Granite-MoE's training step")
+    megatron_info = megatron(dev, card)
     script_s = time.perf_counter() - t_start
-    print(f"  phases 1–29 took {script_s:.1f} s")
+    print(f"  phases 1–30 took {script_s:.1f} s")
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -4274,6 +4577,7 @@ def main() -> int:
                       "multimodal": mm_info, "lm_train": train_info,
                       "sharded_lm": shard_info,
                       "sharded_serving": serve_shard_info,
+                      "megatron": megatron_info,
                       "script_s": script_s, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",
@@ -4393,6 +4697,28 @@ def main() -> int:
         "held_against": "ref.ssd_intra_chunk_ref", "shape": sd["shape"],
         "path": "zamba2-2.7b sharded scoring (phase 28, mesh 1×1)",
         "launches": shard_info["scoring"]["launches"]["ssd"],
+        "max_abs_err": max(ssd_err, sd["max_abs_err"]),
+        **{k: sd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "event_ms")},
+        "ms_by": "profiler"}, {
+        "name": "flash_attention_bhsd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                  "flash_attention_mma.cu",
+        "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+        "held_against": "ref.flash_ref", "shape": fl["shape"],
+        "path": "zamba2-2.7b megatron scoring and serving prefill "
+                "(phase 30, mesh 1×1)",
+        "launches": megatron_info["scoring"]["launches"]["flash"]
+        + megatron_info["serving"]["launches"]["flash"],
+        "max_abs_err": max(flash_err, fl["max_abs_err"]),
+        **{k: fl[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")}, "ms_by": "events"}, {
+        "name": "ssd_intra_chunk", "route": "cuda",
+        "source": "src/repro_torch/kernels/ssd/csrc/ssd_intra_chunk.cu",
+        "replaces": "src/repro/kernels/ssd/ssd.py:61",
+        "held_against": "ref.ssd_intra_chunk_ref", "shape": sd["shape"],
+        "path": "zamba2-2.7b megatron scoring (phase 30, mesh 1×1)",
+        "launches": megatron_info["scoring"]["launches"]["ssd"],
         "max_abs_err": max(ssd_err, sd["max_abs_err"]),
         **{k: sd[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms", "event_ms")},

@@ -18,7 +18,9 @@ by hand) and ``--device`` (default ``cuda``).  Under the env contract of
 ``repro_torch.launch.multihost`` (``COORDINATOR_ADDRESS``,
 ``NUM_PROCESSES``, ``PROCESS_ID``) each process is one rank; without it
 the script starts data·model processes itself on a free localhost port.
-``--strategy megatron`` is not ported and raises, naming its ROADMAP item.
+``--strategy megatron`` trains the same model under Megatron's column-
+and row-parallel NN phase (the explicit hooks decline under it), ``dp``
+under pure data parallelism.
 """
 import argparse
 import os
@@ -34,8 +36,7 @@ from repro_torch.data import SyntheticLM
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.runtime import distributed
-from repro_torch.sharding import (MEGATRON_ITEM, ExplicitSharder, Sharder,
-                                  ShardingRules)
+from repro_torch.sharding import ExplicitSharder, Sharder, ShardingRules
 from repro_torch.train import init_sharded_state, make_train_step
 
 
@@ -115,8 +116,6 @@ def _spawned(process_id, args, coordinator):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.strategy == "megatron":
-        raise NotImplementedError(MEGATRON_ITEM)
     if os.environ.get(distributed.ENV_NUM_PROCESSES):
         run(args)
         return 0

@@ -5,11 +5,15 @@ over NCCL, on the mesh (data=1, model=N): what ``chip_smoke.py``'s phase
 attention and expert-parallel MoE with wire bytes.
 
     scripts/launch_multihost_torch.sh -n 4 -t 900 -- \\
-        python3 scripts/torch_lm_sharded_nccl.py [--out FILE]
+        python3 scripts/torch_lm_sharded_nccl.py [--out FILE] \\
+        [--strategy megatron]
 
 Every process joins through the env contract
 (``runtime/distributed.py::initialize``) and runs, under
-``ExplicitSharder(make_host_mesh(model=N), ShardingRules())``:
+``ExplicitSharder(make_host_mesh(model=N), ShardingRules(strategy))``
+(``--strategy``: ``neutron_tp`` by default; under ``megatron`` the
+explicit hooks decline and the NN phase is column- and row-parallel, its
+sums ledgered as ``tp_psum``):
 
 * **cross-checks** in fp32 at full width cut in depth, on 1 × 512 tokens
   (behind the prefix): Granite-MoE-1B-A400M at 2 layers (16/8 heads: the
@@ -50,7 +54,8 @@ Every process joins through the env contract
   capacity is the rank's), under False and ``"model"`` on (data 1, model
   N) and under True on (data 2, model N/2) at batch 1.
 
-``--only training`` or ``--only serving`` runs one part.  Rank 0 prints
+``--only training`` or ``--only serving`` runs one part.  ``--train``
+names the training cells' configs (default both).  Rank 0 prints
 the card's name and power limit and one JSON line, and writes
 ``--out``.  Exits non-zero if a hold fails.  ``--device cpu
 --small`` runs the same on gloo processes at reduced sizes, untimed (a
@@ -90,9 +95,9 @@ def _cfg(arch, small, **over):
                                                   else "")), **over)
 
 
-def _sharder(mesh):
+def _sharder(mesh, strategy, **rules):
     from repro_torch.sharding import ExplicitSharder, ShardingRules
-    return ExplicitSharder(mesh, ShardingRules("neutron_tp"))
+    return ExplicitSharder(mesh, ShardingRules(strategy, **rules))
 
 
 def _steps(cfg, sharder, params, batches):
@@ -113,7 +118,7 @@ def _steps(cfg, sharder, params, batches):
     return out
 
 
-def xcheck_training(arch, mesh, dev, small) -> dict:
+def xcheck_training(arch, mesh, dev, small, strategy) -> dict:
     import chip_smoke as cs
     from repro_torch.data import SyntheticLM
     from repro_torch.models.transformer import init_transformer
@@ -127,7 +132,7 @@ def xcheck_training(arch, mesh, dev, small) -> dict:
     data = SyntheticLM(cfg.vocab_size, seed=1).batches(
         1, 64 if small else 512, cfg)
     batches = [next(data) for _ in range(2)]
-    sharder = _sharder(mesh)
+    sharder = _sharder(mesh, strategy)
     # the first step's gradients, each rank's shards reduced and gathered
     grad_rel = cs.grads_held(
         f"{arch} fp32 gradients", gather_params(make_grad_fn(cfg, sharder)(
@@ -143,7 +148,7 @@ def xcheck_training(arch, mesh, dev, small) -> dict:
             "grad_rel": grad_rel}
 
 
-def xcheck_scoring(mesh, dev, small) -> dict:
+def xcheck_scoring(mesh, dev, small, strategy) -> dict:
     from repro_torch.data import SyntheticLM
     from repro_torch.models import transformer as T
     from repro_torch.sharding.specs import place_params
@@ -153,7 +158,7 @@ def xcheck_scoring(mesh, dev, small) -> dict:
     tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=1)
                                   .batches(1, 64 if small else 512))
                              ["tokens"], device=dev)
-    sharder = _sharder(mesh)
+    sharder = _sharder(mesh, strategy)
     with torch.no_grad():
         want = T.forward(params, cfg, tokens)[0]
         got, _ = T.forward(place_params(params, cfg, sharder), cfg, tokens,
@@ -167,7 +172,7 @@ def xcheck_scoring(mesh, dev, small) -> dict:
     return {"max_abs_diff": err, "max_abs_ref": scale}
 
 
-def train_cell(arch, batch, mesh, dev, small, audited) -> dict:
+def train_cell(arch, batch, mesh, dev, small, audited, strategy) -> dict:
     from repro_torch.analysis import audit
     from repro_torch.configs import get_shape
     from repro_torch.data import SyntheticLM
@@ -177,7 +182,7 @@ def train_cell(arch, batch, mesh, dev, small, audited) -> dict:
     from repro_torch.train import init_sharded_state, make_train_step
     cfg = _cfg(arch, small)
     seq = 64 if small else get_shape("train_4k").seq_len
-    sharder = _sharder(mesh)
+    sharder = _sharder(mesh, strategy)
     opt = adamw(LR)
     state = init_sharded_state(init_transformer(cfg, seed=0, device=dev),
                                cfg, opt, sharder)
@@ -217,14 +222,14 @@ def train_cell(arch, batch, mesh, dev, small, audited) -> dict:
             if dev.type == "cuda" else None}
 
 
-def scoring_cell(mesh, dev, small) -> dict:
+def scoring_cell(mesh, dev, small, strategy) -> dict:
     import chip_smoke as cs
     from repro_torch.data import SyntheticLM
     from repro_torch.models import transformer as T
     from repro_torch.runtime.telemetry import collect_comm
     from repro_torch.sharding.specs import place_params
     cfg = _cfg("zamba2-2.7b", small, attn_impl="flash", ssm_impl="fused")
-    sharder = _sharder(mesh)
+    sharder = _sharder(mesh, strategy)
     shards = place_params(T.init_transformer(cfg, seed=0, device=dev), cfg,
                           sharder)
     tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=0)
@@ -266,12 +271,11 @@ def _agreement(got, want, s: int) -> dict:
             / want[0].abs().max().item()}
 
 
-def serving_cell(mesh, dev, small) -> dict:
+def serving_cell(mesh, dev, small, strategy) -> dict:
     import chip_smoke as cs
     from repro_torch.data import SyntheticLM
     from repro_torch.models.transformer import init_transformer
     from repro_torch.serve import make_serve_fns
-    from repro_torch.sharding import ExplicitSharder, ShardingRules
     from repro_torch.sharding.specs import place_params
     cfg = _cfg("zamba2-2.7b", small, attn_impl="flash", ssm_impl="fused")
     params = init_transformer(cfg, seed=0, device=dev)
@@ -301,8 +305,7 @@ def serving_cell(mesh, dev, small) -> dict:
                             "decode_ms": statistics.median(ms[1:]),
                             "decode_ms_runs": ms[1:]}
         for mode in (False, "model"):
-            sharder = ExplicitSharder(mesh, ShardingRules(
-                seq_shard_cache=mode))
+            sharder = _sharder(mesh, strategy, seq_shard_cache=mode)
             shards = place_params(params, cfg, sharder)
             fns = make_serve_fns(cfg, sharder)
             ms, ledgers = [], []
@@ -329,12 +332,11 @@ def serving_cell(mesh, dev, small) -> dict:
     return out
 
 
-def serving_xchecks(meshes, dev, small) -> dict:
+def serving_xchecks(meshes, dev, small, strategy) -> dict:
     import chip_smoke as cs
     from repro_torch.data import SyntheticLM
     from repro_torch.models.transformer import init_transformer
     from repro_torch.serve import make_serve_fns
-    from repro_torch.sharding import ExplicitSharder, ShardingRules
     from repro_torch.sharding.specs import place_params
     out = {}
     for arch, over, s, lc in (
@@ -356,8 +358,8 @@ def serving_xchecks(meshes, dev, small) -> dict:
                              tokens, steps, max_len=max_len)
             for mesh_name, mode in (("1xN", False), ("1xN", "model"),
                                     ("2xN/2", True)):
-                sharder = ExplicitSharder(meshes[mesh_name], ShardingRules(
-                    seq_shard_cache=mode))
+                sharder = _sharder(meshes[mesh_name], strategy,
+                                   seq_shard_cache=mode)
                 got = cs.greedy(*make_serve_fns(cfg, sharder,
                                                 long_context=lc),
                                 place_params(params, cfg, sharder), tokens,
@@ -377,16 +379,18 @@ def kernel_rows(dev, n: int) -> dict:
             "ssd": cs._ssd_row(gen, dev, 2, 2048, 80 // n, 64, 64, 256)}
 
 
-def training_part(mesh, n, dev, small, lead) -> dict:
+def training_part(mesh, n, dev, small, lead, strategy, train) -> dict:
     res = {}
     for arch in ("granite-moe-1b-a400m", "internvl2-1b"):
-        res[f"xcheck {arch}"] = xcheck_training(arch, mesh, dev, small)
-    res["xcheck zamba2 scoring"] = xcheck_scoring(mesh, dev, small)
+        res[f"xcheck {arch}"] = xcheck_training(arch, mesh, dev, small,
+                                                strategy)
+    res["xcheck zamba2 scoring"] = xcheck_scoring(mesh, dev, small,
+                                                  strategy)
     if lead:
         print(f"cross-checks ok: {json.dumps(res)}", flush=True)
-    for arch, batch in TRAIN:
+    for arch, batch in train:
         res[arch] = train_cell(arch, batch, mesh, dev, small,
-                               audited=arch.startswith("granite"))
+                               arch.startswith("granite"), strategy)
         if lead:
             r = res[arch]
             print(f"{arch} batch {batch}: step {r['step_ms']:.1f} ms "
@@ -394,15 +398,15 @@ def training_part(mesh, n, dev, small, lead) -> dict:
                   f"losses {[round(v, 4) for v in r['losses']]}, "
                   f"{r['wire_bytes'] / 1e9:.3f} GB on the wire a rank "
                   f"a step", flush=True)
-    res["zamba2 scoring"] = scoring_cell(mesh, dev, small)
+    res["zamba2 scoring"] = scoring_cell(mesh, dev, small, strategy)
     if lead and dev.type == "cuda":
         res["kernels"] = kernel_rows(dev, n)
     return res
 
 
-def serving_part(mesh, n, dev, small, lead) -> dict:
+def serving_part(mesh, n, dev, small, lead, strategy) -> dict:
     from repro_torch.launch.mesh import make_host_mesh
-    res = {"zamba2 serving": serving_cell(mesh, dev, small)}
+    res = {"zamba2 serving": serving_cell(mesh, dev, small, strategy)}
     if lead:
         brief = {k: {f: v.get(f) for f in (
             "prefill_ms", "decode_ms", "decode_wire_bytes",
@@ -411,7 +415,7 @@ def serving_part(mesh, n, dev, small, lead) -> dict:
         print(f"zamba2 serving: {json.dumps(brief)}", flush=True)
     res["serving xchecks"] = serving_xchecks(
         {"1xN": mesh, "2xN/2": make_host_mesh(model=n // 2, data=2)}, dev,
-        small)
+        small, strategy)
     return res
 
 
@@ -423,6 +427,10 @@ def main(argv=None) -> int:
     ap.add_argument("--only", choices=("training", "serving"),
                     help="run the training and scoring part or the "
                          "serving part alone (default: both)")
+    ap.add_argument("--strategy", default="neutron_tp",
+                    choices=("neutron_tp", "megatron"))
+    ap.add_argument("--train", nargs="+", default=[a for a, _ in TRAIN],
+                    choices=[a for a, _ in TRAIN])
     args = ap.parse_args(argv)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime import distributed as RD
@@ -438,9 +446,12 @@ def main(argv=None) -> int:
         mesh = make_host_mesh(model=ctx.num_processes, data=1)
         n = mesh.size
         if args.only != "serving":
-            res.update(training_part(mesh, n, dev, args.small, lead))
+            res.update(training_part(mesh, n, dev, args.small, lead,
+                                     args.strategy, [(a, b) for a, b in TRAIN
+                                                     if a in args.train]))
         if args.only != "training":
-            res.update(serving_part(mesh, n, dev, args.small, lead))
+            res.update(serving_part(mesh, n, dev, args.small, lead,
+                                    args.strategy))
     finally:
         RD.shutdown()
 
@@ -453,6 +464,7 @@ def main(argv=None) -> int:
             print(res["card"])
         res["seconds"] = time.perf_counter() - t0
         res["ranks"] = ctx.num_processes
+        res["strategy"] = args.strategy
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(res, indent=1))
         print(json.dumps({k: v for k, v in res.items() if k != "kernels"}

@@ -29,11 +29,13 @@ which walks the traced program instead:
 Exactness contract, as the reference's: exact for the data-moving ops —
 ``all_to_all`` (forward ``calls`` against the forward pass,
 ``mirrored_calls`` against the backward one), ``all_gather`` (and the
-LM's gathers under their own op kinds: ``param_gather``, and serving's
-``cache_place``, ``softmax_gather`` and ``conv_gather``) and its mirror,
-the reduce-scatter, and
+LM's gathers under their own op kinds: ``param_gather``, serving's
+``cache_place``, ``softmax_gather`` and ``conv_gather``, and megatron's
+``tp_gather``) and its mirror, the reduce-scatter, and
 ``ppermute`` as a send and a receive — and one-directional for ``psum`` /
-``grad_psum``: the ledger may not claim more all-reduces than ran, but
+``grad_psum`` / ``tp_psum`` (megatron's row-parallel sum, an all-reduce
+forward and another, its mirror, backward): the ledger may not claim more
+all-reduces than ran, but
 all-reduces it does not record are expected (below).  A checkpoint's
 rerun of forward collectives (``recomputed_calls``) runs in the backward
 pass.  Any other collective (broadcast, barrier, ...) has no ledger op
@@ -245,7 +247,7 @@ def expected_from_ledger(ledger: T.CommLedger, *,
                     e.mirrored_calls
         elif op == "psum_scatter":
             exact[("reduce_scatter", dtype, "forward")] += e.calls
-        elif op in ("psum", "grad_psum"):
+        elif op in ("psum", "grad_psum", "tp_psum"):
             reduces[dtype] += e.calls + e.mirrored_calls + e.recomputed_calls
     return ({k: v for k, v in exact.items() if v},
             {k: v for k, v in reduces.items() if v})

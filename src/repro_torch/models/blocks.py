@@ -108,7 +108,7 @@ def _ffn(p: dict, cfg: ArchConfig, kind: str, x, *, dropless=False,
         m, aux = moe_lib.moe_apply(p["moe"], cfg, h, dropless=dropless,
                                    shard=shard)
     else:
-        m = nl.mlp(p["mlp"], h, cfg.act)
+        m = nl.mlp(p["mlp"], h, cfg.act, shard, cfg.d_ff)
     if cfg.post_norm:
         m = _norm(p["mlp_post_norm"], m, cfg)
     return x + m, aux

@@ -31,7 +31,14 @@ replicated over the model axis, gathers the weights at use (each
 block's shards and the head's cast to the compute dtype before the
 gather, as ``_cast_compute`` casts them: the same values as the in-block
 casts, half the bytes in bf16) and returns the rank's block of the logits
-and its cache shards.
+and its cache shards.  Under the megatron strategy the blocks' weights and
+the vocab-split embedding and head keep their model shards at use (only
+the FSDP shards are gathered): the input embedding is a masked lookup of
+the rank's rows summed over the model axis (``nn.layers.embed``), and the
+head's vocab-split logits are gathered whole over the model axis before
+the softcap, the padding mask and the loss (:func:`unembed`; ledger op
+``tp_gather``) — the loss is the plain log-softmax of whole logits, not a
+vocab-parallel one.
 
 Decode caches mirror the group structure; :func:`decode_step` writes the
 new token's state into the cache tensors in place (see
@@ -141,12 +148,12 @@ def _rep(tree, r: int):
 
 
 def assemble_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
-                    prefix_embeddings: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    prefix_embeddings: Optional[torch.Tensor] = None,
+                    shard: NoShard = no_shard) -> torch.Tensor:
     """tokens (B, S_t) [+ prefix (B, P, D)] → embeddings (B, P + S_t, D),
     fp32: a modality config's prefix through ``mm_proj`` in fp32, before
     the token embeddings, the whole scaled by √d."""
-    x = _embed(params, tokens)
+    x = _embed(params, cfg, tokens, shard)
     if cfg.modality:
         if prefix_embeddings is None:
             raise ValueError(f"{cfg.name} needs frontend embeddings "
@@ -157,11 +164,13 @@ def assemble_inputs(params, cfg: ArchConfig, tokens: torch.Tensor,
     return x * math.sqrt(float(cfg.d_model))
 
 
-def _embed(params, tokens: torch.Tensor) -> torch.Tensor:
+def _embed(params, cfg: ArchConfig, tokens: torch.Tensor,
+           shard: NoShard = no_shard) -> torch.Tensor:
     """fp32 rows of the table (gathered first, then widened: the same
     values as the reference's widen-then-gather, without an fp32 copy of
     the table)."""
-    return nl.embed(params["embed"], tokens).float()
+    return nl.embed(params["embed"], tokens, shard,
+                    cfg.padded_vocab).float()
 
 
 def _groups(params, cfg: ArchConfig, dtype: torch.dtype):
@@ -264,7 +273,7 @@ def _inputs(params, cfg: ArchConfig, tokens, prefix_embeddings, shard,
         prefix_embeddings = torch.as_tensor(prefix_embeddings,
                                             device=tokens.device)
     x = assemble_inputs(top, cfg, shard.take_batch(tokens),
-                        shard.take_batch(prefix_embeddings)).to(dtype)
+                        shard.take_batch(prefix_embeddings), shard).to(dtype)
     shard = shard.bound(tokens.shape[0], x.shape[1])
     x = shard(x, "act_tokens", src="act_seq")
     positions = shard.positions(*x.shape[:2], x.device)
@@ -310,24 +319,27 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             aux_total = aux_total + aux
     x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(top, cfg, x), aux_total
+    return unembed(top, cfg, x, shard), aux_total
 
 
 # gathered whole for the whole sharded forward
 _TOP = ("embed", "final_norm", "head", "mm_proj")
 
 
-def unembed(params, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+def unembed(params, cfg: ArchConfig, x: torch.Tensor,
+            shard: NoShard = no_shard) -> torch.Tensor:
     """fp32 logits, softcapped and with the padded ids masked.  Without a
     gradient both run in place (the (B, S, V) buffer is the largest of a
     long prefill); where the logits take part in a gradient the softcap
     runs out of place (tanh's backward reads its output), with the same
-    values."""
+    values.  Under megatron a vocab-split head (or tied table) gives the
+    rank's vocab block, gathered whole over the model axis in the compute
+    dtype first (module docstring)."""
     if cfg.tie_embeddings:
         logits = x @ params["embed"].to(x.dtype).T
     else:
         logits = x @ params["head"].to(x.dtype)
-    logits = logits.float()
+    logits = shard.col_gather(logits, cfg.padded_vocab).float()
     if cfg.logit_softcap is not None:      # nl.softcap's ops
         if logits.requires_grad:
             logits = nl.softcap(logits, cfg.logit_softcap)
@@ -393,7 +405,7 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
                        for u in range(len(gspec.unit))])
     x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(top, cfg, x), caches
+    return unembed(top, cfg, x, shard), caches
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int,
@@ -448,7 +460,8 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, *,
         token = torch.as_tensor(token, device=params["embed"].device)
         shard = shard.bound(token.shape[0], 1)
         token = shard.take_batch(token)
-    x = (_embed(top, token) * math.sqrt(float(cfg.d_model))).to(dtype)
+    x = (_embed(top, cfg, token, shard) * math.sqrt(float(cfg.d_model))
+         ).to(dtype)
     new_caches = []
     for gi, (gspec, gp, gc) in enumerate(zip(B.layer_groups(cfg),
                                              params["groups"], caches)):
@@ -479,7 +492,7 @@ def decode_step(params, cfg: ArchConfig, token: torch.Tensor, caches, *,
         new_caches.append(new_gc)
     x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
-    return unembed(top, cfg, x), new_caches
+    return unembed(top, cfg, x, shard), new_caches
 
 
 def lm_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,19 @@ before the max), and one gather of those partials over the cache's
 sequence axis merges them (:func:`_split_softmax`).  No decode step
 gathers a cache.
 
+Under the megatron strategy the NN phase is Megatron's: the activations
+hold the rank's batch block with the whole sequence, replicated over the
+model axis; q, k and v come from the rank's column shards of wq, wk and
+wv, so they are head-local and no mixing-phase transition runs (k and v
+whole where the kv heads do not divide the axis, the rank's kv groups
+sliced out: :func:`_kv_for_local_q`); the output projection is
+row-parallel, its partial outputs summed over the model axis
+(``Sharder.row_sum``).  Heads that do not divide the axis leave the whole
+attention replicated, with no sum.  A decode step moves the head-local q,
+k and v to the cache's layout (a gather of the heads where the cache holds
+them whole, ledger op ``tp_gather``) and the output back to the rank's
+heads.
+
 Decode caches:
   * :class:`KVCache`        — dense (B, S_max, H_kv, hd) k/v;
   * :class:`WindowKVCache`  — a ring buffer of the sliding window (gemma2
@@ -247,7 +260,13 @@ def _mixing_attention(cfg: ArchConfig, q, k, v, *,
     where it applies; else they move to the fitted ``act_heads`` /
     ``act_kv_heads`` (an all-to-all where the heads divide, an all-gather
     of the sequence where the spec replicates), and the output moves back
-    to the token layout."""
+    to the token layout.  Under megatron q, k and v are head-local
+    already (module docstring)."""
+    if shard.megatron:
+        if not cfg.use_mla and shard.tp(cfg.num_heads) and \
+                not shard.tp(cfg.num_kv_heads):
+            k, v = _kv_for_local_q(k, v, cfg.num_heads, shard)
+        return attend(cfg, q, k, v, window=window, scale=scale)
     if shard.explicit_a2a is not None:
         out = shard.explicit_a2a(cfg, q, k, v, window=window, scale=scale)
         if out is not None:      # None → divisibility fallback below
@@ -268,7 +287,14 @@ def gqa_attention(p, cfg: ArchConfig, x, positions, *,
     """Full-sequence attention (scoring / prefill without a cache)."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     out = _mixing_attention(cfg, q, k, v, window=window, shard=shard)
-    return shard(_out_proj(out, p["wo"]), "act_tokens")
+    return _attn_output(cfg, out, p["wo"], shard)
+
+
+def _attn_output(cfg: ArchConfig, out, wo, shard: NoShard):
+    """The output projection in the token layout: row-parallel under
+    megatron (the rank's heads' rows, summed over the model axis)."""
+    return shard.row_sum(shard(_out_proj(out, wo), "act_tokens"),
+                         cfg.num_heads)
 
 
 @dataclasses.dataclass
@@ -307,18 +333,22 @@ def gqa_prefill(p, cfg: ArchConfig, x, positions, max_len: int, *,
     and the cache the rank's shards (module docstring)."""
     q, k, v = gqa_project_qkv(p, cfg, x, positions)
     out = _mixing_attention(cfg, q, k, v, window=window, shard=shard)
-    y = shard(_out_proj(out, p["wo"]), "act_tokens")
+    y = _attn_output(cfg, out, p["wo"], shard)
     b, s = shard.batch or x.shape[0], shard.seq or x.shape[1]
+    kl = (2,) if shard.tp(cfg.num_kv_heads) else ()
     if window and long_context:
-        shape, keep = (b, window) + k.shape[2:], min(s, window)
+        shape, keep = (b, window, cfg.num_kv_heads, k.shape[3]), \
+            min(s, window)
         build = _ring(s, window)
         return y, WindowKVCache(
-            k=shard.to_cache(k, "k", shape, build, keep),
-            v=shard.to_cache(v, "v", shape, build, keep), length=s,
+            k=shard.to_cache(k, "k", shape, build, keep, kl),
+            v=shard.to_cache(v, "v", shape, build, keep, kl), length=s,
             window=window)
-    shape, build = (b, max_len) + k.shape[2:], _padded(max_len)
-    return y, KVCache(k=shard.to_cache(k, "k", shape, build),
-                      v=shard.to_cache(v, "v", shape, build), length=s)
+    shape, build = (b, max_len, cfg.num_kv_heads, k.shape[3]), \
+        _padded(max_len)
+    return y, KVCache(k=shard.to_cache(k, "k", shape, build, local=kl),
+                      v=shard.to_cache(v, "v", shape, build, local=kl),
+                      length=s)
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int,
@@ -363,7 +393,11 @@ def _gqa_decode(p, cfg: ArchConfig, x, cache, shard: NoShard, *,
     extent = cache.window if ring else shard.cache_len or cache.k.shape[1]
     lay = shard.cache_layout("k", (b, extent, cfg.num_kv_heads, hd))
     heads = {0: 0, 2: 2}
-    q, k_new, v_new = (lay.take(t, heads) for t in (q, k_new, v_new))
+    ql = (2,) if shard.tp(cfg.num_heads) else ()
+    kl = (2,) if shard.tp(cfg.num_kv_heads) else ()
+    q = lay.take(q, heads, ql, op="tp_gather")
+    k_new, v_new = (lay.take(t, heads, kl, op="tp_gather")
+                    for t in (k_new, v_new))
     slot = pos % cache.window if ring else pos
     skv = cache.k.shape[1]
     j = lay.local_slot(slot, skv)
@@ -389,8 +423,8 @@ def _gqa_decode(p, cfg: ArchConfig, x, cache, shard: NoShard, *,
         out = _split_softmax(sc, cache.v.float(), "bkgst,btkh->bkgsh", lay)
         out = out.permute(0, 3, 1, 2, 4).reshape(bl, 1, -1, out.shape[-1])
         out = out.to(cache.v.dtype)
-    out = lay.give(out, heads)
-    return _out_proj(out, p["wo"]), pos + 1
+    out = lay.give(out, heads, local=ql)
+    return shard.row_sum(_out_proj(out, p["wo"]), cfg.num_heads), pos + 1
 
 
 def gqa_decode(p, cfg: ArchConfig, x, cache: KVCache, *,
@@ -466,7 +500,8 @@ def _mla_full(p, cfg: ArchConfig, x, positions, shard: NoShard = no_shard):
     """Full-sequence MLA: keys and values decompressed from the latents,
     the shared rope key broadcast over the heads, attention at the scale
     of the hd + rope_hd query width (hd_v = hd).  Returns (y, c_kv,
-    k_rope)."""
+    k_rope).  Under megatron wkv_a is replicated and wq, wk_b, wv_b and
+    wo hold the rank's heads."""
     b, s, _ = x.shape
     q_nope, q_rope = _mla_q(p, cfg, x, positions)
     c_kv, k_rope = _mla_latent(p, cfg, x, positions)
@@ -474,16 +509,16 @@ def _mla_full(p, cfg: ArchConfig, x, positions, shard: NoShard = no_shard):
     v = _proj_heads(c_kv, p["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None].expand(
-        b, s, cfg.num_heads, cfg.rope_head_dim)], dim=-1)
+        b, s, k_nope.shape[2], cfg.rope_head_dim)], dim=-1)
     out = _mixing_attention(cfg, q, k, v, scale=_mla_scale(cfg),
                             shard=shard)
-    return _out_proj(out, p["wo"]), c_kv, k_rope
+    return _attn_output(cfg, out, p["wo"], shard), c_kv, k_rope
 
 
 def mla_attention(p, cfg: ArchConfig, x, positions, *,
                   shard: NoShard = no_shard):
     """Full-sequence MLA (scoring / prefill without a cache)."""
-    return shard(_mla_full(p, cfg, x, positions, shard)[0], "act_tokens")
+    return _mla_full(p, cfg, x, positions, shard)[0]
 
 
 @dataclasses.dataclass
@@ -499,7 +534,7 @@ def mla_prefill(p, cfg: ArchConfig, x, positions, max_len: int, *,
     y, c_kv, k_rope = _mla_full(p, cfg, x, positions, shard)
     b, s = shard.batch or x.shape[0], shard.seq or x.shape[1]
     build = _padded(max_len)
-    return shard(y, "act_tokens"), MLACache(
+    return y, MLACache(
         c_kv=shard.to_cache(c_kv, "c_kv", (b, max_len, cfg.kv_lora_rank),
                             build),
         k_rope=shard.to_cache(k_rope, "k_rope",
@@ -525,7 +560,11 @@ def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, *,
     (q·W_kb), so attention runs against the (S, r) latents directly and
     the cache stays compressed; the output leaves latent space through
     W_vb.  Under a sharder the latents' sequence may be split over ranks
-    (a split softmax, module docstring); the latent dim never is."""
+    (a split softmax, module docstring); the latent dim never is.  Under
+    megatron the queries are the rank's heads: where the latents' sequence
+    is split over the model axis, every head's latent query is gathered
+    (ledger op ``tp_gather``), each rank scores its slots for all of them,
+    and keeps its heads' output after the merge."""
     pos = cache.length
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                            device=x.device)
@@ -543,6 +582,13 @@ def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, *,
         cache.k_rope[:, j] = kr_new[:, 0].to(cache.k_rope.dtype)
     c_kv = cache.c_kv.float()
     q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"].to(x.dtype))
+    every = shard.tp(cfg.num_heads) and lay.spec[1] == \
+        shard.rules.model_axis
+    if every:
+        q_lat = shard.col_gather(q_lat.movedim(2, -1), cfg.num_heads
+                                 ).movedim(-1, 2)
+        q_rope = shard.col_gather(q_rope.movedim(2, -1), cfg.num_heads
+                                  ).movedim(-1, 2)
     scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), c_kv)
               + torch.einsum("bshk,btk->bhst", q_rope.float(),
                              cache.k_rope.float())) * _mla_scale(cfg)
@@ -555,8 +601,10 @@ def mla_decode(p, cfg: ArchConfig, x, cache: MLACache, *,
         out_lat = _split_softmax(scores, c_kv, "bhst,btr->bhsr",
                                  lay).transpose(1, 2)
     out_lat = lay.give(out_lat, {0: 0})
+    if every:
+        out_lat = shard.tp_block(out_lat, 2, cfg.num_heads)
     out = torch.einsum("bshr,rhk->bshk", out_lat.to(x.dtype),
                        p["wv_b"].to(x.dtype))
-    y = _out_proj(out, p["wo"])
+    y = shard.row_sum(_out_proj(out, p["wo"]), cfg.num_heads)
     return y, MLACache(c_kv=cache.c_kv, k_rope=cache.k_rope,
                        length=pos + 1)

@@ -16,6 +16,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .shard import NoShard, no_shard
+
 
 def param(gen: torch.Generator, shape: tuple, *, scale: float | None = None,
           init: str = "normal", dtype=torch.float32) -> torch.Tensor:
@@ -35,10 +37,14 @@ def param(gen: torch.Generator, shape: tuple, *, scale: float | None = None,
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6,
-             plus_one: bool = False) -> torch.Tensor:
+             plus_one: bool = False, reduce=None) -> torch.Tensor:
+    """``reduce``, where the normalised dim is split over ranks: the
+    per-token mean square of this rank's part (fp32) → the whole's."""
     dtype = x.dtype
     x = x.float()
     var = torch.mean(x * x, dim=-1, keepdim=True)
+    if reduce is not None:
+        var = reduce(var)
     x = x * torch.rsqrt(var + eps)
     w = weight.float()
     if plus_one:                     # gemma-style (1 + w) scaling
@@ -111,8 +117,19 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
     return param(gen, (vocab, d), scale=1.0, dtype=dtype)
 
 
-def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+def embed(table: torch.Tensor, tokens: torch.Tensor,
+          shard: NoShard = no_shard, vocab: int = 0) -> torch.Tensor:
+    """The table's rows of ``tokens``.  Under megatron a vocab-split table
+    (``vocab`` its global rows) holds the rank's block of rows: each rank
+    looks up the ids in its block (zeros for the others) and the fp32
+    rows are summed over the model axis."""
+    if not shard.tp(vocab):
+        return table[tokens]
+    v_l = table.shape[0]
+    ids = tokens - shard.index(shard.rules.model_axis) * v_l
+    hit = (ids >= 0) & (ids < v_l)
+    rows = table[ids.clamp(0, v_l - 1)].float()
+    return shard.tp_sum(torch.where(hit[..., None], rows, 0.0))
 
 
 def init_mlp(gen: torch.Generator, d: int, d_ff: int,
@@ -122,7 +139,10 @@ def init_mlp(gen: torch.Generator, d: int, d_ff: int,
             "down": init_dense(gen, d_ff, d, dtype=dtype)}
 
 
-def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """Gated MLP (SwiGLU / GeGLU)."""
-    return dense(p["down"], activation(act)(dense(p["gate"], x))
-                 * dense(p["up"], x))
+def mlp(p: dict, x: torch.Tensor, act: str = "silu",
+        shard: NoShard = no_shard, width: int = 0) -> torch.Tensor:
+    """Gated MLP (SwiGLU / GeGLU).  Under megatron, where the FFN width
+    (global ``width``) is split, gate and up are column-parallel and down
+    row-parallel: its partial outputs summed over the model axis."""
+    return shard.row_sum(dense(p["down"], activation(act)(
+        dense(p["gate"], x)) * dense(p["up"], x)), width)

@@ -17,7 +17,12 @@ sharder's ``ep_moe`` dispatches locally; otherwise the routing decisions
 and the token rows are gathered over the token layout's axes, every rank
 dispatches every token as the unsharded layer does (so its drops are the
 unsharded layer's), runs its own experts, gathers the expert outputs over
-the model axis and keeps its own tokens' combination.
+the model axis and keeps its own tokens' combination.  Under megatron
+every model rank holds its batch block's whole sequence: the dispatch
+spans the data axes (the reference's global capacity and drops), each
+rank combines its own experts' outputs for its tokens, and those partial
+outputs are summed over the model axis (``Sharder.row_sum``), as are the
+shared experts' (row-parallel, :func:`repro_torch.nn.layers.mlp`).
 """
 from __future__ import annotations
 
@@ -133,8 +138,10 @@ def moe_apply(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     if y is None:
         y = _dispatched(p, cfg, x, top_e.reshape(b, s, k),
                         top_p.reshape(b, s, k), dropless, shard)
+        y = shard.row_sum(y, cfg.num_experts)
     if "shared" in p:
-        y = y + nl.mlp(p["shared"], xf, cfg.act).reshape(b, s, d)
+        y = y + nl.mlp(p["shared"], xf, cfg.act, shard, cfg.moe_d_ff
+                       * cfg.num_shared_experts).reshape(b, s, d)
     return y, aux
 
 
@@ -144,7 +151,9 @@ def _dispatched(p: dict, cfg: ArchConfig, x, top_e, top_p, dropless,
     of every token.  Under a sharder (module docstring) the routing and
     the token rows are gathered over the token layout's axes first, the
     rank runs its own experts (``p``'s), their outputs are gathered over
-    the model axis, and the rank keeps its own tokens' combination."""
+    the model axis, and the rank keeps its own tokens' combination; under
+    megatron the rank's tokens' combination of its own experts' outputs
+    (partial: the caller sums it over the model axis)."""
     big_b, big_s = shard.batch or x.shape[0], shard.seq or x.shape[1]
     t, d, k = big_b * big_s, x.shape[-1], cfg.num_experts_per_tok
     xg = shard(x, "act_global").reshape(t, d)
@@ -154,6 +163,16 @@ def _dispatched(p: dict, cfg: ArchConfig, x, top_e, top_p, dropless,
     se, st, sp, pos_c, keep = _dispatch(cfg, te, tp, cap)
     buf = _buffer(cfg, xg, se, st, pos_c, keep, cap)
     e_l = p["gate"].shape[0]
+    wsp = (sp * keep)[:, None].to(x.dtype)
+    if shard.tp(cfg.num_experts):
+        lo = shard.index(shard.rules.model_axis) * e_l
+        own = (se >= lo) & (se < lo + e_l)
+        y_buf = _experts(p, cfg, buf[lo: lo + e_l])
+        gathered = y_buf[(se - lo).clamp(0, e_l - 1), pos_c] * torch.where(
+            own[:, None], wsp, 0)
+        yf = x.new_zeros((t, d)).index_add_(0, st, gathered)
+        return shard(yf.reshape(big_b, big_s, d), "act_tokens",
+                     src="act_global")
     if e_l == cfg.num_experts:
         y_buf = _experts(p, cfg, buf)                               # (E,C,D)
     else:
@@ -161,7 +180,7 @@ def _dispatched(p: dict, cfg: ArchConfig, x, top_e, top_p, dropless,
         y_buf = shard.move(_experts(p, cfg, buf[lo: lo + e_l]),
                            (shard.rules.model_axis, None, None),
                            (None, None, None))
-    gathered = y_buf[se, pos_c] * (sp * keep)[:, None].to(x.dtype)
+    gathered = y_buf[se, pos_c] * wsp
     yf = x.new_zeros((t, d)).index_add_(0, st, gathered)
     return shard(yf.reshape(big_b, big_s, d), "act_tokens",
                  src="act_global")

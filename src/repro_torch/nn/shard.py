@@ -6,7 +6,9 @@ The LM's modules take a ``shard`` argument at the reference's call sites
 single-card default: every hook is the identity, and a module given it
 runs exactly its single-card ops.  The serving hooks build a cache leaf
 (``to_cache``) and describe its layout (``cache_layout``): here a leaf
-is whole (:class:`WholeCache`).  A
+is whole (:class:`WholeCache`).  The tensor-parallel hooks of the
+megatron strategy (``tp``, ``row_sum``, ``col_gather``, ``tp_block``)
+split nothing here.  A
 :class:`repro_torch.sharding.specs.Sharder` overrides the hooks for a
 per-rank program on a mesh.
 """
@@ -21,6 +23,7 @@ class NoShard:
     halo is zeros."""
 
     active = False
+    megatron = False
     explicit_a2a = None
     ep_moe = None
     batch = seq = cache_len = None
@@ -41,7 +44,20 @@ class NoShard:
     def serving(self, max_len: int) -> "NoShard":
         return self
 
-    def to_cache(self, x, name: str, shape: tuple, build, keep=None):
+    def tp(self, size: int) -> bool:
+        return False
+
+    def row_sum(self, y, size: int):
+        return y
+
+    def col_gather(self, y, size: int, op: str = "tp_gather"):
+        return y
+
+    def tp_block(self, t, dim: int, size: int):
+        return t
+
+    def to_cache(self, x, name: str, shape: tuple, build, keep=None,
+                 local: tuple = ()):
         """The cache leaf: ``build`` of ``x``'s last ``keep`` positions
         (all by default)."""
         keep = x.shape[1] if keep is None else keep
@@ -57,10 +73,12 @@ class WholeCache:
 
     split = None
 
-    def take(self, t, dims: dict):
+    def take(self, t, dims: dict, local: tuple = (),
+             op: str = "all_gather"):
         return t
 
-    def give(self, t, dims: dict, op: str = "all_gather"):
+    def give(self, t, dims: dict, op: str = "all_gather",
+             local: tuple = ()):
         return t
 
     def offset(self, local_len: int) -> int:

@@ -23,6 +23,23 @@ state (B, K − 1, conv_dim) from the prompt's last K − 1 raw positions
 step convolves the rank's own channels, gathers the conv output over the
 model axis (ledger op ``conv_gather``: the heads' x, and B and C whole),
 updates the state of the rank's heads and gathers the heads' output.
+
+Under the megatron strategy the block's input is the rank's batch block
+with the whole sequence, replicated over the model axis, and the
+parameters stay in their ``param_spec`` shards.  ``in_proj``'s model
+shard is a contiguous block of the fused [z, x, B, C, dt] columns and
+``conv_w`` / ``conv_b``'s one of the [x, B, C] channels, neither of them
+a rank's heads; so the rank's block of the projection is gathered whole
+over the model axis (ledger op ``tp_gather``, an exchange of
+activations: the weights never move), the rank convolves its own
+channels and the conv output is gathered (``conv_gather``); the rank
+then keeps its heads' z, x and dt, and B and C whole.  The SSD runs on
+the rank's heads, the gated RMSNorm's per-token mean square over
+d_inner is summed over the model axis in fp32 (``tp_psum``) and
+``out_proj`` is row-parallel (``tp_psum``).  Prefill leaves the final
+state head-sharded and the conv state channel-sharded, as
+``cache_shardings`` says; a decode step runs the same schedule on the
+rank's cache shards.
 """
 from __future__ import annotations
 
@@ -77,6 +94,18 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(out + b)
 
 
+def _tp_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+             shard: NoShard) -> torch.Tensor:
+    """:func:`_causal_conv` of the whole channels ``xbc`` where megatron
+    splits them: the rank's channel block convolved with its ``w`` and
+    ``b``, the output gathered whole (``conv_gather``)."""
+    c = xbc.shape[-1]
+    if not shard.tp(c):
+        return _causal_conv(xbc, w, b, shard)
+    return shard.col_gather(_causal_conv(shard.tp_block(xbc, -1, c), w, b,
+                                         shard), c, op="conv_gather")
+
+
 def _segsum(x: torch.Tensor) -> torch.Tensor:
     """L[i, j] = sum_{j < k <= i} x[k]  (−inf above diagonal)."""
     q = x.shape[-1]
@@ -126,18 +155,28 @@ def ssd_chunked(x, dt, a, b_mat, c_mat, chunk: int):
     return y.reshape(bsz, s, h, p)[:, :s_orig], final
 
 
+def _proj_width(cfg: ArchConfig) -> int:
+    """Width of the fused [z, x, B, C, dt] projection."""
+    return 2 * cfg.d_inner + 2 * cfg.ssm_state_dim + cfg.ssm_heads
+
+
 def _mixer_inputs(p: dict, cfg: ArchConfig, x: torch.Tensor,
                   shard: NoShard = no_shard):
-    """in_proj → conv → (z, xbc_raw, xh, B, C, softplus'd dt, a)."""
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    """in_proj → conv → (z, xbc_raw, xh, B, C, softplus'd dt, a); under
+    megatron z, xh, dt and a of the rank's heads (module docstring)."""
+    zxbcdt = shard.col_gather(x @ p["in_proj"].to(x.dtype),
+                              _proj_width(cfg))
     z, xbc_raw, dt = _split_proj(cfg, zxbcdt)
-    xbc = _causal_conv(xbc_raw, p["conv_w"].to(x.dtype),
-                       p["conv_b"].to(x.dtype), shard)
+    xbc = _tp_conv(xbc_raw, p["conv_w"].to(x.dtype),
+                   p["conv_b"].to(x.dtype), shard)
     di, n = cfg.d_inner, cfg.ssm_state_dim
     xh = xbc[..., :di].reshape(*xbc.shape[:2], cfg.ssm_heads,
                                cfg.ssm_head_dim)
     b_mat = xbc[..., di: di + n]
     c_mat = xbc[..., di + n:]
+    nh = cfg.ssm_heads      # megatron: z, xh and dt of the rank's heads
+    z, xh, dt = (shard.tp_block(z, -1, nh), shard.tp_block(xh, 2, nh),
+                 shard.tp_block(dt, -1, nh))
     dt_sp = F.softplus(dt.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     return z, xbc_raw, xh, b_mat, c_mat, dt_sp, a
@@ -145,12 +184,32 @@ def _mixer_inputs(p: dict, cfg: ArchConfig, x: torch.Tensor,
 
 def _mixer_output(p: dict, cfg: ArchConfig, x, z, xh, y,
                   shard: NoShard = no_shard, heads=None):
-    y = y + xh.float() * shard.local(p["d_skip"], "act_ssm_heads", 2,
-                                     heads)[:, None]     # D skip
-    y = shard(y.to(x.dtype), "act_tokens", src="act_ssm_heads", shape=heads)
-    y = y.reshape(*x.shape[:2], cfg.d_inner)
-    y = nl.rms_norm(y * F.silu(z), p["norm"].float(), cfg.norm_eps)
-    return y @ p["out_proj"].to(x.dtype)
+    d_skip = p["d_skip"] if shard.megatron else shard.local(
+        p["d_skip"], "act_ssm_heads", 2, heads)
+    y = (y + xh.float() * d_skip[:, None]).to(x.dtype)     # D skip
+    if not shard.megatron:
+        y = shard(y, "act_tokens", src="act_ssm_heads", shape=heads)
+    return _gated_out(p, cfg, y.reshape(*x.shape[:2], -1), z, shard)
+
+
+def _gated_out(p: dict, cfg: ArchConfig, y, z, shard: NoShard):
+    """The gated RMSNorm over d_inner and ``out_proj`` of y (B, S, ·).
+    Under megatron y and z hold the rank's heads' channels where the heads
+    are split: the mean square summed over the model axis (fp32), the
+    norm's scale cut to the rank's channels; ``out_proj`` row-parallel
+    (a whole y cut to its rows where only d_inner splits)."""
+    di = cfg.d_inner
+    w = p["norm"].float()
+    reduce = None
+    if shard.tp(cfg.ssm_heads):
+        w, frac = shard.tp_block(w, 0, di), y.shape[-1] / di
+
+        def reduce(v):
+            return shard.tp_sum(v * frac)
+    y = nl.rms_norm(y * F.silu(z), w, cfg.norm_eps, reduce=reduce)
+    if not shard.tp(cfg.ssm_heads):
+        y = shard.tp_block(y, -1, di)
+    return shard.row_sum(y @ p["out_proj"].to(y.dtype), di)
 
 
 def _ssd(cfg: ArchConfig, xh, dt_sp, a, b_mat, c_mat):
@@ -165,12 +224,21 @@ def mamba2_forward(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     a sharder this rank's block of the token layout (module docstring)."""
     z, _, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x, shard)
     heads = (shard.batch, shard.seq, cfg.ssm_heads, cfg.ssm_head_dim)
-    xh = shard(xh, "act_ssm_heads")
-    dt_sp = shard(dt_sp[..., None], "act_ssm_heads")[..., 0]
-    a = shard.local(a, "act_ssm_heads", 2, heads)
-    y = _ssd(cfg, xh, dt_sp, a, shard(b_mat, "act_seq"),
-             shard(c_mat, "act_seq"))
+    if not shard.megatron:
+        xh, dt_sp, a, b_mat, c_mat = _to_heads(shard, heads, xh, dt_sp, a,
+                                               b_mat, c_mat)
+    y = _ssd(cfg, xh, dt_sp, a, b_mat, c_mat)
     return _mixer_output(p, cfg, x, z, xh, y, shard, heads)
+
+
+def _to_heads(shard: NoShard, heads: tuple, xh, dt_sp, a, b_mat, c_mat):
+    """The mixing phase's inputs moved from the token layout to the
+    heads layout: xh and dt to ``act_ssm_heads``, a to the rank's heads,
+    B and C gathered over the sequence."""
+    return (shard(xh, "act_ssm_heads"),
+            shard(dt_sp[..., None], "act_ssm_heads")[..., 0],
+            shard.local(a, "act_ssm_heads", 2, heads),
+            shard(b_mat, "act_seq"), shard(c_mat, "act_seq"))
 
 
 @dataclasses.dataclass
@@ -189,13 +257,11 @@ def mamba2_prefill(p: dict, cfg: ArchConfig, x: torch.Tensor, *,
     z, xbc_raw, xh, b_mat, c_mat, dt_sp, a = _mixer_inputs(p, cfg, x, shard)
     b, s = shard.batch or x.shape[0], shard.seq or x.shape[1]
     heads = (b, s, cfg.ssm_heads, cfg.ssm_head_dim)
-    xh = shard(xh, "act_ssm_heads")
-    dt_sp = shard(dt_sp[..., None], "act_ssm_heads")[..., 0]
-    a = shard.local(a, "act_ssm_heads", 2, heads)
-    y, final_state = ssd_chunked(xh.float(), dt_sp, a,
-                                 shard(b_mat, "act_seq").float(),
-                                 shard(c_mat, "act_seq").float(),
-                                 cfg.ssm_chunk)
+    if not shard.megatron:
+        xh, dt_sp, a, b_mat, c_mat = _to_heads(shard, heads, xh, dt_sp, a,
+                                               b_mat, c_mat)
+    y, final_state = ssd_chunked(xh.float(), dt_sp, a, b_mat.float(),
+                                 c_mat.float(), cfg.ssm_chunk)
     out = _mixer_output(p, cfg, x, z, xh, y, shard, heads)
     state_shape = (b, cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state_dim)
     if shard.active:   # the heads layout's (B, H) dims are the cache's
@@ -226,17 +292,20 @@ def mamba2_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
     """Single-token step.  x: (B, 1, D) → (B, 1, D), new cache.  Under a
     sharder the rank's batch block, replicated over the model axis, and
     the cache's shards (module docstring)."""
-    zxbcdt = x @ p["in_proj"].to(x.dtype)
+    zxbcdt = shard.col_gather(x @ p["in_proj"].to(x.dtype),
+                              _proj_width(cfg))
     z, xbc_new, dt = _split_proj(cfg, zxbcdt)              # (B,1,·)
+    tp = shard.megatron   # the parameters are in the caches' layouts
     b, nh, hp = shard.batch or x.shape[0], cfg.ssm_heads, cfg.ssm_head_dim
     conv = shard.cache_layout("conv_state", (b, cfg.conv_kernel - 1,
                                              xbc_new.shape[-1]))
     ssm = shard.cache_layout("ssm_state", (b, nh, hp, cfg.ssm_state_dim))
     window = torch.cat([cache.conv_state, conv.take(
         xbc_new.to(cache.conv_state.dtype), {0: 0, 2: 2})], dim=1)
-    w = conv.take(p["conv_w"].to(x.dtype), {1: 2})
-    conv_out = torch.einsum("bkc,kc->bc", window, w) + conv.take(
-        p["conv_b"].to(x.dtype), {0: 2})
+    w, cb = p["conv_w"].to(x.dtype), p["conv_b"].to(x.dtype)
+    if not tp:
+        w, cb = conv.take(w, {1: 2}), conv.take(cb, {0: 2})
+    conv_out = torch.einsum("bkc,kc->bc", window, w) + cb
     xbc = conv.give(F.silu(conv_out)[:, None], {0: 0, 2: 2},
                     op="conv_gather")
     di, n = cfg.d_inner, cfg.ssm_state_dim
@@ -244,16 +313,23 @@ def mamba2_decode(p: dict, cfg: ArchConfig, x: torch.Tensor,
     c_mat = xbc[..., di + n:][:, 0].float()
     xh = ssm.take(xbc[..., :di].reshape(x.shape[0], nh, hp), {0: 0, 1: 1})
     xh = xh.float()
-    dt_sp = F.softplus(ssm.take(dt[:, 0], {0: 0, 1: 1}).float()
-                       + ssm.take(p["dt_bias"], {0: 1}))
-    a = -torch.exp(ssm.take(p["a_log"], {0: 1}))
+    dt_bias, a_log, d_skip = p["dt_bias"], p["a_log"], p["d_skip"]
+    if not tp:
+        dt_bias, a_log, d_skip = (ssm.take(t, {0: 1})
+                                  for t in (dt_bias, a_log, d_skip))
+    dt_sp = F.softplus(ssm.take(dt[:, 0], {0: 0, 1: 1}).float() + dt_bias)
+    a = -torch.exp(a_log)
     decay = torch.exp(dt_sp * a)                           # (B, H)
     state = cache.ssm_state * decay[..., None, None] + torch.einsum(
         "bh,bhp,bn->bhpn", dt_sp, xh, b_mat)
     y = torch.einsum("bn,bhpn->bhp", c_mat, state)
-    y = y + xh * ssm.take(p["d_skip"], {0: 1})[:, None]
-    y = ssm.give(y.to(x.dtype), {0: 0, 1: 1}).reshape(x.shape[0], 1, di)
-    y = nl.rms_norm(y * F.silu(z), p["norm"].float(), cfg.norm_eps)
-    out = y @ p["out_proj"].to(x.dtype)
+    y = y + xh * d_skip[:, None]
+    if tp:
+        y = y.to(x.dtype).reshape(x.shape[0], 1, -1)
+        z = shard.tp_block(z, -1, nh)
+    else:
+        y = ssm.give(y.to(x.dtype), {0: 0, 1: 1}).reshape(x.shape[0], 1,
+                                                          di)
+    out = _gated_out(p, cfg, y, z, shard)
     return out, SSMCache(conv_state=window[:, 1:], ssm_state=state,
                          length=cache.length + 1)

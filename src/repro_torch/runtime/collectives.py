@@ -27,6 +27,9 @@ initialised by the caller.
   gradients after the backward (``core.decouple``, recorded as
   ``grad_psum``) — the step JAX's ``shard_map`` transpose performs
   implicitly.
+* :func:`tp_psum` is the megatron strategy's row-parallel sum over the
+  model axis.  Its backward is a sum as well, recorded as its mirror
+  (the function's docstring says why).
 
 Replica ops (:func:`replica_gather`, :func:`replica_slice`,
 :func:`psum_replicas`, :func:`replica_index`, :func:`replica_size`) carry
@@ -226,6 +229,36 @@ def psum(x: torch.Tensor, group=None, *, axis="model",
     ``"grad_psum"`` for the replicated parameters' gradient all-reduce."""
     _record(op, axis, x, group, T.active_ledgers())
     return _Psum.apply(x, group)
+
+
+class _TpPsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        ctx.ledgers = T.active_ledgers()
+        _record("tp_psum", axis, x, group, ctx.ledgers)
+        out = x.clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis = ctx.args
+        _record("tp_psum", axis, g, group, ctx.ledgers, backward=True)
+        g = g.clone()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=group)
+        return g, None, None
+
+
+def tp_psum(x: torch.Tensor, group=None, *, axis: str = "model"
+            ) -> torch.Tensor:
+    """The row-parallel sum of a tensor-parallel layer's partial outputs
+    over ``group`` (ledger op ``tp_psum``).  Its backward is a sum too:
+    the sum is a replicated activation, whose cotangent each rank holds
+    its share of (``sharding/specs.py``), and every rank's partial output
+    needs the whole cotangent, the sum of those shares.  Recorded forward
+    and mirrored."""
+    return _TpPsum.apply(x, group, axis)
 
 
 # ---------------------------------------------------------------------------

@@ -116,6 +116,33 @@ How the port's semantics differ from the reference's:
     attention layer, whatever the caches' length); ``conv_gather``, a
     decode step's mamba2 conv output over the channels.  The reference's
     partitioner picks these moves itself and records none of them;
+  - the **megatron** strategy (column- and row-parallel NN phase) keeps
+    every model-parallel leaf in its model shard at use, so it makes no
+    ``param_gather`` over the model axis (only the FSDP gathers over the
+    data axes), and records two op kinds of its own over ``model``:
+    ``tp_psum``, the row-parallel sum, an all-reduce at a ``psum``'s ring
+    cost whose backward is an all-reduce too (its mirror), and
+    ``tp_gather``, a column-split activation gathered whole, at an
+    all-gather's cost.  Payload and wire bytes as for every key: the
+    per-device operand, and its ring traffic 2(n − 1)/n (``tp_psum``) or
+    (n − 1)/n of the result (``tp_gather``).  One forward (or decode step)
+    records ``tp_psum`` calls: 1 for the vocab-split embedding's lookup
+    (fp32 rows, (B_l, S, D)) where the axis divides the vocabulary; 1 an
+    attention layer (the out-projection; the shared block at each use)
+    where it divides the heads; 1 an MLP (the down projection) where it
+    divides d_ff; a MoE layer 1 for the routed combine where it divides
+    the experts and 1 for the shared experts where it divides their
+    width; a mamba2 layer 1 for the gated norm's per-token mean square
+    (fp32, (B_l, S, 1)) where it divides the heads and 1 for ``out_proj``
+    where it divides d_inner — each (B_l, S, D) in the compute dtype but
+    those two fp32 ones.  ``tp_gather``: 1 for the vocab-split logits (in
+    the compute dtype, before the fp32 cast), 1 a mamba2 layer for its
+    fused in-projection where the axis divides its width; a decode step
+    adds the head-local q, k and v gathered for a cache that holds the
+    heads whole (1 per tensor a layer), and an MLA decode over a sequence
+    split on the model axis its latent query and rope query (2 a
+    layer).  A mamba2 layer's conv output is a ``conv_gather`` (1 a layer
+    where the axis divides the conv channels), in the forward too;
   - **recomputation**: a checkpointed unit (``remat``) reruns its
     collectives in the backward pass; they are recorded when they run,
     as ``recomputed_calls`` / ``recomputed_wire_bytes`` of their key
@@ -157,12 +184,14 @@ class TelemetryError(RuntimeError):
 #: cost it pays: the reference's five, the gradient all-reduce, the
 #: sharded LM's parameter gather and its serving's three gathers (a
 #: prefill's cache placement, a decode step's split-softmax partials and
-#: its conv output over the channels).
+#: its conv output over the channels), and the megatron strategy's
+#: row-parallel sum and column-split gather.
 OP_COST = {"psum": "psum", "all_gather": "all_gather",
            "all_to_all": "all_to_all", "ppermute": "ppermute",
            "psum_scatter": "psum_scatter", "grad_psum": "psum",
            "param_gather": "all_gather", "cache_place": "all_gather",
-           "softmax_gather": "all_gather", "conv_gather": "all_gather"}
+           "softmax_gather": "all_gather", "conv_gather": "all_gather",
+           "tp_psum": "psum", "tp_gather": "all_gather"}
 
 
 #: Ledger op kind of host→device staging (out-of-core streaming).  Not a

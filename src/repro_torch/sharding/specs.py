@@ -13,8 +13,8 @@ NN ops.
                 gather all-to-alls.
 ``dp``          the model axis unused: pure data parallelism.
 ``megatron``    activations sequence-replicated, heads and FFN columns
-                sharded.  Its specs are here; running it is not ported
-                (:data:`MEGATRON_ITEM`).
+                sharded: Megatron's column- and row-parallel NN phase
+                (below).
 
 Parameters are laid out the same way in every strategy: logical axis →
 mesh axis with a divisibility guard, FSDP of the d_model dim over the data
@@ -48,6 +48,26 @@ collective of ``runtime/collectives.py`` (the staging of
 A replicated activation carries, on each rank, that rank's share of its
 cotangent: the loss sums count every rank's tokens, replicas included, so
 the gradients summed over all ranks are the reference's.
+
+Under ``megatron`` the reference is nothing but GSPMD constraints; the
+port writes Megatron's schedule out.  The activations hold the rank's
+batch block with the whole sequence, replicated over the model axis; a
+leaf keeps the model shard of each model-parallel dim at use
+(:func:`_use_spec`: heads, kv heads, FFN columns, experts, vocab, mamba2's
+inner dims), so only the FSDP shards are gathered; a column-parallel
+matmul (wq/wk/wv, gate/up, in_proj) gives the rank's heads or columns,
+and a row-parallel one (wo, down, out_proj, the MoE combine) partial
+outputs summed over the model axis (``Sharder.row_sum``:
+``collectives.tp_psum``).  The share convention fixes the backward: the
+sum is a replicated activation, so each rank holds a share of its
+cotangent and every partial output needs the whole — the sum's backward
+is a sum over the model axis too; the replicated input of a
+column-parallel matmul then needs no reduction in its backward, since
+each rank's cotangent is its columns' part and the parts sum to the
+truth over the ranks; a model-sharded leaf's gradient is whole on its
+rank and is not summed over the model axis (``reduce_grads``), a
+replicated one is.  A dim the axis does not divide stays whole (the
+parameter replicated, that matmul run whole with no sum).
 
 Serving (``prefill``, ``decode_step``) stores every decode cache as
 :func:`cache_shardings` lays it out: a leaf found by its field name, its
@@ -90,9 +110,6 @@ from ..runtime import constraint as K
 _MODEL_AXES = {"vocab", "heads", "kv_heads", "mlp", "experts", "inner",
                "ssm_heads"}
 _FSDP_AXES = {"embed"}
-
-MEGATRON_ITEM = ("the megatron strategy is not ported (ROADMAP queue 1 "
-                 "item 30): the port runs neutron_tp and dp")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,10 +292,14 @@ def _axes_of(spec) -> list[str]:
     return out
 
 
-def _use_spec(names: tuple, spec: tuple, model_axis: str) -> tuple:
+def _use_spec(names: tuple, spec: tuple, model_axis: str,
+              megatron: bool = False) -> tuple:
     """A parameter's layout at use: whole, but an expert dim keeps its
-    model shard (each rank runs its own experts)."""
-    return tuple(e if n == "experts" and e == model_axis else None
+    model shard (each rank runs its own experts); under megatron every
+    model-parallel dim does (heads, FFN columns, experts, vocab, mamba2's
+    inner dims: the rank's column or row block)."""
+    keep = _MODEL_AXES if megatron else {"experts"}
+    return tuple(e if n in keep and e == model_axis else None
                  for n, e in zip(names, spec))
 
 
@@ -320,9 +341,7 @@ class Sharder(NoShard):
     active = True
 
     def __post_init__(self):
-        if self.rules.strategy == "megatron":
-            raise NotImplementedError(MEGATRON_ITEM)
-        if self.rules.strategy not in ("neutron_tp", "dp"):
+        if self.rules.strategy not in ("neutron_tp", "megatron", "dp"):
             raise ValueError(f"strategy {self.rules.strategy!r}")
         axes = (self.rules.model_axis,) + tuple(self.rules.data_axes)
         if set(axes) != set(self.mesh.shape):
@@ -416,6 +435,48 @@ class Sharder(NoShard):
         """A token-layout tensor (B_l, S_l, ...) gathered whole."""
         return self(x, "act_global")
 
+    # ---- megatron's tensor-parallel NN phase ---------------------------
+
+    @property
+    def megatron(self) -> bool:
+        return self.rules.strategy == "megatron"
+
+    def tp(self, size: int) -> bool:
+        """Whether the NN phase splits a parameter dim of global ``size``
+        over the model axis (megatron, and the axis divides it: the
+        divisibility guard of ``param_axis``)."""
+        return self.megatron and size % self.size(self.rules.model_axis) \
+            == 0
+
+    def tp_sum(self, y):
+        """The partial outputs ``y`` summed over the model axis (ledger op
+        ``tp_psum``)."""
+        m = self.rules.model_axis
+        return C.tp_psum(y, self.mesh.group_of(m), axis=m)
+
+    def row_sum(self, y, size: int):
+        """A row-parallel matmul's output ``y`` summed over the model axis
+        where its contracted dim (global ``size``) is split."""
+        return self.tp_sum(y) if self.tp(size) else y
+
+    def col_gather(self, y, size: int, op: str = "tp_gather"):
+        """A column-parallel matmul's output ``y`` gathered whole along its
+        last dim (global ``size``) where that dim is split."""
+        if not self.tp(size):
+            return y
+        m = self.rules.model_axis
+        return C.all_gather(y, self.mesh.group_of(m), axis=m, op=op,
+                            dim=y.dim() - 1)
+
+    def tp_block(self, t, dim: int, size: int):
+        """This rank's block of ``t``, whole along ``dim`` (global
+        ``size``), where the NN phase splits that dim."""
+        if not self.tp(size):
+            return t
+        width = t.shape[dim] // self.size(self.rules.model_axis)
+        return t.narrow(dim, self.index(self.rules.model_axis) * width,
+                        width)
+
     # ---- decode caches -------------------------------------------------
 
     def cache_spec(self, name: str, shape: tuple) -> tuple:
@@ -427,17 +488,19 @@ class Sharder(NoShard):
     def cache_layout(self, name: str, shape: tuple) -> "CacheLayout":
         return CacheLayout(self, self.cache_spec(name, shape))
 
-    def to_cache(self, x, name: str, shape: tuple, build, keep=None):
+    def to_cache(self, x, name: str, shape: tuple, build, keep=None,
+                 local: tuple = ()):
         """The cache leaf ``name`` of global ``shape`` from ``x`` (B_l,
-        S_l, ...), this rank's block of the prompt's token layout: the
-        last ``keep`` positions (all by default) gathered whole over the
-        sequence, with the batch and trailing dims as the cache keeps them
-        (ledger op ``cache_place``; a sequence shard at least ``keep``
-        long sends its tail only), ``build`` run on them, this rank's block
-        of the result sliced out, contiguous."""
+        S_l, ...), this rank's block of the prompt's token layout (its
+        dims ``local`` the rank's model shard: megatron's head-local k and
+        v): the last ``keep`` positions (all by default) gathered whole
+        over the sequence, with the batch and trailing dims as the cache
+        keeps them (ledger op ``cache_place``; a sequence shard at least
+        ``keep`` long sends its tail only), ``build`` run on them, this
+        rank's block of the result sliced out, contiguous."""
         keep = self.seq if keep is None else keep
-        src = self.spec("act_tokens", (self.batch, self.seq)
-                        + tuple(x.shape[2:]))
+        src = self._local(self.spec("act_tokens", (self.batch, self.seq)
+                                    + tuple(shape[2:])), local)
         dst = self.cache_spec(name, shape)
         mid = tuple(None if i == 1 or e != dst[i] else e
                     for i, e in enumerate(src))
@@ -446,6 +509,11 @@ class Sharder(NoShard):
         y = self.move(x, src, mid, gather_op="cache_place")
         return self.move(build(y[:, y.shape[1] - keep:]), mid,
                          dst).contiguous().clone()
+
+    def _local(self, spec: tuple, dims) -> tuple:
+        """``spec`` with the dims ``dims`` on the model axis."""
+        return tuple(self.rules.model_axis if i in dims else e
+                     for i, e in enumerate(spec))
 
     def group_of(self, entry):
         """(process group, ledger axis label) of a spec entry: an axis, or
@@ -482,7 +550,8 @@ class Sharder(NoShard):
                 names, nparam.param_shapes(cfg), self.mesh)
             cache[key] = _map2(
                 lambda n, s: ParamSpec(s, _use_spec(
-                    n, s, self.rules.model_axis)), names, specs)
+                    n, s, self.rules.model_axis, self.megatron)), names,
+                specs)
         return cache[key]
 
     def gather(self, tree, specs):
@@ -524,32 +593,35 @@ class CacheLayout:
     dim 1 its sequence where it has one.
 
     ``take`` moves a decode step's tensor from the token layout at S = 1
-    (the rank's batch block, every other dim whole; a tensor without a
-    batch dim is whole) to the leaf's layout on the dims ``dims`` maps
-    (tensor dim → leaf dim), ``give`` back (its gathers recorded as
-    ``op``).  ``local_slot`` is where this rank holds a global sequence
-    slot (None where another rank does), ``offset`` its block's first
-    slot, and ``split`` the sequence's group where more than one rank
-    shares it (else None); ``partials`` stacks every rank's ``t`` of that
-    group on a new dim 0 (ledger op ``softmax_gather``)."""
+    (the rank's batch block, every other dim whole but the tensor dims
+    ``local``, the rank's model shard: megatron's head-local q, k and v;
+    a tensor without a batch dim is whole) to the leaf's layout on the
+    dims ``dims`` maps (tensor dim → leaf dim), ``give`` back (the gathers
+    of either recorded as ``op``).  ``local_slot`` is where this rank holds
+    a global sequence slot (None where another rank does), ``offset`` its
+    block's first slot, and ``split`` the sequence's group where more than
+    one rank shares it (else None); ``partials`` stacks every rank's ``t``
+    of that group on a new dim 0 (ledger op ``softmax_gather``)."""
 
     shard: Sharder
     spec: tuple
 
-    def _specs(self, t, dims: dict) -> tuple:
+    def _specs(self, t, dims: dict, local) -> tuple:
         et = self.shard.spec("act_tokens", (self.shard.batch, 1, 1))[0]
         src, dst = [None] * t.dim(), [None] * t.dim()
         for td, cd in dims.items():
             src[td] = et if cd == 0 else None
             dst[td] = self.spec[cd]
-        return tuple(src), tuple(dst)
+        return self.shard._local(src, local), tuple(dst)
 
-    def take(self, t, dims: dict):
-        src, dst = self._specs(t, dims)
-        return self.shard.move(t, src, dst)
+    def take(self, t, dims: dict, local: tuple = (),
+             op: str = "all_gather"):
+        src, dst = self._specs(t, dims, local)
+        return self.shard.move(t, src, dst, gather_op=op)
 
-    def give(self, t, dims: dict, op: str = "all_gather"):
-        src, dst = self._specs(t, dims)
+    def give(self, t, dims: dict, op: str = "all_gather",
+             local: tuple = ()):
+        src, dst = self._specs(t, dims, local)
         return self.shard.move(t, dst, src, gather_op=op)
 
     def _seq(self):

@@ -7,10 +7,10 @@ jits the step and donates the state's buffers; here ``donate=True`` updates
 the state's tensors in place.
 
 Sharded (``sharder=``, a :class:`repro_torch.sharding.specs.Sharder` of
-the ``neutron_tp`` or ``dp`` strategy): every rank runs the step on its
-shards of the parameters and of the AdamW moments (the state of
-:func:`repro_torch.train.state.init_sharded_state`) and on the global
-batch, of which it takes its block (:func:`batch_shardings`).  The loss's
+any strategy: ``neutron_tp``, ``megatron`` or ``dp``): every rank runs
+the step on its shards of the parameters and of the AdamW moments (the
+state of :func:`repro_torch.train.state.init_sharded_state`) and on the
+global batch, of which it takes its block (:func:`batch_shardings`).  The loss's
 sum and token count are summed over every rank in one call before the
 quotient; the gradients of the axes a parameter is replicated over are
 summed after the backward (``Sharder.reduce_grads``), and AdamW updates

@@ -175,6 +175,7 @@ def test_one_rank_streamed_epoch_audits_without_passes(one_rank):
 
 def _rank(out_dir: str) -> None:
     """One of two processes, placed by the env contract."""
+    torch.set_num_threads(1)
     ctx = dist.initialize(device="cpu")
     try:
         mesh = tmesh.TPMesh()

@@ -266,6 +266,7 @@ def _reference_child(out: str, n: int) -> None:
 
 
 def _port_rank(rank, world, init, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:
@@ -278,7 +279,8 @@ def _port_rank(rank, world, init, out_dir):
 def test_two_ranks_ledger_matches_reference(tmp_path):
     world = 2
     env = {**os.environ,
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world}",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world} "
+           "--xla_cpu_multi_thread_eigen=false",
            "JAX_PLATFORMS": "cpu"}
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
             "import test_torch_comm_ledger as t; "

@@ -491,6 +491,7 @@ def _transition_ledgers(mesh) -> list:
 
 
 def _port_rank(rank, world, init, params, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:
@@ -538,7 +539,8 @@ def four_ranks(tmp_path_factory):
     rank)."""
     world, tmp = 4, tmp_path_factory.mktemp("four")
     env = {**os.environ,
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world}",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world} "
+           "--xla_cpu_multi_thread_eigen=false",
            "JAX_PLATFORMS": "cpu"}
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
             "import test_torch_constraint as t; "

@@ -46,6 +46,9 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("examples")
     env = {k: v for k, v in os.environ.items() if k not in LAUNCHER_ENV}
     env["PYTHONPATH"] = str(ROOT / "src")
+    # one intra-op thread a process: four processes at once beside the
+    # other test workers, on graphs too small to split
+    env["OMP_NUM_THREADS"] = "1"
     procs = {name: subprocess.Popen(cmd, env=env, cwd=tmp,
                                     stdout=subprocess.PIPE,
                                     stderr=subprocess.PIPE, text=True)

@@ -84,13 +84,15 @@ def test_unported_options_raise(model, tmp_path):
     with pytest.raises(ValueError, match="attn_impl='ring'"):
         dataclasses.replace(cfg, attn_impl="ring")
     # a sharded step is made (the sharded LM, ROADMAP item 25a, is
-    # ported); the megatron strategy raises, naming its item
+    # ported), under the megatron strategy too
     mesh = types.SimpleNamespace(shape={"model": 4, "data": 2})
     sharder = Sharder(mesh, ShardingRules())
     assert callable(make_train_step(get_config("internvl2-1b"), adamw(1e-3),
                                     sharder=sharder))
-    with pytest.raises(NotImplementedError, match="item 30"):
-        Sharder(mesh, ShardingRules("megatron"))
+    megatron = Sharder(mesh, ShardingRules("megatron"))
+    assert megatron.megatron and not sharder.megatron
+    assert callable(make_train_step(get_config("internvl2-1b"), adamw(1e-3),
+                                    sharder=megatron))
     # sharded serving runs: Zamba2 reduced under the explicit
     # sharder on a one-rank mesh gives the unsharded prefill and decode
     # logits

@@ -220,7 +220,8 @@ def test_synthetic_batches_with_prefix(arch):
 
 
 def test_serve_example_runs_on_cpu():
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "OMP_NUM_THREADS": "1"}
     out = subprocess.run(
         [sys.executable, str(ROOT / "examples" / "serve_lm_torch.py"),
          "--arch", "internvl2-1b-reduced", "--device", "cpu", "--batch", "2",

@@ -50,7 +50,8 @@ from repro_torch.runtime import telemetry as tT
 from repro_torch.serve import make_serve_fns
 from repro_torch.sharding import specs as tspecs
 from repro_torch.sharding.explicit import ExplicitSharder
-from test_torch_lm_shard import _MOE, _reduced, _tiny
+from torch_lm_cases import (_MOE, _cache_leaves, _greedy, _plain_step,
+                            _reduced, _snapshot, _tiny)
 
 ROOT = Path(__file__).resolve().parents[1]
 MESHES = {"1x4": dict(model=4, data=1), "2x2": dict(model=2, data=2),
@@ -122,39 +123,6 @@ def case_setup(name):
     return cfg, params, prompt, SEQ + STEPS + EXTRA
 
 
-def _cache_leaves(caches):
-    """Every cache's fields in order, as the reference's pytree leaves
-    (a ring's ``window`` is not a leaf)."""
-    return [getattr(c, f.name) for unit in caches for c in unit
-            for f in dataclasses.fields(c) if f.name != "window"]
-
-
-def _greedy(prefill_fn, decode_fn, params, prompt, max_len, last, step):
-    """Prefill and ``STEPS`` greedy steps: (prefill logits, caches after
-    prefill, each step's logits, the tokens), each logits tensor through
-    ``last`` (the gathered whole)."""
-    logits, caches = prefill_fn(params, prompt, max_len=max_len)
-    first = last(logits, prompt.shape[1])
-    caches0 = _snapshot(caches)
-    tok = first[:, -1].argmax(-1)
-    toks, steps = [tok], []
-    for _ in range(STEPS):
-        out, caches = step(decode_fn, params, tok[:, None], caches)
-        out = last(out, 1)
-        steps.append(out)
-        tok = out[:, -1].argmax(-1)
-        toks.append(tok)
-    return first, caches0, steps, toks
-
-
-def _snapshot(caches):
-    """A copy of a cache tree (decode writes in place)."""
-    return [[dataclasses.replace(c, **{
-        f.name: getattr(c, f.name).clone()
-        for f in dataclasses.fields(c) if torch.is_tensor(getattr(c, f.name))
-    }) for c in unit] for unit in caches]
-
-
 def _sharder(kind, ssc, mesh, mesh_name):
     rules = tspecs.ShardingRules("dp" if kind == "dp" else "neutron_tp",
                                  data_axes=_data_axes(mesh_name),
@@ -162,10 +130,6 @@ def _sharder(kind, ssc, mesh, mesh_name):
     if kind == "explicit":
         return ExplicitSharder(mesh, rules)
     return tspecs.Sharder(mesh, rules)
-
-
-def _plain_step(decode_fn, params, tok, caches):
-    return decode_fn(params, tok, caches)
 
 
 def _port_rank(rank, world, init, out_dir):
@@ -196,7 +160,7 @@ def _port_rank(rank, world, init, out_dir):
             with torch.no_grad(), tT.collect_comm() as pre_led:
                 first, caches0, steps, toks = _greedy(
                     prefill_fn, decode_fn, shards, torch.as_tensor(prompt),
-                    max_len, last, step)
+                    max_len, last, step, STEPS)
                 like = TT.init_caches(cfg, batch, max_len, device="meta",
                                       long_context=lc)
                 whole = tspecs.gather_caches(caches0, like, sharder)
@@ -290,7 +254,8 @@ def results(tmp_path_factory):
     this process the port's unsharded serving."""
     world, tmp = 4, tmp_path_factory.mktemp("serve_shard")
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world}"}
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world} "
+           "--xla_cpu_multi_thread_eigen=false"}
     children = []
     for part in range(REF_CHILDREN):
         code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
@@ -317,7 +282,7 @@ def results(tmp_path_factory):
             with torch.no_grad():
                 toks = _greedy(prefill_fn, decode_fn, params,
                                torch.as_tensor(prompt), max_len,
-                               lambda x, s: x, _plain_step)[3]
+                               lambda x, s: x, _plain_step, STEPS)[3]
             unsharded[name] = [t.tolist() for t in toks]
     finally:
         torch.set_num_threads(n)

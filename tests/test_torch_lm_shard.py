@@ -44,28 +44,12 @@ from repro_torch.sharding import specs as tspecs
 from repro_torch.sharding.explicit import ExplicitSharder
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.train import make_grad_fn, make_loss_fn
+from torch_lm_cases import _MOE, _reduced, _tiny
 
 MESHES = {"1x4": dict(model=4, data=1), "2x2": dict(model=2, data=2)}
 BATCH, SEQ = 2, 32
 LOSS_TOL, GRAD_RTOL, GRAD_ATOL, PORT_TOL = 2e-5, 5e-4, 5e-5, 1e-5
 TIMEOUT = datetime.timedelta(seconds=120)
-
-
-def _tiny(**kw) -> ArchConfig:
-    base = dict(name="tiny", arch_type="dense", num_layers=2, d_model=64,
-                num_heads=8, num_kv_heads=8, head_dim=8, d_ff=128,
-                vocab_size=64, act="silu", dtype="float32")
-    return ArchConfig(**{**base, **kw})
-
-
-def _reduced(arch: str, **kw) -> ArchConfig:
-    return dataclasses.replace(configs.get_config(arch + "-reduced"),
-                               dtype="float32", **kw)
-
-
-_MOE = dict(arch_type="moe", moe=True, num_experts=8, num_experts_per_tok=2,
-            num_shared_experts=1, moe_d_ff=32, moe_capacity_factor=8.0,
-            first_dense_layers=0)
 
 
 def case_cfg(case: str, m: int) -> ArchConfig:

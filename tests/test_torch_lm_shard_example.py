@@ -1,8 +1,8 @@
 """``examples/train_lm_neutron_tp_torch.py`` on the CPU: four gloo
 processes it starts itself on (data=2, model=2), a few steps under the
-plain and the explicit sharder — the same losses, finite, falling from the
-first step — and the megatron strategy's refusal, naming its ROADMAP
-item."""
+plain and the explicit sharder and under the megatron strategy — finite
+losses, falling from the first step, the same under the two sharders and
+within 2e-4 of them (their printed four decimals) under megatron."""
 import os
 import re
 import subprocess
@@ -20,6 +20,7 @@ def _run(*extra):
            if k not in ("COORDINATOR_ADDRESS", "NUM_PROCESSES",
                         "PROCESS_ID")}
     env["PYTHONPATH"] = str(ROOT / "src")
+    env["OMP_NUM_THREADS"] = "1"    # twelve ranks at once beside the others
     return subprocess.Popen([sys.executable, str(EXAMPLE), *ARGS, *extra],
                             env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
@@ -30,7 +31,7 @@ def test_example_trains_on_four_processes():
             "megatron": _run("--strategy", "megatron")}
     out = {k: p.communicate(timeout=150) for k, p in runs.items()}
     losses = {}
-    for kind in ("plain", "explicit"):
+    for kind in ("plain", "explicit", "megatron"):
         stdout, stderr = out[kind]
         assert runs[kind].returncode == 0, stderr[-3000:]
         assert "mesh {'model': 2, 'data': 2}" in stdout
@@ -40,5 +41,6 @@ def test_example_trains_on_four_processes():
         assert len(losses[kind]) == 5            # four steps and the final
         assert losses[kind][-1] < losses[kind][0]
     assert losses["plain"] == losses["explicit"]
-    assert runs["megatron"].returncode != 0
-    assert "item 30" in out["megatron"][1]
+    assert "strategy megatron" in out["megatron"][0]
+    assert max(abs(a - b) for a, b in zip(losses["megatron"],
+                                          losses["plain"])) <= 2e-4

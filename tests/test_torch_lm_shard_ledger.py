@@ -125,7 +125,8 @@ def _port_rank(rank, world, init, out_dir):
 def ledgers(tmp_path_factory):
     world, tmp = 4, tmp_path_factory.mktemp("ledger")
     env = {**os.environ, "JAX_PLATFORMS": "cpu",
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world}"}
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world} "
+           "--xla_cpu_multi_thread_eigen=false"}
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
             "import test_torch_lm_shard_ledger as t; "
             "t._reference_child({!r})").format(

@@ -5,8 +5,9 @@ and every activation kind's ``act_spec`` (and its ``_fit_spec``) under the
 three strategies, on stand-in meshes of (data, model) = (16, 16) and
 (2, 4) and a (pod, data, model) one; the shapes tree against
 ``init_transformer``'s; the cache kinds' specs and ``cache_shardings``;
-the refusal of what is not ported — the megatron strategy, naming its
-ROADMAP item — and sharded serving running on a one-rank mesh."""
+the refusals (an unknown strategy, a mesh without the rules' axes) and
+sharded serving running on a one-rank mesh under neutron_tp and
+megatron."""
 import dataclasses
 import inspect
 import types
@@ -119,21 +120,25 @@ def test_act_specs_and_fit_equal_reference(strategy, mesh_name):
 
 
 def test_unported_strategy_and_serving_raise(tmp_path):
-    """megatron raises where a sharder is made (and so in
-    ``sharded_setup``), naming item 30.  Sharded serving runs:
-    ``prefill``, ``decode_step`` and ``make_serve_fns``' closures under a
-    sharder on a one-rank mesh give the unsharded logits (a decode step
-    needs the caches' ``max_len``, which the sharder carries), and
-    ``generate``, single-device as the reference's, takes no sharder."""
+    """megatron makes a sharder (and so a ``sharded_setup``) whose blocks
+    keep their model shards at use; an unknown strategy and a mesh
+    without the rules' axes raise.  Sharded serving runs: ``prefill``,
+    ``decode_step`` and ``make_serve_fns``' closures under a sharder on a
+    one-rank mesh give the unsharded logits (a decode step needs the
+    caches' ``max_len``, which the sharder carries), under neutron_tp and
+    megatron, and ``generate``, single-device as the reference's, takes no
+    sharder."""
     mesh = _mesh("2x4")
     rules = tspecs.ShardingRules("megatron")
-    with pytest.raises(NotImplementedError, match="item 30"):
-        tspecs.Sharder(mesh, rules)
+    megatron = tspecs.Sharder(mesh, rules)
     cfg = configs.get_config("internlm2-1.8b-reduced")
+    specs = megatron.param_specs(cfg)["groups"][0][0]["attn"]["wq"]
+    assert specs.spec[-3:] == ("data", "model", None)
+    assert specs.use[-3:] == (None, "model", None)
     shape = dataclasses.replace(configs.get_shape("train_4k"),
                                 global_batch=2, seq_len=16)
-    with pytest.raises(NotImplementedError, match="item 30"):
-        sharded_setup(cfg, shape, mesh, rules)
+    setup = sharded_setup(cfg, shape, mesh, rules)
+    assert setup["sharder"].megatron and callable(setup["train_step"])
     with pytest.raises(ValueError, match="strategy"):
         tspecs.Sharder(mesh, tspecs.ShardingRules("fsdp_only"))
     with pytest.raises(ValueError, match="hybrid_mesh"):
@@ -147,27 +152,29 @@ def test_unported_strategy_and_serving_raise(tmp_path):
     dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
                             rank=0, world_size=1)
     try:
-        sharder = tspecs.Sharder(make_host_mesh(model=1, data=1),
-                                 tspecs.ShardingRules())
-        shards = tspecs.place_params(params, cfg, sharder)
-        with torch.no_grad():
-            want, caches = TT.prefill(params, cfg, tokens, max_len=8)
-            want_step = TT.decode_step(params, cfg, tokens[:, :1],
-                                       caches)[0]
-            got, caches = TT.prefill(shards, cfg, tokens, max_len=8,
-                                     shard=sharder)
-            torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
-            with pytest.raises(ValueError, match="max_len"):
-                TT.decode_step(shards, cfg, tokens[:, :1], caches,
-                               shard=sharder)
-            got_step = TT.decode_step(shards, cfg, tokens[:, :1], caches,
-                                      shard=sharder.serving(8))[0]
-            torch.testing.assert_close(got_step, want_step, rtol=0,
-                                       atol=1e-6)
-            prefill_fn, decode_fn = engine.make_serve_fns(cfg, sharder)
-            caches = prefill_fn(shards, tokens, max_len=8)[1]
-            torch.testing.assert_close(decode_fn(
-                shards, tokens[:, :1], caches)[0], want_step, rtol=0,
-                atol=1e-6)
+        for strategy in ("neutron_tp", "megatron"):
+            sharder = tspecs.Sharder(make_host_mesh(model=1, data=1),
+                                     tspecs.ShardingRules(strategy))
+            shards = tspecs.place_params(params, cfg, sharder)
+            with torch.no_grad():
+                want, caches = TT.prefill(params, cfg, tokens, max_len=8)
+                want_step = TT.decode_step(params, cfg, tokens[:, :1],
+                                           caches)[0]
+                got, caches = TT.prefill(shards, cfg, tokens, max_len=8,
+                                         shard=sharder)
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+                with pytest.raises(ValueError, match="max_len"):
+                    TT.decode_step(shards, cfg, tokens[:, :1], caches,
+                                   shard=sharder)
+                got_step = TT.decode_step(shards, cfg, tokens[:, :1],
+                                          caches,
+                                          shard=sharder.serving(8))[0]
+                torch.testing.assert_close(got_step, want_step, rtol=0,
+                                           atol=1e-6)
+                prefill_fn, decode_fn = engine.make_serve_fns(cfg, sharder)
+                caches = prefill_fn(shards, tokens, max_len=8)[1]
+                torch.testing.assert_close(decode_fn(
+                    shards, tokens[:, :1], caches)[0], want_step, rtol=0,
+                    atol=1e-6)
     finally:
         dist.destroy_process_group()

@@ -4,9 +4,9 @@ parameters against the reference's at 1e-5·(1 + max|ref|);
 ``remat`` True / False / ``"dots"`` giving equal losses and gradients,
 the recompute counted and nothing recomputed under ``no_grad``; the
 softcapped logits equal with and without a gradient; ``donate``; a sharded
-step at one gloo rank against the unsharded one, with its refusals
-(shardings that are not the sharder's, the megatron strategy: ROADMAP
-queue 1 item 30); and a config whose forward calls a forward-only kernel,
+step at one gloo rank against the unsharded one, under neutron_tp and
+megatron, with its refusals (shardings that are not the sharder's); and a
+config whose forward calls a forward-only kernel,
 refused beside the reference's own failure on the same config."""
 import dataclasses
 from unittest import mock
@@ -191,9 +191,9 @@ def test_sharded_training_raises(tmp_path):
     """Sharded training is ported (ROADMAP item 25a): at one gloo rank on a
     (data=1, model=1) mesh, ``sharded_setup``'s step (its
     ``in_shardings`` the setup's own) and ``make_loss_fn(sharder=)`` give
-    the unsharded step's metrics and parameters within 1e-6.  What still
-    raises: ``in_shardings`` that are not the sharder's layouts or come
-    without a sharder, and the megatron strategy (item 30)."""
+    the unsharded step's metrics and parameters within 1e-6, and so does
+    the megatron strategy's step.  What raises: ``in_shardings`` that are
+    not the sharder's layouts or come without a sharder."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.sharding import Sharder, ShardingRules
@@ -228,10 +228,19 @@ def test_sharded_training_raises(tmp_path):
         with pytest.raises(ValueError, match="pass its sharder"):
             make_train_step(tcfg, opt, in_shardings=(
                 setup["state_shardings"], setup["batch_shardings"]))
-        with pytest.raises(NotImplementedError, match="item 30"):
-            sharded_setup(tcfg, shape, mesh, ShardingRules("megatron"))
-        with pytest.raises(NotImplementedError, match="item 30"):
-            Sharder(mesh, ShardingRules("megatron"))
+        megatron = sharded_setup(tcfg, shape, mesh,
+                                 ShardingRules("megatron"), lr=1e-3)
+        assert isinstance(megatron["sharder"], Sharder)
+        state, got = megatron["train_step"](init_sharded_state(
+            params, tcfg, megatron["optimizer"], megatron["sharder"]),
+            batch)
+        for key in want:
+            assert abs(got[key].item() - want[key].item()) <= 1e-6 * max(
+                1.0, abs(want[key].item())), key
+        for a, b in zip(tree_leaves(state.params),
+                        tree_leaves(want_state.params)):
+            assert (a - b).abs().max().item() <= 1e-6 * (
+                1 + b.abs().max().item())
     finally:
         dist.destroy_process_group()
 

@@ -91,6 +91,7 @@ def _env(**contract) -> dict:
            if k not in dist.ENV_CONTRACT}
     env["PYTHONPATH"] = os.pathsep.join(
         [str(ROOT / "src"), env.get("PYTHONPATH", "")])
+    env["OMP_NUM_THREADS"] = "1"    # several processes at once, tiny graphs
     env.update({k: str(v) for k, v in contract.items()})
     return env
 
@@ -399,6 +400,7 @@ def _port_case(name, mesh, params) -> dict:
 
 def _port_rank(params_path: str, out_dir: str) -> None:
     """One of four processes; its topology comes from the env contract."""
+    torch.set_num_threads(1)
     ctx = dist.initialize(device="cpu")
     try:
         params = pickle.loads(Path(params_path).read_bytes())
@@ -435,7 +437,8 @@ def four_ranks(tmp_path_factory):
     params_path = tmp / "params.pkl"
     params_path.write_bytes(pickle.dumps({n: case_params(n)
                                           for n in CASES}))
-    env = _env(XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD}",
+    env = _env(XLA_FLAGS=f"--xla_force_host_platform_device_count={WORLD} "
+               "--xla_cpu_multi_thread_eigen=false",
                JAX_PLATFORMS="cpu")
     ref = subprocess.Popen(
         [sys.executable, "-c",

@@ -122,6 +122,7 @@ def test_naive_one_rank_train_steps_match_jax(one_rank, layers, agg):
 
 
 def _naive_rank(rank, world, init, params, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:
@@ -276,6 +277,7 @@ def _jax_dp_child(out: str, world: int, seed: int) -> None:
 
 
 def _dp_rank(rank, world, init, params, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:
@@ -299,7 +301,8 @@ def _dp_rank(rank, world, init, params, out_dir):
 def test_dp_two_ranks_match_reference(tmp_path):
     world, seed = 2, 7
     env = {**os.environ,
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world}",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world} "
+           "--xla_cpu_multi_thread_eigen=false",
            "JAX_PLATFORMS": "cpu"}
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
             "import test_torch_naive_dp as t; "

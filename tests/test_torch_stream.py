@@ -438,6 +438,7 @@ def test_backward_scope_records_backward_calls(one_rank):
 # ---------------------------------------------------------------------------
 
 def _two_rank_worker(rank, world, init, params, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:

@@ -93,6 +93,7 @@ def test_one_rank_train_steps_match_jax(one_rank, mode, agg, layers):
 def _two_rank_worker(rank, world, init, params, out_dir):
     """One rank of the 2-process check: loss and grads for both modes ×
     both backends, saved for the parent to compare."""
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:

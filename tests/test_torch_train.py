@@ -350,6 +350,7 @@ def _reference_child(out: str, n: int) -> None:
 
 
 def _port_rank(rank, world, init, params, out_dir):
+    torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
                             world_size=world, timeout=TIMEOUT)
     try:
@@ -363,7 +364,8 @@ def _port_rank(rank, world, init, params, out_dir):
 def test_tp_loss_fn_two_ranks_matches(tmp_path):
     world = 2
     env = {**os.environ,
-           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world}",
+           "XLA_FLAGS": f"--xla_force_host_platform_device_count={world} "
+           "--xla_cpu_multi_thread_eigen=false",
            "JAX_PLATFORMS": "cpu"}
     code = ("import sys; sys.path[:0] = [{!r}, {!r}]; "
             "import test_torch_train as t; "
