@@ -385,6 +385,18 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               step's ``tp_psum`` calls and mirrors, two timed steps, no
               kernel launch.
 
+31. dryrun  — ``launch/dryrun.py`` (the per-rank program on torch's
+              ``fake`` process-group backend under ``FakeTensorMode``: no
+              card) on mesh (data 1, model 1), in two child processes at
+              once, for phase 28's Granite-MoE ``sharded_setup`` step at
+              batch 4 and phase 30's megatron Zamba2 decode step: its
+              ledger equal to the card's entry for entry, its argument
+              bytes the bytes of the state on the card, its FLOPs those
+              ``FlopCounterMode`` counted in one more real step on the
+              card (phases 28 and 30 record them); the predicted peak
+              beside ``torch.cuda.max_memory_allocated`` and the H100
+              roofline terms beside the measured step time, recorded.
+
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the flash kernel at Zamba2's shape,
@@ -2394,7 +2406,7 @@ def serve(dev):
     cfg, params, n_params = _lm_model("zamba2-2.7b", dev)
     batch = next(SyntheticLM(cfg.vocab_size, seed=0).batches(2, 2048))
     _, info = _serve_cell(cfg, params, batch["tokens"], dev)
-    print("[17/30] LM main path, scoring: forward + lm_loss")
+    print("[17/31] LM main path, scoring: forward + lm_loss")
     score_info = _score_cell(cfg, params, batch, dev, plain_twin=True)
     return cfg, params, batch, {"params": n_params, **info}, score_info
 
@@ -3371,6 +3383,11 @@ def _sharded_training(dev, mesh, card: str) -> dict:
                               batches[-2])
     prof = _profile(lambda: one_step(batches[-1]), "sharded train step")
     peak = torch.cuda.max_memory_allocated()
+    # phase 31 holds its dry-run to these: the state's bytes and a
+    # counted step's FLOPs
+    state_bytes = _tensor_bytes([holder[0].params, holder[0].opt_state.mu,
+                                 holder[0].opt_state.nu])
+    counted = _counted(lambda: one_step(batches[1]))
     med = statistics.median(ms)
     print(f"  losses {[round(v, 4) for v in losses]}; step {med:.2f} ms "
           f"(median of {[round(v, 2) for v in ms]}); "
@@ -3378,11 +3395,13 @@ def _sharded_training(dev, mesh, card: str) -> dict:
           f"peak memory {peak / 2**30:.2f} GiB; {card}")
     del state, holder
     _lm_free()
-    return {"batch": SHARD_TRAIN_BATCH, "loss_step0": got,
+    return {"batch": SHARD_TRAIN_BATCH, "seq": shape.seq_len,
+            "loss_step0": got,
             "loss_unsharded": want, "rel": rel, "grad_rel": grad_rel,
             "losses": losses,
             "step_ms": med, "step_ms_runs": ms, "peak_bytes": peak,
-            "profile": prof, "ledger": ledger.as_dict()}
+            "profile": prof, "ledger": ledger.as_dict(),
+            "state_bytes": state_bytes, **counted}
 
 
 def sharded_lm(dev, card: str) -> dict:
@@ -3838,6 +3857,10 @@ def _megatron_serving(dev, sharder, card: str) -> dict:
         tok = torch.as_tensor(got_tokens[:, -1:], device=dev)
         prof = _profile(lambda: decode_fn(shards, tok, caches),
                         "megatron decode step")
+        # phase 31 holds its dry-run to these: the shards' and caches'
+        # bytes and a counted decode step's FLOPs
+        state_bytes = _tensor_bytes([shards, caches])
+        counted = _counted(lambda: decode_fn(shards, tok, caches))
         caches = None
     pre, dec = statistics.median(pre_ms), statistics.median(ms[1:])
     print(f"  megatron prefill {pre:.2f} ms (median of {pre_ms}); decode "
@@ -3846,7 +3869,10 @@ def _megatron_serving(dev, sharder, card: str) -> dict:
     _lm_free()
     return {"launches": {"flash": pre_counts[0], "ssd": pre_counts[1]},
             "bitwise": bitwise, "max_abs_diff": diff,
-            "decode_ledger_calls": calls, "prefill_ms": pre,
+            "decode_ledger_calls": calls,
+            "decode_ledger": ledgers[0].as_dict(),
+            "decode_batch": b, "decode_cache_len": max_len + 1,
+            "state_bytes": state_bytes, **counted, "prefill_ms": pre,
             "prefill_ms_runs": pre_ms, "decode_ms": dec,
             "decode_ms_runs": ms[1:], "profile_decode": prof}
 
@@ -3952,6 +3978,163 @@ def megatron(dev, card: str) -> dict:
         dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
     print(f"  phase 30 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The dry-run against phases 28 and 30 (phase 31)
+# ---------------------------------------------------------------------------
+
+def _tensor_bytes(tree) -> int:
+    """The bytes of every tensor in ``tree`` (dicts, lists, tuples,
+    dataclasses such as the decode caches)."""
+    import dataclasses
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tensor_bytes(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return sum(_tensor_bytes(getattr(tree, f.name))
+                   for f in dataclasses.fields(tree))
+    return 0
+
+
+def _counted(fn) -> dict:
+    """One more call of ``fn`` under ``FlopCounterMode``: its FLOPs, the
+    bytes allocated on the card before it and its peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        fn()
+    torch.cuda.synchronize()
+    return {"flops": float(fc.get_total_flops()), "resident_bytes": resident,
+            "step_peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+DRYRUN_DECODE_ARCH = "zamba2-2.7b"   # phase 30's serving config
+
+# the child that runs one dry-run: no card (CUDA_VISIBLE_DEVICES empty),
+# the record as JSON
+DRYRUN_CHILD = """
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.launch import dryrun
+spec = json.loads(sys.argv[1])
+cfg = dataclasses.replace(get_config(spec["arch"]), **spec["over"])
+rec = dryrun.run_combo(cfg, InputShape(*spec["shape"]),
+                       mesh_shape=spec["mesh"], strategy=spec["strategy"],
+                       **spec.get("knobs", {}))
+open(sys.argv[2], "w").write(json.dumps(rec))
+"""
+
+
+def _dryrun_children(specs: dict, out_dir: Path) -> dict:
+    """Each spec's dry-run in a child process of its own, all at once:
+    name → record."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+           "CUDA_VISIBLE_DEVICES": ""}
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", DRYRUN_CHILD, json.dumps(spec),
+         str(out_dir / f"{name}.json")], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for name, spec in specs.items()}
+    recs = {}
+    for name, p in procs.items():
+        _, err = p.communicate(timeout=300)
+        if p.returncode != 0:
+            raise AssertionError(f"dry-run {name} failed: {err[-3000:]}")
+        recs[name] = json.loads((out_dir / f"{name}.json").read_text())
+    return recs
+
+
+def _hold_dryrun(tag: str, rec: dict, card_ledger: dict, state_bytes: int,
+                 flops: float) -> None:
+    """The dry-run's ledger equal to the card's, entry for entry (calls
+    and bytes by (op, axis, dtype)); its argument bytes the state's bytes
+    on the card; its FLOPs the counted step's."""
+    got = rec["ledger"]
+    if set(got) != set(card_ledger):
+        raise AssertionError(f"{tag} ledger keys: dry-run {sorted(got)}, "
+                             f"card {sorted(card_ledger)}")
+    for key, entry in card_ledger.items():
+        if got[key] != entry:
+            raise AssertionError(f"{tag} ledger {key}: dry-run {got[key]}, "
+                                 f"card {entry}")
+    _expect(f"{tag} argument bytes (dry-run) = state bytes on the card",
+            rec["memory"]["argument_bytes"], state_bytes)
+    _expect(f"{tag} FLOPs (dry-run) = the counted step's on the card",
+            rec["cost"]["flops"], flops)
+    print(f"  {tag}: ledger equal ({len(got)} entries, "
+          f"{sum(e['calls'] for e in got.values()):.0f} calls), argument "
+          f"bytes {state_bytes}, FLOPs {flops:.6e}")
+
+
+def dryrun_check(shard_info: dict, megatron_info: dict, card: str) -> dict:
+    """Phase 31: ``launch/dryrun.py`` on mesh (data 1, model 1), in child
+    processes (this one holds an NCCL group; the dry-run opens torch's
+    fake backend and touches no card), for two cells phases 28 and 30
+    ran: Granite-MoE-1B-A400M's ``sharded_setup`` step at batch 4
+    (neutron_tp) and Zamba2-2.7B's megatron decode step (batch 2, phase
+    30's caches; a decode step runs neither kernel, so the dry-run takes
+    the config with the default impls).  Held: the ledger equal entry for
+    entry, the argument bytes the bytes of the state on the card
+    (parameters and AdamW moments; parameters and caches), the FLOPs
+    those ``FlopCounterMode`` counted in one more real step.  Recorded:
+    the predicted peak and temporary bytes beside the card's, the H100
+    roofline terms beside the measured step time."""
+    t0 = time.perf_counter()
+    tr, sv = shard_info["training"], megatron_info["serving"]
+    mesh = {"model": 1, "data": 1}
+    specs = {
+        "granite_train": dict(
+            arch=SHARD_TRAIN_ARCH, over={}, mesh=mesh, strategy="neutron_tp",
+            shape=["train_4k", tr["seq"], tr["batch"], "train"]),
+        "zamba2_megatron_decode": dict(
+            arch=DRYRUN_DECODE_ARCH, over={"attn_impl": "naive",
+                                           "ssm_impl": "jnp"},
+            mesh=mesh, strategy="megatron",
+            shape=["decode_32k", sv["decode_cache_len"], sv["decode_batch"],
+                   "decode"])}
+    recs = _dryrun_children(specs, ROOT / "build" / "chip_smoke" / "dryrun")
+    out = {}
+    for name, card_ledger, state, flops, step_ms, peak, resident in (
+            ("granite_train", tr["ledger"], tr["state_bytes"], tr["flops"],
+             tr["step_ms"], tr["step_peak_bytes"], tr["resident_bytes"]),
+            ("zamba2_megatron_decode", sv["decode_ledger"], sv["state_bytes"],
+             sv["flops"], sv["decode_ms"], sv["step_peak_bytes"],
+             sv["resident_bytes"])):
+        rec = recs[name]
+        _hold_dryrun(name, rec, card_ledger, state, flops)
+        r, mem = rec["roofline"], rec["memory"]
+        bound_ms = 1e3 * max(r["compute_s"], r["memory_s"],
+                             r["collective_s"])
+        print(f"  {name}: predicted peak {mem['peak_bytes'] / 2**30:.2f} "
+              f"GiB (temporary {mem['temp_bytes'] / 2**30:.2f}), card peak "
+              f"{peak / 2**30:.2f} GiB ({(peak - resident) / 2**30:.2f} "
+              f"above the {resident / 2**30:.2f} resident before the step); "
+              f"H100 roofline compute {r['compute_s'] * 1e3:.2f} ms, memory "
+              f"{r['memory_s'] * 1e3:.2f} ms, collective "
+              f"{r['collective_s'] * 1e3:.2f} ms ({r['dominant']}) beside "
+              f"the measured {step_ms:.2f} ms; trace "
+              f"{rec['compile_seconds']:.1f} s; {card}")
+        out[name] = {"argument_bytes": mem["argument_bytes"],
+                     "predicted_peak_bytes": mem["peak_bytes"],
+                     "predicted_temp_bytes": mem["temp_bytes"],
+                     "card_peak_bytes": peak, "card_resident_bytes": resident,
+                     "flops": rec["cost"]["flops"],
+                     "bytes_accessed": rec["cost"]["bytes accessed"],
+                     "roofline": {k: r[k] for k in (
+                         "compute_s", "memory_s", "collective_s",
+                         "dominant")},
+                     "bound_ms": bound_ms, "measured_ms": step_ms,
+                     "trace_s": rec["compile_seconds"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 31 took {out['seconds']:.1f} s")
     return out
 
 
@@ -4437,7 +4620,7 @@ def main() -> int:
     from repro_torch.kernels import build as kbuild
 
     t_start = time.perf_counter()
-    print("[1/30] device")
+    print("[1/31] device")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -4455,109 +4638,112 @@ def main() -> int:
                      ("TRITON_CACHE_DIR", "triton")):
         os.environ.setdefault(var, str(ROOT / "build" / sub))
 
-    print("[2/30] build")
+    print("[2/31] build")
     t0 = time.perf_counter()
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/30] spmm kernel against its plain version")
+    print("[3/31] spmm kernel against its plain version")
     spmm_err = kernel_cases(dev)
-    print("[4/30] flash kernel against its plain version")
+    print("[4/31] flash kernel against its plain version")
     flash_err = flash_cases(dev)
-    print("[5/30] ssd kernel against its plain version")
+    print("[5/31] ssd kernel against its plain version")
     ssd_err = ssd_cases(dev)
 
-    print("[6/30] GCN main path: decoupled-pipelined TP GCN training")
+    print("[6/31] GCN main path: decoupled-pipelined TP GCN training")
     dist.init_process_group("nccl", init_method=f"tcp://localhost:"
                             f"{_free_port()}", rank=0, world_size=1)
     try:
         bundle, data, gcn_cfg, gcn = train(dev)
-        print("[7/30] naive TP GCN training (a split and a gather per "
+        print("[7/31] naive TP GCN training (a split and a gather per "
               "layer)")
         naive_info = naive(bundle, data, gcn_cfg, dev)
-        print("[8/30] DP halo-exchange GCN training (k=1)")
+        print("[8/31] DP halo-exchange GCN training (k=1)")
         dp_info, dp_err = dp(data, dev)
-        print("[9/30] out-of-core streamed GCN training (pinned host "
+        print("[9/31] out-of-core streamed GCN training (pinned host "
               "stores, a copy stream, half plans)")
         stream_info = stream(data, dev)
-        print("[10/30] GAT decoupled-pipelined TP training (the score "
+        print("[10/31] GAT decoupled-pipelined TP training (the score "
               "all-gathers)")
         gat_info = gat(bundle, data, dev, "decoupled_pipelined")
-        print("[11/30] GAT naive TP training")
+        print("[11/31] GAT naive TP training")
         gat_naive_info = gat(bundle, data, dev, "naive")
-        print("[12/30] SAGE and GIN decoupled-pipelined TP training")
+        print("[12/31] SAGE and GIN decoupled-pipelined TP training")
         like_info = gcn_like(bundle, data, dev)
-        print("[13/30] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
+        print("[13/31] hybrid DP×TP on a (data=1, model=1) mesh: GCN "
               "decoupled-pipelined and naive, DP, GAT")
         hybrid_info = hybrid(bundle, data, dev, {
             "decoupled_pipelined": gcn, "naive": naive_info, "dp": dp_info,
             "gat_decoupled_pipelined": gat_info}, card)
-        print("[14/30] the constraint engine backend (DTensor, "
+        print("[14/31] the constraint engine backend (DTensor, "
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/30] spmm timing at the GCN paths' shapes")
+        print("[15/31] spmm timing at the GCN paths' shapes")
         rows, path_err = timing(bundle, data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
     torch.cuda.empty_cache()
 
-    print("[16/30] LM main path, serving: Zamba2-2.7B generate")
+    print("[16/31] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info, score_info = serve(dev)
-    print("[18/30] fp32 cross-check at full width, kernels vs plain")
+    print("[18/31] fp32 cross-check at full width, kernels vs plain")
     fp32_err, fp32_launches = cross_check_fp32(
         cfg, params, batch["tokens"][:1, :512], batch["targets"][:1, :512],
         dev)
     del params
     _lm_free()
-    print("[19/30] flash and ssd timing at the LM paths' shapes")
+    print("[19/31] flash and ssd timing at the LM paths' shapes")
     t = time.perf_counter()
     lm_rows = lm_timing(dev)
     _lm_free()
     print(f"  phase 19 took {time.perf_counter() - t:.1f} s")
-    print("[20/30] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
+    print("[20/31] single-device trainer: GCN, SAGE, GIN, GAT and R-GCN "
           "coupled and decoupled, checkpoints, R-GCN TP, the example")
     single_info = single(dev)
-    print("[21/30] multihost: the placed bundle, the launcher under the env "
+    print("[21/31] multihost: the placed bundle, the launcher under the env "
           "contract")
     multihost_info = multihost(dev, card)
     _lm_free()
-    print("[22/30] gemma2-9b at full width and depth: generate 1 × 8192 "
+    print("[22/31] gemma2-9b at full width and depth: generate 1 × 8192 "
           "with ring caches and with dense caches, scoring")
     gemma_info = gemma2(dev)
-    print("[23/30] deepseek-v2-lite-16b at full width and depth: generate "
+    print("[23/31] deepseek-v2-lite-16b at full width and depth: generate "
           "2 × 2048 (MLA, MoE), scoring")
     deepseek_info = deepseek(dev)
-    print("[24/30] mamba2-1.3b at full width and depth: scoring, generate")
+    print("[24/31] mamba2-1.3b at full width and depth: scoring, generate")
     mamba_info = mamba2(dev)
-    print("[25/30] fp32 cross-checks of the new configs, kernels vs plain")
+    print("[25/31] fp32 cross-checks of the new configs, kernels vs plain")
     xcheck_errs, xcheck_launches = lm_cross_checks(dev)
-    print("[26/30] InternVL2-1B and MusicGen-large at full width and depth: "
+    print("[26/31] InternVL2-1B and MusicGen-large at full width and depth: "
           "generate 2 × 2048 behind the prefix, scoring")
     mm_info = multimodal(dev)
-    print("[27/30] LM training at full width and depth: InternVL2-1B and "
+    print("[27/31] LM training at full width and depth: InternVL2-1B and "
           "Granite-MoE-1B-A400M, the fp32 cross-checks, the kernels' "
           "refusals")
     t = time.perf_counter()
     train_info = lm_train(dev, card)
     print(f"  phase 27 took {time.perf_counter() - t:.1f} s")
-    print("[28/30] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
+    print("[28/31] the LM's NeutronTP sharding on a (data=1, model=1) mesh: "
           "Zamba2-2.7B's sharded scoring (flash, SSD), Granite-MoE's "
           "sharded training step")
     shard_info = sharded_lm(dev, card)
-    print("[29/30] sharded LM serving on a (data=1, model=1) mesh: "
+    print("[29/31] sharded LM serving on a (data=1, model=1) mesh: "
           "Zamba2-2.7B's sharded prefill (flash) and greedy decode, the "
           "fp32 cross-checks of the three cache layouts")
     serve_shard_info = sharded_serving(dev, card)
-    print("[30/30] the megatron strategy on a (data=1, model=1) mesh: "
+    print("[30/31] the megatron strategy on a (data=1, model=1) mesh: "
           "Zamba2-2.7B's scoring (flash, SSD) and serving (flash), "
           "Granite-MoE's training step")
     megatron_info = megatron(dev, card)
+    print("[31/31] the dry-run (launch/dryrun.py, torch's fake backend, "
+          "no card) of phases 28 and 30's cells against the card's")
+    dryrun_info = dryrun_check(shard_info, megatron_info, card)
     script_s = time.perf_counter() - t_start
-    print(f"  phases 1–30 took {script_s:.1f} s")
+    print(f"  phases 1–31 took {script_s:.1f} s")
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
@@ -4578,6 +4764,7 @@ def main() -> int:
                       "sharded_lm": shard_info,
                       "sharded_serving": serve_shard_info,
                       "megatron": megatron_info,
+                      "dryrun": dryrun_info,
                       "script_s": script_s, "card": card}))
     print(json.dumps({"kernels": [{
         "name": "spmm_csr", "route": "cuda",

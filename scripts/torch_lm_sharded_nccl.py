@@ -54,6 +54,13 @@ sums ledgered as ``tp_psum``):
   capacity is the rank's), under False and ``"model"`` on (data 1, model
   N) and under True on (data 2, model N/2) at batch 1.
 
+``--dryrun-check`` runs instead Granite-MoE's training step (batch 8,
+as above, not audited) and one Zamba2-2.7B decode step (2 × 2048
+prefilled, ``seq_shard_cache`` False) and holds rank 0's ledger of each,
+entry for entry, against ``launch/dryrun.py``'s dry-run of the same cell
+at world N (data 1, model N) with the same knobs (``mixing="a2a"``,
+``moe="ep"``), run by rank 0 in child processes on torch's fake backend.
+
 ``--only training`` or ``--only serving`` runs one part.  ``--train``
 names the training cells' configs (default both).  Rank 0 prints
 the card's name and power limit and one JSON line, and writes
@@ -419,6 +426,81 @@ def serving_part(mesh, n, dev, small, lead, strategy) -> dict:
     return res
 
 
+def decode_ledger(mesh, dev, small, strategy) -> dict:
+    """Zamba2-2.7B (flash, bf16 compute): 2 × 2048 prefilled and one
+    decode step's ledger under ``ExplicitSharder`` with
+    ``seq_shard_cache`` False."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models.transformer import init_transformer
+    from repro_torch.runtime.telemetry import collect_comm
+    from repro_torch.serve import make_serve_fns
+    from repro_torch.sharding.specs import place_params
+    cfg = _cfg("zamba2-2.7b", small, attn_impl="flash", ssm_impl="fused")
+    sharder = _sharder(mesh, strategy, seq_shard_cache=False)
+    shards = place_params(init_transformer(cfg, seed=0, device=dev), cfg,
+                          sharder)
+    tokens = torch.as_tensor(next(SyntheticLM(cfg.vocab_size, seed=0)
+                                  .batches(2, 64 if small else 2048))
+                             ["tokens"], device=dev)
+    b, s = tokens.shape
+    prefill_fn, decode_fn = make_serve_fns(cfg, sharder)
+    with torch.no_grad():
+        _, caches = prefill_fn(shards, tokens, max_len=s + 1)
+        with collect_comm() as ledger:
+            decode_fn(shards, tokens[:, -1:].to(torch.int32), caches)
+    return {"batch": b, "cache_len": s + 1, "ledger": ledger.as_dict(),
+            "wire_bytes": ledger.wire_bytes()}
+
+
+def dryrun_part(mesh, n, dev, small, lead, strategy) -> dict:
+    """``--dryrun-check``: the two cells' ledgers on the cards, and on rank
+    0 the dry-run of each at world ``n`` held to them entry for entry."""
+    import chip_smoke as cs
+    arch = "granite-moe-1b-a400m"
+    train = train_cell(arch, 8, mesh, dev, small, False, strategy)
+    decode = decode_ledger(mesh, dev, small, strategy)
+    res = {"granite train": train, "zamba2 decode": decode}
+    if not lead:
+        return res
+    suffix = "-reduced" if small else ""
+    knobs = {"mixing": "a2a", "moe": "ep"}
+    mesh_shape = {"model": n, "data": 1}
+    specs = {
+        "granite_train": dict(arch=arch + suffix, over={}, mesh=mesh_shape,
+                              strategy=strategy, knobs=knobs,
+                              shape=["train_4k", train["seq"], 8, "train"]),
+        "zamba2_decode": dict(arch="zamba2-2.7b" + suffix,
+                              over={"attn_impl": "naive", "ssm_impl": "jnp"},
+                              mesh=mesh_shape, strategy=strategy, knobs=knobs,
+                              shape=["decode_32k", decode["cache_len"],
+                                     decode["batch"], "decode"])}
+    recs = cs._dryrun_children(
+        specs, ROOT / "build" / f"dryrun_check_{strategy}")
+    for name, card in (("granite_train", train), ("zamba2_decode", decode)):
+        got = recs[name]["ledger"]
+        if got != card["ledger"]:
+            raise AssertionError(
+                f"{name}: the dry-run's ledger {got} differs from rank 0's "
+                f"{card['ledger']}")
+        res[f"dryrun {name}"] = {
+            "entries": len(got),
+            "calls": sum(e["calls"] + e["mirrored_calls"]
+                         + e.get("recomputed_calls", 0)
+                         for e in got.values()),
+            "wire_bytes": sum(e["wire_bytes"] + e["mirrored_wire_bytes"]
+                              + e.get("recomputed_wire_bytes", 0)
+                              for e in got.values()),
+            "memory": recs[name]["memory"], "cost": recs[name]["cost"],
+            "roofline": recs[name]["roofline"],
+            "trace_s": recs[name]["compile_seconds"]}
+        print(f"dry-run {name} ({strategy}, world {n}): ledger equal to "
+              f"rank 0's, {res[f'dryrun {name}']['entries']} entries, "
+              f"{res[f'dryrun {name}']['calls']:.0f} calls, "
+              f"{res[f'dryrun {name}']['wire_bytes'] / 1e9:.4f} GB on the "
+              f"wire", flush=True)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=str(ROOT / "build" / "lm_sharded.json"))
@@ -431,6 +513,9 @@ def main(argv=None) -> int:
                     choices=("neutron_tp", "megatron"))
     ap.add_argument("--train", nargs="+", default=[a for a, _ in TRAIN],
                     choices=[a for a, _ in TRAIN])
+    ap.add_argument("--dryrun-check", action="store_true",
+                    help="hold the dry-run's ledgers against the cards' "
+                         "(instead of the parts)")
     args = ap.parse_args(argv)
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.runtime import distributed as RD
@@ -445,11 +530,14 @@ def main(argv=None) -> int:
     try:
         mesh = make_host_mesh(model=ctx.num_processes, data=1)
         n = mesh.size
-        if args.only != "serving":
+        if args.dryrun_check:
+            res.update(dryrun_part(mesh, n, dev, args.small, lead,
+                                   args.strategy))
+        elif args.only != "serving":
             res.update(training_part(mesh, n, dev, args.small, lead,
                                      args.strategy, [(a, b) for a, b in TRAIN
                                                      if a in args.train]))
-        if args.only != "training":
+        if args.only != "training" and not args.dryrun_check:
             res.update(serving_part(mesh, n, dev, args.small, lead,
                                     args.strategy))
     finally:

@@ -30,7 +30,8 @@ Exactness contract, as the reference's: exact for the data-moving ops —
 ``all_to_all`` (forward ``calls`` against the forward pass,
 ``mirrored_calls`` against the backward one), ``all_gather`` (and the
 LM's gathers under their own op kinds: ``param_gather``, serving's
-``cache_place``, ``softmax_gather`` and ``conv_gather``, and megatron's
+``cache_place``, ``softmax_gather``, ``conv_gather`` and
+``last_gather``, and megatron's
 ``tp_gather``) and its mirror, the reduce-scatter, and
 ``ppermute`` as a send and a receive — and one-directional for ``psum`` /
 ``grad_psum`` / ``tp_psum`` (megatron's row-parallel sum, an all-reduce

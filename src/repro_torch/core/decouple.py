@@ -801,7 +801,17 @@ def make_tp_loss_fn(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
     sum the reference's ``shard_map`` transpose performs.  The arguments
     are :func:`make_tp_value_and_grad`'s."""
     mesh = mesh.for_data_axes(data_axes)
-    loss_and_acc = _make_local_loss(cfg, bundle, mesh, mode, agg, backend)
+    return differentiable_loss(
+        _make_local_loss(cfg, bundle, mesh, mode, agg, backend), mesh,
+        backend)
+
+
+def differentiable_loss(loss_and_acc, mesh: TPMesh, backend: str):
+    """(params, mask) → scalar loss of a local ``loss_and_acc`` (this
+    rank's rows; global-view under the constraint backend), its parameter
+    leaves passed through :class:`_SumGrads`, so that the gradients
+    autograd takes through it are summed over the ranks: :func:`sum_grads`
+    (explicit) or ``constraint.reduce_grads``."""
     if backend == "constraint":
         def loss_fn(params, mask):
             leaves = _SumGrads.apply(

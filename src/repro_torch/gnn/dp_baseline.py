@@ -506,6 +506,22 @@ def make_dp_value_and_grad(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
         mesh, backend)
 
 
+def make_dp_loss_fn(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
+                    agg: str | None = None, data_axes=None,
+                    backend: str = "explicit"):
+    """Differentiable (params, mask) → scalar loss over every rank's rows:
+    the handle to take grads through, as the reference's
+    ``make_dp_loss_fn``.  The gradients autograd takes through it are
+    :func:`make_dp_value_and_grad`'s on every rank (each replicated
+    parameter's share summed over the ranks in the backward,
+    ``core.decouple.differentiable_loss``).  The arguments are
+    :func:`make_dp_value_and_grad`'s."""
+    mesh = _resolve_dp_axes(bundle, mesh, data_axes)
+    return D.differentiable_loss(
+        _make_local_loss(cfg, bundle, mesh, agg, D.check_backend(backend)),
+        mesh, backend)
+
+
 def make_dp_train_fns(cfg: M.GNNConfig, bundle: DPBundle, mesh: TPMesh,
                       optimizer, agg: str | None = None, data_axes=None,
                       backend: str = "explicit"):

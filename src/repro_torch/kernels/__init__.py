@@ -19,3 +19,16 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
     kernel cannot be differentiated either)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(NO_BACKWARD.format(kernel=kernel))
+
+
+def refuse_fake(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise where ``kernel`` is handed fake tensors (``FakeTensorMode``,
+    the dry-run's): a kernel needs data to launch on, and its plain
+    version would trace what the card does not run."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    if any(isinstance(t, FakeTensor) for t in tensors):
+        raise RuntimeError(
+            f"{kernel} cannot run on fake tensors: the dry-run traces the "
+            f"per-rank program without a card, and a kernel has no trace. "
+            f"Dry-run with attn_impl=\"naive\" or \"blockwise\" and "
+            f"ssm_impl=\"jnp\" (the configs' defaults).")

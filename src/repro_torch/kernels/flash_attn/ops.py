@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from .. import refuse_grad
+from .. import refuse_fake, refuse_grad
 from .flash import flash_attention_bhsd
 from .ref import flash_ref
 
@@ -28,6 +28,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, Hq, hd); k/v: (B, Skv, Hkv, hd[_v]) → (B, Sq, Hq, hd_v).
     Forward only: raises under grad mode if an input requires grad."""
     refuse_grad("flash_attention", q, k, v)
+    refuse_fake("flash_attention", q, k, v)
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ...graph.format import BlockSparsePlan
+from .. import refuse_fake
 from .ref import spmm_csr_ref
 from .spmm import spmm_csr
 
@@ -195,6 +196,7 @@ def half_plans(plan: BlockSparsePlan, device: str | torch.device = "cuda"
 def _run(row_ptr, col_idx, vals, h, n_src: int) -> torch.Tensor:
     """Zero-pad h to the ``n_src`` source rows the entries may address,
     then run the kernel (CUDA) or the plain version (CPU)."""
+    refuse_fake("spmm_csr", h, vals)
     n = h.shape[0]
     hp = h if n >= n_src else F.pad(h, (0, 0, 0, n_src - n))
     if hp.is_cuda:

@@ -50,8 +50,8 @@
 //   tf32(v − hi), both rounded to nearest, and the product is lo·hi +
 //   hi·lo + hi·hi: about 2^-22 relative per product, where one TF32 pass
 //   (2^-11) misses the 1e-4 hold that the fp32 path is held to
-//   (tests/test_torch_ssd.py emulates both on the CPU).  The k index of a
-//   slab is permuted (k = t and t + 4 are adjacent columns 2t, 2t + 1), so
+//   (tests/test_torch_ssd_mamba2.py emulates both on the CPU).  The k
+//   index of a slab is permuted (k = t and t + 4 are adjacent columns 2t, 2t + 1), so
 //   a thread's fragment pairs are adjacent in S, cs, dt and w and load as
 //   one 8-byte word; strides are padded so that every fragment load hits
 //   32 distinct banks.

@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .. import refuse_grad
+from .. import refuse_fake, refuse_grad
 from .ref import ssd_intra_chunk_ref
 from .ssd import ssd_intra_chunk
 
@@ -59,6 +59,7 @@ def ssd_chunked_fused(x, dt, a, b_mat, c_mat, chunk: int):
     Returns (y (B,S,H,P) fp32, final_state (B,H,P,N)).  Forward only:
     raises under grad mode if an input requires grad."""
     refuse_grad("ssd_chunked_fused", x, dt, a, b_mat, c_mat)
+    refuse_fake("ssd_chunked_fused", x, dt, a, b_mat, c_mat)
     bsz, s_orig, h, p = x.shape
     n = b_mat.shape[-1]
     x, dt, b_mat, c_mat = pad_to_chunk(

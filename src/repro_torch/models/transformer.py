@@ -283,10 +283,12 @@ def _inputs(params, cfg: ArchConfig, tokens, prefix_embeddings, shard,
 
 def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeddings: Optional[torch.Tensor] = None, *,
-            shard: NoShard = no_shard, remat: Union[bool, str] = True):
+            shard: NoShard = no_shard, remat: Union[bool, str] = True,
+            return_final_hidden: bool = False):
     """Full-sequence forward (scoring, training).  Returns (logits
     (B, P + S, V), aux_loss), aux_loss the sum of the MoE layers'
-    load-balance losses (fp32).
+    load-balance losses (fp32); with ``return_final_hidden``, (the final
+    norm's output (B, P + S, D) in fp32, aux_loss) and no unembedding.
 
     ``remat`` (True | False | ``"dots"``) applies where grad mode is on:
     each repeat of a repeated group (groups of one repeat are not) runs
@@ -319,6 +321,8 @@ def forward(params, cfg: ArchConfig, tokens: torch.Tensor,
             aux_total = aux_total + aux
     x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
+    if return_final_hidden:
+        return x, aux_total
     return unembed(top, cfg, x, shard), aux_total
 
 
@@ -376,12 +380,17 @@ def _rep_cache(stacked, r: int):
 def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
             prefix_embeddings: Optional[torch.Tensor] = None, *,
             max_len: int, long_context: bool = False,
-            shard: NoShard = no_shard):
+            shard: NoShard = no_shard, last_only: bool = False):
     """Run the prompt (behind a modality config's prefix) through the
     stack, materializing decode caches (at ``long_context``, ring caches on
     gemma2's local layers).  Returns (logits (B, P + S, V), caches), the
     caches' length P + S.  Under a sharder, as :func:`forward`: the
-    rank's block of the logits' token layout and its cache shards."""
+    rank's block of the logits' token layout and its cache shards.
+    ``last_only`` unembeds the final position alone — logits (B, 1, V),
+    all that decode needs, without the (B, P + S, V) buffer; under a
+    sharder that splits the sequence, the rank holding the final
+    position's block gives it to its model group
+    (``Sharder.last_position``)."""
     dtype = compute_dtype(cfg)
     top, x, positions, shard, groups = _inputs(
         params, cfg, tokens, prefix_embeddings, shard.serving(max_len),
@@ -405,6 +414,8 @@ def prefill(params, cfg: ArchConfig, tokens: torch.Tensor,
                        for u in range(len(gspec.unit))])
     x = nl.rms_norm(x, top["final_norm"].float(), cfg.norm_eps,
                     plus_one=cfg.post_norm)
+    if last_only:
+        x = shard.last_position(x)
     return unembed(top, cfg, x, shard), caches
 
 
@@ -429,7 +440,7 @@ def _set_rep(stacked, r: int, new) -> None:
     block updated in place through a view are already there)."""
     for name in _tensor_fields(stacked):
         dst, src = getattr(stacked, name)[r], getattr(new, name)
-        if src.data_ptr() != dst.data_ptr():
+        if not src.is_set_to(dst):
             dst.copy_(src)
 
 

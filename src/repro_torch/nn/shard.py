@@ -41,6 +41,10 @@ class NoShard:
     def local(self, t, kind: str, dim: int, shape: tuple):
         return t
 
+    def last_position(self, x):
+        """The final position of ``x`` (B, S, ...) of the token layout."""
+        return x[:, -1:]
+
     def serving(self, max_len: int) -> "NoShard":
         return self
 

@@ -7,13 +7,15 @@ module is what starts that world on **N processes on N machines** (the
 paper's 16-node cluster, §5), and what puts each rank's share of the
 training data on its device.  It owns
 
-* :func:`initialize` — the one call of ``init_process_group`` in the port
-  (coordinator_address / num_processes / process_id, from the arguments
+* :func:`initialize` — the port's call of ``init_process_group`` for a
+  job (coordinator_address / num_processes / process_id, from the arguments
   or the env contract :data:`ENV_COORDINATOR` / :data:`ENV_NUM_PROCESSES`
   / :data:`ENV_PROCESS_ID`), with eager validation and *actionable*
   errors: an unreachable coordinator or a job launched with too few
   processes raises, naming the address, ids and timeout, within the
-  timeout instead of hanging.
+  timeout instead of hanging.  :func:`fake_world` is the other: torch's
+  ``fake`` backend at any world size in one process, for the dry-run
+  (``launch/dryrun.py``).
 * :func:`put_global` / :func:`replicate` — host data → this rank's shard
   on its device.  Every process builds the same host value from a shared
   seed and keeps only its block of it: ``prepare_bundle`` /
@@ -55,6 +57,7 @@ the same variables point at the rank-0 host, one process per GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -306,6 +309,26 @@ def shutdown() -> None:
     if _CONTEXT is not None and dist.is_initialized():
         dist.destroy_process_group()
     _CONTEXT = None
+
+
+@contextlib.contextmanager
+def fake_world(world: int):
+    """Torch's ``fake`` process-group backend as the default group of
+    ``world`` ranks for the block, this process rank 0 (each collective
+    returns at once and moves nothing); destroyed on exit.  Raises where
+    the process already has a default group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError(
+            "fake_world needs a process without a default process group "
+            "(it initialises the fake backend itself): run it in a child "
+            "process")
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
 
 
 def is_initialized() -> bool:

@@ -107,15 +107,18 @@ How the port's semantics differ from the reference's:
   - ring attention skips the last rotation, whose chunk no step reads:
     2(n − 1) ppermutes a layer, forward and mirrored, against the
     reference's 2n;
-  - sharded serving records three gathers under op kinds of their own,
+  - sharded serving records four gathers under op kinds of their own,
     each at an all-gather's ring cost: ``cache_place``, a prefill's move
     of the prompt's positions a cache keeps (gathered over the sequence
     and whatever axes the cache's layout does not keep, then sliced to
     the rank's block); ``softmax_gather``, a decode step's partial max,
     sum and output of each rank's slots of a split sequence (one per
     attention layer, whatever the caches' length); ``conv_gather``, a
-    decode step's mamba2 conv output over the channels.  The reference's
-    partitioner picks these moves itself and records none of them;
+    decode step's mamba2 conv output over the channels; ``last_gather``,
+    a ``last_only`` prefill's final position, each rank's last one
+    gathered over the model axis where the sequence is split on it (one
+    a prefill).  The reference's partitioner picks these moves itself and
+    records none of them;
   - the **megatron** strategy (column- and row-parallel NN phase) keeps
     every model-parallel leaf in its model shard at use, so it makes no
     ``param_gather`` over the model axis (only the FSDP gathers over the
@@ -182,15 +185,17 @@ class TelemetryError(RuntimeError):
 
 #: Op kinds :func:`record` accepts, each with the collective whose ring
 #: cost it pays: the reference's five, the gradient all-reduce, the
-#: sharded LM's parameter gather and its serving's three gathers (a
+#: sharded LM's parameter gather and its serving's four gathers (a
 #: prefill's cache placement, a decode step's split-softmax partials and
-#: its conv output over the channels), and the megatron strategy's
-#: row-parallel sum and column-split gather.
+#: its conv output over the channels, a ``last_only`` prefill's final
+#: position), and the megatron strategy's row-parallel sum and
+#: column-split gather.
 OP_COST = {"psum": "psum", "all_gather": "all_gather",
            "all_to_all": "all_to_all", "ppermute": "ppermute",
            "psum_scatter": "psum_scatter", "grad_psum": "psum",
            "param_gather": "all_gather", "cache_place": "all_gather",
            "softmax_gather": "all_gather", "conv_gather": "all_gather",
+           "last_gather": "all_gather",
            "tp_psum": "psum", "tp_gather": "all_gather"}
 
 

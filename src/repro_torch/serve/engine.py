@@ -21,15 +21,17 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..configs.base import ArchConfig
+from ..configs.base import ArchConfig, InputShape
 from ..models import transformer as T
 from ..nn.shard import no_shard
+from ..train.loop import TensorSpec
 
 
 def make_serve_fns(cfg: ArchConfig, sharder=None, *,
-                   long_context: bool = False):
+                   long_context: bool = False, last_only: bool = False):
     """(prefill_fn, decode_fn) closures over ``cfg``; ``long_context`` puts
-    gemma2's local layers on the O(window) ring cache.  ``sharder`` is
+    gemma2's local layers on the O(window) ring cache; ``last_only`` has
+    the prefill unembed its final position alone.  ``sharder`` is
     their ``shard``; ``decode_fn`` runs under it bound to the ``max_len``
     of the last ``prefill_fn`` call (or the one it was made with,
     ``Sharder.serving``)."""
@@ -38,12 +40,27 @@ def make_serve_fns(cfg: ArchConfig, sharder=None, *,
     def prefill_fn(params, tokens, prefix=None, *, max_len: int):
         shard[0] = shard[0].serving(max_len)
         return T.prefill(params, cfg, tokens, prefix, max_len=max_len,
-                         long_context=long_context, shard=shard[0])
+                         long_context=long_context, shard=shard[0],
+                         last_only=last_only)
 
     def decode_fn(params, token, caches):
         return T.decode_step(params, cfg, token, caches, shard=shard[0])
 
     return prefill_fn, decode_fn
+
+
+def serve_step_spec(cfg: ArchConfig, shape: InputShape,
+                    long_context: bool = False):
+    """(token, caches) of one decode step with a ``shape.seq_len``-deep
+    cache, for the dry-run: the (B, 1) int32 token's ``TensorSpec`` and
+    the caches in the compute dtype as meta tensors (shapes and dtypes
+    alone)."""
+    b = shape.global_batch
+    token = TensorSpec((b, 1), torch.int32)
+    caches = T.init_caches(cfg, b, shape.seq_len,
+                           dtype=T.compute_dtype(cfg), device="meta",
+                           long_context=long_context)
+    return token, caches
 
 
 @dataclasses.dataclass

@@ -122,6 +122,7 @@ class ShardingRules:
     # model axis (the fix for GQA archs whose head counts do not divide
     # the model axis)
     seq_shard_cache: bool | str = False
+    fsdp: bool = True                  # shard embed dim over data axes
 
     # ---- parameters ----------------------------------------------------
 
@@ -130,7 +131,7 @@ class ShardingRules:
             if dim % mesh.shape[self.model_axis] == 0:
                 return self.model_axis
             return None
-        if logical in _FSDP_AXES:
+        if logical in _FSDP_AXES and self.fsdp:
             n = math.prod(mesh.shape[a] for a in self.data_axes)
             if dim % n == 0:
                 return self.data_axes if len(self.data_axes) > 1 \
@@ -430,6 +431,17 @@ class Sharder(NoShard):
         of ``kind``'s layout of ``shape`` (a per-head parameter in the
         mixing phase)."""
         return self.move(t, (None,), (self.spec(kind, shape)[dim],))
+
+    def last_position(self, x):
+        """The final global position of ``x`` (B_l, S_l, ...) of the token
+        layout, on every rank of its batch block: where the sequence is
+        split over the model axis, each rank's last position gathered
+        over it (ledger op ``last_gather``) and the last rank's kept."""
+        if not self.seq_sharded():
+            return x[:, -1:]
+        m = self.rules.model_axis
+        return C.all_gather(x[:, -1:], self.mesh.group_of(m), axis=m,
+                            op="last_gather", dim=1)[:, -1:]
 
     def unshard(self, x):
         """A token-layout tensor (B_l, S_l, ...) gathered whole."""

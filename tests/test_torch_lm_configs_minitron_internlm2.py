@@ -1,0 +1,16 @@
+"""The LM configs this port added, at reduced(), against the JAX package
+(Minitron-8B and InternLM2-1.8B: the weight bridge, forward, loss,
+prefill and greedy generation); the tests of
+``tests/torch_lm_configs_cases.py``."""
+import torch_lm_configs_cases as h
+from torch_lm_configs_cases import one_torch_thread  # noqa: F401
+from torch_split import take_tests
+
+ARCHS = ('minitron-8b', 'internlm2-1.8b')
+ref = h.ref_fixture(ARCHS)
+globals().update(take_tests(
+    h,
+    'test_weight_bridge_round_trip',
+    'test_forward_aux_and_loss',
+    'test_prefill_logits_and_caches',
+    'test_generate_greedy'))

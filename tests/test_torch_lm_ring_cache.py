@@ -6,7 +6,7 @@ version), the ring caches stacked over repeats with ``window`` shared, the
 caches and each teacher-forced decode step's logits equal to the
 reference's, the ring equal to the dense cache inside the window, and
 ``init_caches(long_context=True)``.  Tolerances as in
-``test_torch_lm_configs.py``."""
+``test_torch_lm_configs_*.py``."""
 import dataclasses
 
 import jax
@@ -23,7 +23,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.nn import attention as TA
 from repro_torch.params import from_numpy_tree
 from repro_torch.serve import generate
-from test_torch_lm_configs import (KERNEL_IMPLS, _flat_caches, _held,
+from torch_lm_configs_cases import (KERNEL_IMPLS, _flat_caches, _held,
                                    _held_caches, _np_values,
                                    one_torch_thread)  # noqa: F401
 

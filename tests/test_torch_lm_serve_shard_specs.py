@@ -4,7 +4,7 @@ processes: ``act_spec`` of the two cache kinds (and its ``_fit_spec``) and
 ``init_caches`` under ``jax.eval_shape``, stacked over a group's repeats
 where the group repeats, at ``long_context`` too (gemma2's ring caches)
 — under the three strategies and the three ``seq_shard_cache`` values, on
-the meshes of ``tests/test_torch_lm_shard_specs.py``: the port's on
+the meshes of ``tests/torch_lm_shard_specs_cases.py``: the port's on
 stand-in meshes, the reference's on ``AbstractMesh`` (its
 ``NamedSharding`` needs a mesh, no devices).  The ``dp`` + ``"model"``
 quirk of the latent cache (``act_spec`` lays its sequence over the model

@@ -1,0 +1,12 @@
+"""The sharded LM forward and gradients at four gloo ranks against the JAX
+package's unsharded oracle, on (data 1, model 4) and (data 2, model 2)
+(heads that divide no axis: ring attention, the plain sharder's gather,
+and the mixing and the ring turned off); the cases of
+``tests/torch_lm_shard_cases.py``, one spawn of four ranks."""
+import torch_lm_shard_cases as h
+from torch_lm_shard_cases import results  # noqa: F401
+from torch_split import take_tests
+
+NAMES = ('ring-attn', 'plain-ring', 'no-a2a-mixing', 'no-ring')
+globals().update(take_tests(h, "test_sharded_loss_and_grads_match_reference",
+                            case=NAMES, mesh_name=tuple(h.MESHES)))

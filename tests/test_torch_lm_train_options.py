@@ -29,7 +29,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.params import (from_numpy_tree, to_numpy_tree, tree_leaves,
                                 tree_map, tree_unflatten)
 from repro_torch.train import init_train_state, make_loss_fn, make_train_step
-from test_torch_lm_configs import one_torch_thread  # noqa: F401
+from torch_lm_configs_cases import one_torch_thread  # noqa: F401
 
 ARCHS = jconfigs.list_archs()
 SEQ = 16
