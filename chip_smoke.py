@@ -24,8 +24,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               ``aggregate_plan`` against the plain version on its arrays;
               each case held to max|Δ| ≤ 1e-5·(1 + max|ref|);
 4. flash    — the flash-attention kernels against their plain version:
-              every bf16 case through the tensor-core kernel and every fp32
-              case through the FMA kernel (launch counts per variant), GQA
+              every bf16 case through the bf16 kernel and every fp32 case
+              through the three-pass TF32 kernel (launch counts per
+              variant), GQA
               groups g ∈ {1, 2, 4, 8}, causal and not, window, softcap,
               ragged Sq ≠ Skv, hd ∈ {36, 64, 80, 128, 192, 256}, hdv ≠ hd,
               gemma2's local layer cut to 4 heads (hd 256, g=2, window
@@ -34,7 +35,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               over 2 304 tokens, each in both dtypes; fp32
               held to 1e-5·(1 + max|ref|), bf16 per element to |Δ| ≤
               2^-7·|ref| + 1e-3 (both round the same fp32 math to bf16
-              once, so they differ by at most one bf16 ulp);
+              once, so they differ by at most one bf16 ulp); a NaN (the
+              card's canonical bits) planted in one query row and in one
+              key row of an fp32 case appears exactly where the plain
+              version puts NaN, and the rest is held as the other cases;
 5. ssd      — the SSD intra-chunk kernel against its plain version:
               Q ∈ {16, 64, 96, 256, 1024}, P ∈ {20, 30, 32, 64}, N ∈ {32,
               38, 40, 64, 128}, H > 1 with B/C shared, the path's widths
@@ -204,13 +208,20 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               and its bound: the
               bf16 operations 2·(hd + hdv) per visible pair per head at
               the tensor-core peak against q, k, v and the output once:
-              Zamba2's (2, 32, 2048, 80) (also held in fp32,
-              1e-5·(1 + max|ref|)), gemma2's global (1, 16, 8192, 256)
+              Zamba2's (2, 32, 2048, 80), gemma2's global (1, 16, 8192, 256)
               g=2 softcap 50, its local layer (the same, window 4096),
               DeepSeek's MLA (2, 16, 2048, 192/128), InternVL2-1B's (2,
               14, 2304, 64) g=7 and MusicGen-large's (2, 32, 2112, 64)
               (their prefills: 256 and 64 prefix positions before 2048
-              tokens); one SSD launch at
+              tokens); the fp32 kernel (three TF32 passes) at the shapes
+              the fp32 cross-checks launch it at — Zamba2's (1, 32, 512,
+              80), gemma2's global and local layers (1, 16, 4608, 256)
+              g=2 softcap 50 (window 4096), MLA's (1, 16, 512, 192/128) —
+              and at Zamba2's (2, 32, 2048, 80), held in fp32 and timed
+              beside fp32 SDPA or, with a softcap, the compiled
+              ``flex_attention`` in fp32, its bound three TF32 passes at
+              the tensor-core peak (the fp32 CUDA-core figure beside);
+              one SSD launch at
               Zamba2's (2, 2048, 80, 64) N=64 and at Mamba2-1.3B's (2,
               2048, 64, 64) N=128, Q=256, device time
               (``torch.profiler``) with its CUDA-event time beside, its
@@ -401,8 +412,12 @@ The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the flash kernel at Zamba2's shape,
 gemma2's global and local layers', MLA's, InternVL2-1B's and
-MusicGen-large's, the fp32 (FMA) flash kernel at the fp32 cross-checks'
-(1, 32, 512, 80) with SDPA fp32 as its yardstick, the SSD kernel at
+MusicGen-large's, the fp32 flash kernel (three TF32 passes) at the fp32
+cross-checks' (1, 32, 512, 80), at Zamba2's (2, 32, 2048, 80), at gemma2's
+global and local layers' (1, 16, 4608, 256) and at MLA's (1, 16, 512,
+192/128), with fp32 SDPA or ``flex_attention`` as its yardstick and the
+fp32 launches of phases 18 and 25 (the first row all of them, by case
+beside; the others their case's), the SSD kernel at
 Zamba2's and Mamba2-1.3B's, flash and SSD again on phase 28's sharded
 scoring path, flash on phase 29's sharded prefill, and flash and SSD on
 phase 30's megatron scoring and serving, each with its
@@ -1958,6 +1973,7 @@ FLASH_CASES = (
     (2, 4, 4, 256, 256, 80, 80, torch.bfloat16, True, None, 20.0),
     (1, 4, 2, 192, 192, 128, 64, torch.bfloat16, True, None, None),
     (1, 4, 4, 130, 70, 64, 64, torch.bfloat16, True, None, None),
+    (1, 4, 2, 100, 100, 36, 20, torch.float32, True, None, None),
     (1, 4, 2, 100, 100, 36, 20, torch.bfloat16, True, None, None),
     (1, 8, 1, 257, 257, 256, 256, torch.bfloat16, True, None, None),
     # gemma2's local layers (hd 256, GQA 2, window 4096, softcap 50) past
@@ -2013,7 +2029,49 @@ def flash_cases(dev) -> float:
         want = flash_ref(q, k, v, **kw)
         errs.append(_held(name, got, want) if dt == torch.float32
                     else _held_bf16(name, got, want))
+    for where in ("q", "k"):
+        errs.append(_flash_nan_case(where, gen, dev))
     return max(errs)
+
+
+def _flash_nan_case(where: str, gen, dev) -> float:
+    """A NaN with the card's canonical bits (0x7fffffff) in one element of
+    query row i of one head, or of key row j of one kv head, in an fp32
+    causal GQA case with a window: the kernel's output must be NaN exactly
+    where the plain version's is — row i of that query head; the rows
+    that see key j (j ≤ i < j + window) of the heads reading that kv head
+    — and is held as the other cases elsewhere.  Returns max|Δ| over the
+    finite outputs."""
+    from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
+    b, hq, hkv, s, hd = 2, 8, 2, 300, 80
+    kw = dict(causal=True, window=200, softcap=None)
+    q = torch.randn(b, hq, s, hd, generator=gen, device=dev)
+    k = torch.randn(b, hkv, s, hd, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, hd, generator=gen, device=dev)
+    nan = torch.tensor([0x7fffffff], dtype=torch.int32,
+                       device=dev).view(torch.float32)
+    bi, row, col = 1, 150, 17
+    if where == "q":
+        q[bi, 5, row, col] = nan[0]
+        must = (bi, 5, row)
+    else:
+        k[bi, 1, row, col] = nan[0]
+        must = (bi, slice(4, 8), slice(row, row + kw["window"]))
+    got = flash_attention_bhsd(q, k, v, **kw)
+    want = flash_ref(q, k, v, **kw)
+    name = f"fp32 NaN in {where} row {row}"
+    if not want[must].isnan().all():
+        raise AssertionError(f"{name}: the plain version is finite where "
+                             f"the NaN should reach")
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(
+            f"{name}: NaN at {int(got.isnan().sum())} outputs, the plain "
+            f"version at {int(want.isnan().sum())}, "
+            f"{int((got.isnan() != want.isnan()).sum())} differ")
+    print(f"  {name}: NaN at the {int(got.isnan().sum())} outputs the plain "
+          f"version puts it, nowhere else")
+    fin = ~want.isnan()
+    return _held(f"{name}: the finite outputs", got[fin], want[fin])
 
 
 def _ssd_bound(b, s, h, p, n, q) -> dict:
@@ -2418,8 +2476,9 @@ def cross_check_fp32(cfg, params, prompt, targets, dev, *,
     ``LM_XCHECK_STEPS`` greedy steps at each of ``long_contexts`` — prefill
     logits within 1e-4·max|ref|, identical tokens — and the scoring loss
     within 1e-5 relative.  The kernel path must launch the kernels (fp32:
-    the FMA flash kernel) and the plain one none.  Returns the largest
-    logits max|Δ| and the FMA flash launches the kernel path counted."""
+    the three-pass TF32 flash kernel) and the plain one none.  Returns the
+    largest logits max|Δ|, the fp32 flash launches the kernel path counted
+    and those launches by case (``_flash_case_counts``)."""
     import dataclasses
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd as fl
@@ -2438,10 +2497,11 @@ def cross_check_fp32(cfg, params, prompt, targets, dev, *,
         with torch.no_grad():
             logits, _ = T.forward(params, cfg32, tokens)
             loss = T.lm_loss(logits, targets).item()
-        return res, loss, (fl.launches_by_variant["fma_fp32"],
+        return res, loss, (fl.launches_by_variant["mma_tf32x3"],
                            ssd_intra_chunk.launches)
 
     res_k, loss_k, ran_k = run()
+    by_case = _flash_case_counts()
     with _plain_lm_kernels():
         res_p, loss_p, ran_p = run()
     n_attn, n_mamba = _attn_layers(cfg), cfg.layer_kinds().count("mamba")
@@ -2466,7 +2526,7 @@ def cross_check_fp32(cfg, params, prompt, targets, dev, *,
     if rel > 1e-5:
         raise AssertionError(f"{cfg.name} fp32 scoring loss differs by "
                              f"{rel:.2e}")
-    return err, ran_k[0]
+    return err, ran_k[0], by_case
 
 
 def _flash_bound(b, hq, hkv, s, hd, hdv, window) -> dict:
@@ -2514,33 +2574,25 @@ def _flex_attention(q, k, v, *, window, softcap, scale):
 
 
 def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
-               softcap=None, scale=None, fp32_hold=False) -> dict:
+               softcap=None, scale=None) -> dict:
     """One bf16 flash launch at a path's shape: held against the plain
-    version (and in fp32 with ``fp32_hold``), timed (CUDA events, two
-    runs) beside the plain version and the library yardstick on the same
+    version, timed (CUDA events, two runs) beside the plain version and the library yardstick on the same
     tensors — ``scaled_dot_product_attention``, or with a softcap or a
     window the compiled ``flex_attention`` — held for agreement to
     1e-2·(1 + max|ref|) and timed, never on the path."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
-    q32 = torch.randn(b, hq, s, hd, generator=gen, device=dev)
-    k32 = torch.randn(b, hkv, s, hd, generator=gen, device=dev)
-    v32 = torch.randn(b, hkv, s, hdv, generator=gen, device=dev)
+    q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
+               .to(torch.bfloat16)
+               for h, d in ((hq, hd), (hkv, hd), (hkv, hdv)))
     kw = dict(window=window, softcap=softcap, scale=scale)
     name = (f"flash ({b},{hq},{s},{hd}{f'/{hdv}' if hdv != hd else ''}) "
             f"g={hq // hkv}{f' win={window}' if window else ''}"
             f"{f' cap={softcap:g}' if softcap else ''}")
-    err = 0.0
-    if fp32_hold:
-        err = _held(f"{name} fp32 causal vs plain",
-                    flash_attention_bhsd(q32, k32, v32, **kw),
-                    flash_ref(q32, k32, v32, **kw))
-    q, k, v = (t.to(torch.bfloat16) for t in (q32, k32, v32))
-    del q32, k32, v32
     got = flash_attention_bhsd(q, k, v, **kw)
-    err = max(err, _held_bf16(f"{name} bf16 causal vs plain", got,
-                              flash_ref(q, k, v, **kw)))
+    err = _held_bf16(f"{name} bf16 causal vs plain", got,
+                     flash_ref(q, k, v, **kw))
     if softcap is None and window is None:
         library, lib_name = (lambda: F.scaled_dot_product_attention(
             q, k, v, is_causal=True, scale=scale, enable_gqa=True)), "SDPA"
@@ -2575,44 +2627,107 @@ def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
     return row
 
 
-def _flash_fp32_row(gen, dev, b, hq, hkv, s, hd) -> dict:
-    """The fp32 flash kernel (``flash_attention.cu``, FMA) at the shape the
-    fp32 cross-checks launch it at (phase 18: Zamba2's (1, 32, 512, 80)),
-    held against the plain version, timed (CUDA events, two runs) beside
-    the plain version and fp32 SDPA; its bound from ``_flash_bound``'s
-    FLOP count at the fp32 non-tensor peak and its fp32 bytes."""
+def _flash_tf32x3_bound(b, hq, hkv, s, hd, hdv, window) -> dict:
+    """Least time for one fp32 causal flash call: q, k, v read once and the
+    output written once in fp32, against 2·(hd + hd_v) operations per
+    visible (query, key) pair per query head as three TF32 passes at the
+    tensor-core peak, the kernel's arithmetic; the time of the same
+    operations at the fp32 CUDA-core peak is returned beside it."""
+    bd = _flash_bound(b, hq, hkv, s, hd, hdv, window)
+    nbytes = 2 * bd["bytes"]                  # fp32: 4 bytes an element
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tf32 = 3 * bd["flops"] / PEAK_TF32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_tf32),
+            "bound_by": "bytes" if t_bytes >= t_tf32 else "operations",
+            "bytes": nbytes, "flops": bd["flops"], "pairs": bd["pairs"],
+            "t_bytes_ms": t_bytes, "t_tf32x3_ms": t_tf32,
+            "bound_fp32_ms": bd["bound_fp32_ms"]}
+
+
+# the fp32 flash rows of phase 19: key, (b, hq, hkv, s, hd, hdv), window,
+# softcap, scale — the shapes the fp32 cross-checks launch the kernel at
+# (phase 18's Zamba2, phase 25's gemma2 global and local layers and
+# DeepSeek's MLA) and Zamba2's at its full prefill
+FLASH_FP32_ROWS = (
+    ("flash_fp32", (1, 32, 32, 512, 80, 80), None, None, None),
+    ("flash_fp32_zamba2", (2, 32, 32, 2048, 80, 80), None, None, None),
+    ("flash_fp32_gemma2_global", (1, 16, 8, 4608, 256, 256), None, 50.0,
+     None),
+    ("flash_fp32_gemma2_local", (1, 16, 8, 4608, 256, 256), 4096, 50.0,
+     None),
+    ("flash_fp32_mla", (1, 16, 16, 512, 192, 128), None, None, 192 ** -0.5),
+)
+
+
+def _flash_fp32_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
+                    softcap=None, scale=None, library=True) -> dict:
+    """The fp32 flash kernel (``flash_attention_tf32x3.cu``) at one shape,
+    causal, held against the plain version at 1e-5·(1 + max|ref|), timed
+    (CUDA events, two runs) beside the plain version and, unless
+    ``library`` is False, the library yardstick in fp32 on the same
+    tensors — SDPA, or with a softcap or a window the compiled
+    ``flex_attention`` — held for agreement at the same tolerance
+    (``flex_attention`` at 1e-2·(1 + max|ref|), as in the bf16 rows); its
+    bound from ``_flash_tf32x3_bound``."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
-    q, k, v = (torch.randn(b, h, s, hd, generator=gen, device=dev)
-               for h in (hq, hkv, hkv))
-    name = f"flash fp32 ({b},{hq},{s},{hd}) g={hq // hkv}"
-    got = flash_attention_bhsd(q, k, v)
-    err = _held(f"{name} causal vs plain", got, flash_ref(q, k, v))
-    lib_err = _held(f"  SDPA fp32 vs kernel", F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), got, KERNEL_TOL)
-    bd = _flash_bound(b, hq, hkv, s, hd, hd, None)
-    nbytes = 2 * bd["bytes"]                  # fp32: 4 bytes an element
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = bd["bound_fp32_ms"]
-    k_ms = _time_ms(lambda: flash_attention_bhsd(q, k, v), 20)
-    p_ms = _time_ms(lambda: flash_ref(q, k, v), 5)
-    l_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
-    k_ms2 = _time_ms(lambda: flash_attention_bhsd(q, k, v), 20)
-    row = dict(shape=[b, hq, hkv, s, hd, hd], ms=min(k_ms, k_ms2),
-               ms_runs=[k_ms, k_ms2], plain_ms=p_ms, library_ms=l_ms,
-               library="SDPA fp32", max_abs_err=err, library_err=lib_err,
-               bound_ms=max(t_bytes, t_ops),
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
-               bytes=nbytes, flops=bd["flops"], t_bytes_ms=t_bytes)
+    q = torch.randn(b, hq, s, hd, generator=gen, device=dev)
+    k = torch.randn(b, hkv, s, hd, generator=gen, device=dev)
+    v = torch.randn(b, hkv, s, hdv, generator=gen, device=dev)
+    kw = dict(window=window, softcap=softcap, scale=scale)
+    name = (f"flash fp32 ({b},{hq},{s},{hd}{f'/{hdv}' if hdv != hd else ''})"
+            f" g={hq // hkv}{f' win={window}' if window else ''}"
+            f"{f' cap={softcap:g}' if softcap else ''}")
+    got = flash_attention_bhsd(q, k, v, **kw)
+    err = _held(f"{name} causal vs plain", got, flash_ref(q, k, v, **kw))
+    lib = lib_name = lib_err = l_ms = None
+    if library:
+        if softcap is None and window is None:
+            lib_name = "SDPA fp32"
+            lib = (lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, scale=scale, enable_gqa=True))
+        else:
+            lib_name = "flex_attention fp32"
+            lib = _flex_attention(q, k, v, window=window, softcap=softcap,
+                                  scale=scale)
+        # SDPA's fp32 kernels are held as the kernel is; the compiled
+        # flex_attention only for agreement, as in the bf16 rows (its Triton
+        # dots may run in TF32)
+        lib_err = _held(f"  {lib_name} vs kernel", lib(), got,
+                        KERNEL_TOL if softcap is None and window is None
+                        else SDPA_TOL)
+    del got
+    bd = _flash_tf32x3_bound(b, hq, hkv, s, hd, hdv, window)
+    iters = 20 if bd["flops"] < 1e10 else 5
+    k_ms = _time_ms(lambda: flash_attention_bhsd(q, k, v, **kw), iters)
+    p_ms = _time_ms(lambda: flash_ref(q, k, v, **kw), 3)
+    if lib:
+        l_ms = _time_ms(lib, iters)
+    k_ms2 = _time_ms(lambda: flash_attention_bhsd(q, k, v, **kw), iters)
+    row = dict(shape=[b, hq, hkv, s, hd, hdv], window=window,
+               softcap=softcap, ms=min(k_ms, k_ms2), ms_runs=[k_ms, k_ms2],
+               plain_ms=p_ms, library_ms=l_ms, library=lib_name,
+               max_abs_err=err, library_err=lib_err, **bd)
+    lib_txt = f"{lib_name} {l_ms:.4f} ms" if lib else "no library timed"
     print(f"  {name}: kernel {k_ms:.4f} / {k_ms2:.4f} ms, plain "
-          f"{p_ms:.4f} ms, SDPA fp32 {l_ms:.4f} ms; bound "
-          f"{row['bound_ms']:.4f} ms by {row['bound_by']} "
-          f"({bd['flops'] / 1e9:.3f} GFLOP at the fp32 non-tensor peak "
-          f"{PEAK_FP32_FLOP_PER_S / 1e12:.0f} TFLOP/s, {t_ops:.4f} ms; "
-          f"{nbytes / 1e6:.1f} MB, {t_bytes:.4f} ms)")
+          f"{p_ms:.4f} ms, {lib_txt}; bound {bd['bound_ms']:.4f} ms by "
+          f"{bd['bound_by']} ({bd['flops'] / 1e9:.3f} GFLOP: three TF32 "
+          f"passes at the tensor-core peak {bd['t_tf32x3_ms']:.4f} ms, at "
+          f"the fp32 CUDA-core peak {bd['bound_fp32_ms']:.4f} ms; "
+          f"{bd['bytes'] / 1e6:.1f} MB, {bd['t_bytes_ms']:.4f} ms)")
     return row
+
+
+def flash_fp32_timing(gen, dev, *, library=True) -> dict:
+    """Phase 19's fp32 flash rows (``FLASH_FP32_ROWS``)."""
+    rows = {}
+    for key, shape, window, softcap, scale in FLASH_FP32_ROWS:
+        rows[key] = _flash_fp32_row(gen, dev, *shape, window=window,
+                                    softcap=softcap, scale=scale,
+                                    library=library)
+        torch.cuda.empty_cache()
+    return rows
 
 
 def _ssd_row(gen, dev, bsz, s, h, p, n, qc) -> dict:
@@ -2653,11 +2768,11 @@ def lm_timing(dev):
     (2, 32, 2048, 80), gemma2's global (1, 16, 8192, 256) softcap 50 and
     local (the same, window 4096) layers, DeepSeek's MLA (2, 16, 2048,
     192/128), InternVL2's (2, 14, 2304, 64) g=7 and MusicGen's (2, 32,
-    2112, 64) — and one SSD launch at Zamba2's (2, 2048, 80, 64) N=64 and
-    Mamba2-1.3B's (2, 2048, 64, 64) N=128."""
+    2112, 64) — the fp32 flash rows (``FLASH_FP32_ROWS``) and one SSD
+    launch at Zamba2's (2, 2048, 80, 64) N=64 and Mamba2-1.3B's (2, 2048,
+    64, 64) N=128."""
     gen = torch.Generator(device=dev).manual_seed(4)
-    rows = {"flash": _flash_row(gen, dev, 2, 32, 32, 2048, 80, 80,
-                                fp32_hold=True)}
+    rows = {"flash": _flash_row(gen, dev, 2, 32, 32, 2048, 80, 80)}
     for key, win in (("flash_gemma2_global", None),
                      ("flash_gemma2_local", 4096)):
         rows[key] = _flash_row(gen, dev, 1, 16, 8, 8192, 256, 256,
@@ -2668,7 +2783,7 @@ def lm_timing(dev):
     # the modality configs' prefills: 256 + 2048 and 64 + 2048 positions
     rows["flash_internvl2"] = _flash_row(gen, dev, 2, 14, 2, 2304, 64, 64)
     rows["flash_musicgen"] = _flash_row(gen, dev, 2, 32, 32, 2112, 64, 64)
-    rows["flash_fp32"] = _flash_fp32_row(gen, dev, 1, 32, 32, 512, 80)
+    rows.update(flash_fp32_timing(gen, dev))
     rows["ssd"] = _ssd_row(gen, dev, 2, 2048, 80, 64, 64, 256)
     rows["ssd_n128"] = _ssd_row(gen, dev, 2, 2048, 64, 64, 128, 256)
     return rows
@@ -2780,23 +2895,26 @@ def lm_cross_checks(dev) -> dict:
     """Phase 25: the fp32 kernels-vs-plain cross-check (phase 18's) on the
     new configs, under deterministic algorithms (MoE's ``index_add_`` and
     ``index_put_`` then sum in a fixed order).  Returns each config's
-    logits max|Δ| and the FMA flash launches counted."""
+    logits max|Δ|, the fp32 flash launches counted and those launches by
+    case."""
     from repro_torch.data import SyntheticLM
-    out, launches = {}, 0
+    out, launches, by_case = {}, 0, {}
     with _deterministic("phase 25"):
         for arch, over, s, lcs in LM_XCHECKS:
             cfg, params, _ = _lm_model(arch, dev, **over)
             batch = next(SyntheticLM(cfg.vocab_size, seed=1).batches(1, s))
             torch.cuda.reset_peak_memory_stats()
-            out[cfg.name], n = cross_check_fp32(
+            out[cfg.name], n, cases = cross_check_fp32(
                 cfg, params, batch["tokens"], batch["targets"], dev,
                 long_contexts=lcs)
             launches += n
+            for key, c in cases.items():
+                by_case[key] = by_case.get(key, 0) + c
             print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
                   f" GiB")
             del params
             _lm_free()
-    return out, launches
+    return out, launches, by_case
 
 
 # ---------------------------------------------------------------------------
@@ -4595,6 +4713,22 @@ def _flash_paths(lm_rows, gemma_info, deepseek_info, mm_info):
                      ("flash_musicgen", "musicgen-large", mg)))
 
 
+def _flash_fp32_entry(row, path, launches, case_err) -> dict:
+    """The ``kernels`` line's entry of one fp32 flash shape."""
+    return {"name": "flash_attention_bhsd", "route": "cuda",
+            "source": "src/repro_torch/kernels/flash_attn/csrc/"
+                      "flash_attention_tf32x3.cu",
+            "replaces": "src/repro/kernels/flash_attn/flash.py:105",
+            "held_against": "ref.flash_ref", "variant": "mma_tf32x3",
+            "shape": row["shape"], "window": row["window"],
+            "softcap": row["softcap"], "path": path, "launches": launches,
+            "max_abs_err": max(case_err, row["max_abs_err"]),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "bound_fp32_ms", "library_ms",
+                                   "library")},
+            "ms_by": "events"}
+
+
 def _flash_entry(row, path, launches, case_err) -> dict:
     """The ``kernels`` line's entry of one flash shape."""
     return {"name": "flash_attention_bhsd", "route": "cuda",
@@ -4691,7 +4825,7 @@ def main() -> int:
     print("[16/31] LM main path, serving: Zamba2-2.7B generate")
     cfg, params, batch, serve_info, score_info = serve(dev)
     print("[18/31] fp32 cross-check at full width, kernels vs plain")
-    fp32_err, fp32_launches = cross_check_fp32(
+    fp32_err, fp32_launches, fp32_cases = cross_check_fp32(
         cfg, params, batch["tokens"][:1, :512], batch["targets"][:1, :512],
         dev)
     del params
@@ -4717,7 +4851,9 @@ def main() -> int:
     print("[24/31] mamba2-1.3b at full width and depth: scoring, generate")
     mamba_info = mamba2(dev)
     print("[25/31] fp32 cross-checks of the new configs, kernels vs plain")
-    xcheck_errs, xcheck_launches = lm_cross_checks(dev)
+    xcheck_errs, xcheck_launches, xcheck_cases = lm_cross_checks(dev)
+    for key, n in xcheck_cases.items():
+        fp32_cases[key] = fp32_cases.get(key, 0) + n
     print("[26/31] InternVL2-1B and MusicGen-large at full width and depth: "
           "generate 2 × 2048 behind the prefix, scoring")
     mm_info = multimodal(dev)
@@ -4846,18 +4982,23 @@ def main() -> int:
         **{k: lm_rows["ssd_n128"][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "event_ms")}, "ms_by": "profiler"}, {
-        "name": "flash_attention_bhsd", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attn/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attn/flash.py:105",
-        "held_against": "ref.flash_ref", "variant": "fma_fp32",
-        "shape": lm_rows["flash_fp32"]["shape"],
-        "path": "fp32 cross-checks (phases 18, 25)",
-        "launches": fp32_launches + xcheck_launches,
-        "max_abs_err": max(flash_err, lm_rows["flash_fp32"]["max_abs_err"]),
-        **{k: lm_rows["flash_fp32"][k] for k in (
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "library": "SDPA fp32", "ms_by": "events"}, {
+        **_flash_fp32_entry(lm_rows["flash_fp32"],
+                            "fp32 cross-checks (phases 18, 25)",
+                            fp32_launches + xcheck_launches, flash_err),
+        "launches_by_case": fp32_cases}, *[
+        _flash_fp32_entry(lm_rows[key], path, fp32_cases.get(
+            _flash_case(*[lm_rows[key]["shape"][i] for i in (4, 5)],
+                        lm_rows[key]["window"], lm_rows[key]["softcap"],
+                        "mma_tf32x3"), 0), flash_err)
+        for key, path in (
+            ("flash_fp32_zamba2", "fp32 cross-checks (phases 18, 25), "
+             "Zamba2's case at its full prefill's shape"),
+            ("flash_fp32_gemma2_global", "fp32 cross-checks (phase 25), "
+             "gemma2-9b global layers"),
+            ("flash_fp32_gemma2_local", "fp32 cross-checks (phase 25), "
+             "gemma2-9b local layers"),
+            ("flash_fp32_mla", "fp32 cross-checks (phase 25), "
+             "deepseek-v2-lite-16b"))], {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/"
                   "flash_attention_mma.cu",

@@ -3,8 +3,9 @@
 //
 // Replaces the TPU kernel repro/kernels/flash_attn/flash.py::
 // flash_attention_bhsd (Pallas body `_kernel`) for bf16 inputs; fp32 inputs
-// go to flash_attention.cu, whose fp32 products the tensor cores cannot
-// give.  It computes the same function on head-major layouts:
+// go to flash_attention_tf32x3.cu, which gives fp32 products on the tensor
+// cores as three TF32 passes.  It computes the same function on head-major
+// layouts:
 //
 //     q (B, Hq, Sq, hd), k (B, Hkv, Skv, hd), v (B, Hkv, Skv, hdv)
 //     s = scale * (q . k), then tanh softcap, then the mask

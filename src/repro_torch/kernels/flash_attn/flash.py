@@ -2,12 +2,13 @@
 
 Two kernels replace the TPU kernel
 ``repro/kernels/flash_attn/flash.py::flash_attention_bhsd``, one per input
-type: bf16 (every launch of the model paths) runs on the tensor cores
-(``csrc/flash_attention_mma.cu``, variant ``"mma_bf16"``), fp32 on the CUDA
-cores (``csrc/flash_attention.cu``, variant ``"fma_fp32"``), since neither
-bf16 nor TF32 products hold fp32's 1e-5.  Their sources say how.  Both are
-compiled for ``sm_90a`` on first use with the port's other kernels
-(:mod:`..build`) and bound with ``ctypes``.
+type, both on the tensor cores: bf16 (every launch of the model paths) in
+``csrc/flash_attention_mma.cu`` (variant ``"mma_bf16"``), fp32 in
+``csrc/flash_attention_tf32x3.cu`` (variant ``"mma_tf32x3"``), whose
+products are three TF32 passes of a hi/lo split of each operand, accurate
+to about 2^-22, where one TF32 pass misses fp32's 1e-5.  Their sources
+say how.  Both are compiled for ``sm_90a`` on first use with the port's
+other kernels (:mod:`..build`) and bound with ``ctypes``.
 
 :func:`flash_attention_bhsd` takes CUDA tensors only and launches the
 kernel of their type or raises; the plain version for CPU tensors is
@@ -25,9 +26,9 @@ import torch
 from ..build import kernel_fn
 
 MAX_HEAD_DIM = 256
-VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "fma_fp32"}
+VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "mma_tf32x3"}
 _ENTRIES = {"mma_bf16": "flash_attention_fwd_bf16_mma",
-            "fma_fp32": "flash_attention_fwd_f32"}
+            "mma_tf32x3": "flash_attention_fwd_f32_tf32x3"}
 
 
 @functools.cache
@@ -73,7 +74,7 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention on the card, head-major layouts.
 
     q: (B, Hq, Sq, hd); k: (B, Hkv, Skv, hd); v: (B, Hkv, Skv, hdv), one
-    dtype (bfloat16: the tensor-core kernel; float32: the FMA kernel),
+    dtype (bfloat16: the bf16 kernel; float32: the three-pass TF32 one),
     contiguous, on one CUDA device, with Hq % Hkv == 0 and hd, hdv ≤ 256.
     Any Sq and Skv: the kernels mask the ragged edges themselves.  Returns
     (B, Hq, Sq, hdv) in q.dtype (fp32 accumulation and softmax).  Adds one

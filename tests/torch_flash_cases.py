@@ -98,10 +98,10 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
 
 
 @pytest.mark.parametrize("dtype,variant", [(torch.bfloat16, "mma_bf16"),
-                                           (torch.float32, "fma_fp32")])
+                                           (torch.float32, "mma_tf32x3")])
 def test_kernel_wrapper_routes_by_dtype(monkeypatch, dtype, variant):
-    """bf16 goes to the tensor-core entry and fp32 to the FMA entry, each
-    counted under its variant; checked by the variant the launch asks
+    """bf16 goes to the bf16 entry and fp32 to the three-pass TF32 entry,
+    each counted under its variant; checked by the variant the launch asks
     ``_kernel`` for (a stand-in, since there is no card here)."""
     from repro_torch.kernels.flash_attn import flash as tf
     asked = []
@@ -113,7 +113,7 @@ def test_kernel_wrapper_routes_by_dtype(monkeypatch, dtype, variant):
     monkeypatch.setattr(tf, "_kernel", fake_kernel)
     monkeypatch.setattr(tf.flash_attention_bhsd, "launches", 0)
     monkeypatch.setattr(tf.flash_attention_bhsd, "launches_by_variant",
-                        {"mma_bf16": 0, "fma_fp32": 0})
+                        {"mma_bf16": 0, "mma_tf32x3": 0})
     monkeypatch.setattr(tf.flash_attention_bhsd, "launches_by_case", {})
     q = torch.zeros(1, 4, 8, 80, dtype=dtype)
     kv = torch.zeros(1, 2, 8, 80, dtype=dtype)
@@ -126,6 +126,6 @@ def test_kernel_wrapper_routes_by_dtype(monkeypatch, dtype, variant):
     assert tf.flash_attention_bhsd.launches == 2
     assert tf.flash_attention_bhsd.launches_by_variant == {
         "mma_bf16": 2 * (variant == "mma_bf16"),
-        "fma_fp32": 2 * (variant == "fma_fp32")}
+        "mma_tf32x3": 2 * (variant == "mma_tf32x3")}
     assert tf.flash_attention_bhsd.launches_by_case == {
         (variant, 80, 64, None, None): 1, (variant, 80, 80, 4, 50.0): 1}

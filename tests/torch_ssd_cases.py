@@ -24,6 +24,9 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ssd as tssd
 from repro_torch.nn import ssm as t_ssm
 from repro_torch.params import from_numpy_tree
+from torch_tf32 import one_pass as _one_pass
+from torch_tf32 import tf32 as _tf32
+from torch_tf32 import three_pass as _three_pass
 
 TOL = 2e-4
 
@@ -136,27 +139,6 @@ def test_kernel_wrapper_takes_cuda_tensors_only():
     args = _t(_mk(1, 16, 2, 8, 8))
     with pytest.raises(ValueError, match="CUDA"):
         tssd.ssd_intra_chunk(*args, chunk=8)
-
-
-def _tf32(t):
-    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
-    from zero: cvt.rna.tf32.f32, as the CUDA kernel rounds its operands.
-    A NaN stays NaN, as in the kernel's hi part (the add alone would carry
-    the mantissa of a NaN such as 0x7fffffff into the sign bit)."""
-    t = t.contiguous()
-    rounded = ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
-    return torch.where(t.isnan(), t, rounded)
-
-
-def _one_pass(a, b):
-    return _tf32(a) @ _tf32(b)
-
-
-def _three_pass(a, b):
-    """The kernel's split: hi = tf32(v), lo = tf32(v − hi), and lo·hi +
-    hi·lo + hi·hi."""
-    ah, bh = _tf32(a), _tf32(b)
-    return _tf32(a - ah) @ bh + ah @ _tf32(b - bh) + ah @ bh
 
 
 def _intra_chunk_with(mm, x, dt, a, b_mat, c_mat, chunk):
