@@ -17,12 +17,34 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               plans, forward and transposed; a skewed plan (one row of
               5 000 nonzeros over 79 warp segments, 500 empty rows, rows
               straddling segments) whose repeat launches must be bitwise
-              equal; the naive path's layer-0 width (d=602) and a plan of
+              equal, in fp32 and with a bf16 h; the naive path's layer-0
+              width (d=602) and a plan of
               the DP path's shape (local rows × local rows + a halo row);
               a stacked plan's padded instance; an empty plan (no
               launch, zeros); and forward + autograd backward through
               ``aggregate_plan`` against the plain version on its arrays;
-              each case held to max|Δ| ≤ 1e-5·(1 + max|ref|);
+              each case held to max|Δ| ≤ 1e-5·(1 + max|ref|).  The
+              one-shot entry points: ``aggregate_pallas`` on a
+              ``block_sparse_dev`` (one launch a call) at bs ∈ {32, 64,
+              128} × d ∈ {8, 41, 128}, n not a multiple of bs, with fp32
+              tiles and tiles rounded through bf16, against the plain
+              version and (fp32 tiles) the dense oracle; a bf16 h at d ∈
+              {41, 128, 602}, held per element to |Δ| ≤ 2^-7·|ref| + 1e-3
+              (both round one fp32 sum once); ``square_plan_dev`` forward
+              and autograd backward (two launches); the refusal of a
+              gradient through a ``BlockSparseDev`` (no launch).  Then
+              the one-shot path at the reference kernel bench's micro
+              shape (``sbm_power_law(n=4096, num_classes=8,
+              feat_dim=128, avg_degree=16, seed=7)``, bs 128, d 128):
+              ``block_sparse_dev``'s derivation timed once; with the
+              counts zeroed just before and read just after, per dtype
+              of h (fp32, bf16) one ``aggregate_pallas`` on the
+              ``BlockSparseDev`` and a forward and backward through the
+              square plan — 3 launches a dtype — held against the plain
+              version, the one-shot product bitwise the plan's forward;
+              each dtype's call timed (device time) beside its CUDA-event
+              time, the plain version, ``torch.sparse.mm`` on torch's CSR
+              of the tiles (bf16 values for a bf16 h) and its bound;
 4. flash    — the flash-attention kernels against their plain version:
               every bf16 case through the bf16 kernel and every fp32 case
               through the three-pass TF32 kernel (launch counts per
@@ -227,7 +249,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               (``torch.profiler``) with its CUDA-event time beside, its
               plain version and its bound: bytes against three TF32
               passes of the needed operations at the tensor-core peak
-              (the fp32 FMA figure printed beside);
+              (the fp32 FMA figure printed beside).  Each flash and SSD
+              row also prints the bytes its kernel's schedule requests
+              (``hbm_bytes_model``) and the rate they imply at the
+              measured time;
 20. single  — the single-device trainer (``gnn/train.py::
               train_full_graph``, no process group) on reddit_like (phase
               6's graph), hidden 128, 2 layers, AdamW lr 1e-2 wd 5e-4: GCN,
@@ -410,7 +435,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
-has one entry per kernel and shape: the flash kernel at Zamba2's shape,
+has one entry per kernel and shape: the SpMM on the GCN paths, the SpMM
+on phase 3's one-shot path with an fp32 h and with a bf16 h (each with
+its dtype's launches, ``launches_by_dtype`` beside), the flash kernel at
+Zamba2's shape,
 gemma2's global and local layers', MLA's, InternVL2-1B's and
 MusicGen-large's, the fp32 flash kernel (three TF32 passes) at the fp32
 cross-checks' (1, 32, 512, 80), at Zamba2's (2, 32, 2048, 80), at gemma2's
@@ -534,10 +562,17 @@ def _arrays(plan_dev, t):
     return [getattr(plan_dev, f + t) for f in ("row_ptr", "col_idx", "vals")]
 
 
-def kernel_cases(dev) -> float:
-    """Phase 3; returns the largest max|Δ| over the cases."""
+def _plain_spmm():
+    """The SpMM entry points with the plain version in place of the kernel
+    (on the card's tensors: no launch)."""
+    from repro_torch.kernels.spmm import ops, spmm_csr_ref
+    return mock.patch.object(ops, "spmm_csr", spmm_csr_ref)
+
+
+def kernel_cases(dev) -> dict:
+    """Phase 3; returns the largest max|Δ| over the cases with an fp32 h
+    and over those with a bf16 h."""
     from repro_torch.graph.format import stack_plans
-    from repro_torch.kernels.spmm import ops
     from repro_torch.kernels.spmm import (aggregate_plan,
                                           block_sparse_plan_dev, spmm_csr,
                                           spmm_csr_ref, spmm_ref)
@@ -571,6 +606,23 @@ def kernel_cases(dev) -> float:
     print(f"  {'skewed case':<44} nnz {nnz}, longest row {int(rows.max())}"
           f", {int((rows == 0).sum())} empty rows; repeat launches "
           f"bitwise equal  ok")
+    # the bf16 launch on the skewed plan: bf16 loads, fp32 sums (the
+    # straddling rows' carried parts too), one rounding; its own generator,
+    # so the fp32 cases' inputs are the ones they always were
+    gen16 = torch.Generator(device=dev).manual_seed(16)
+    bf16_errs = []
+    for d in (41, 200):
+        h = torch.randn(skew.cols_padded, d, generator=gen16,
+                        device=dev).to(torch.bfloat16)
+        got = spmm_csr(*_arrays(skew, ""), h)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"skewed bf16 d={d}: output {got.dtype}")
+        bf16_errs.append(_held_bf16(f"skewed bf16 h d={d} forward", got,
+                               spmm_csr_ref(*_arrays(skew, ""), h)))
+        if not torch.equal(got, spmm_csr(*_arrays(skew, ""), h)):
+            raise AssertionError(f"skewed bf16 d={d}: a second launch "
+                                 f"differs bitwise")
+    print(f"  {'skewed case, bf16 h':<44} repeat launches bitwise equal  ok")
 
     # the naive path's layer-0 width (602 input features: four full
     # 128-column y-tiles and a partial fifth), and the DP path's shape
@@ -604,14 +656,203 @@ def kernel_cases(dev) -> float:
         cot = torch.randn(plan.rows_padded, d, generator=gen, device=dev)
         got = aggregate_plan(plan, h)
         (got_g,) = torch.autograd.grad(got, h, cot)
-        with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
+        with _plain_spmm():
             want = aggregate_plan(plan, h)
             (want_g,) = torch.autograd.grad(want, h, cot)
         errs.append(_held(f"bs={bs} d={d} aggregate_plan forward",
                           got.detach(), want.detach()))
         errs.append(_held(f"bs={bs} d={d} aggregate_plan backward",
                           got_g, want_g))
-    return max(errs)
+    return {"float32": max(errs), "bfloat16": max(bf16_errs)}
+
+
+def _random_bsg(n, bs, deg, seed):
+    """A random GCN-normalized graph with self-loops and its tiles."""
+    from repro_torch.graph.format import block_sparse, build_graph
+    rng = np.random.default_rng(seed)
+    g = build_graph(rng.integers(0, n, n * deg).astype(np.int32),
+                    rng.integers(0, n, n * deg).astype(np.int32), n)
+    return g, block_sparse(g, bs=bs)
+
+
+def oneshot_cases(dev) -> dict:
+    """Phase 3's one-shot cases: ``aggregate_pallas`` on ``block_sparse_dev``
+    (one launch a call) and on ``square_plan_dev`` (two a forward and
+    backward) against the plain version on the same arrays; returns the
+    largest max|Δ| with an fp32 h and with a bf16 h."""
+    from repro_torch.kernels.spmm import (aggregate_pallas, block_sparse_dev,
+                                          spmm_csr, spmm_dense_ref,
+                                          square_plan_dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs, bf16_errs = [], []
+
+    def launched(name, fn, want: int):
+        before = spmm_csr.launches
+        out = fn()
+        if spmm_csr.launches - before != want:
+            raise AssertionError(f"{name}: {spmm_csr.launches - before} "
+                                 f"spmm_csr launches, expected {want}")
+        return out
+
+    for bs in (32, 64, 128):
+        n = 7 * bs + 5
+        g, bsg = _random_bsg(n, bs, 6, seed=bs)
+        dense = torch.from_numpy(g.dense_adjacency()).to(dev)
+        for tiles in (torch.float32, torch.bfloat16):
+            a = block_sparse_dev(bsg, tiles, dev)
+            for d in (8, 41, 128):
+                h = torch.randn(n, d, generator=gen, device=dev)
+                name = (f"one-shot bs={bs} n={n} d={d} "
+                        f"{str(tiles)[6:]} tiles")
+                got = launched(name, lambda: aggregate_pallas(a, h), 1)
+                with _plain_spmm():
+                    errs.append(_held(name, got, aggregate_pallas(a, h)))
+                if tiles == torch.float32:
+                    errs.append(_held("  vs the dense oracle", got,
+                                      spmm_dense_ref(dense, h)))
+
+    g, bsg = _random_bsg(3000, 128, 16, seed=5)
+    a = block_sparse_dev(bsg, device=dev)
+    for d in (41, 128, 602):
+        h = torch.randn(3000, d, generator=gen, device=dev).to(torch.bfloat16)
+        name = f"one-shot bs=128 n=3000 bf16 h d={d}"
+        got = launched(name, lambda: aggregate_pallas(a, h), 1)
+        if got.dtype != torch.bfloat16:
+            raise AssertionError(f"{name}: output {got.dtype}")
+        with _plain_spmm():
+            bf16_errs.append(_held_bf16(name, got, aggregate_pallas(a, h)))
+
+    plan = square_plan_dev(bsg, device=dev)
+    for d in (41, 128):
+        h = torch.randn(3000, d, generator=gen, device=dev,
+                        requires_grad=True)
+        cot = torch.randn(3000, d, generator=gen, device=dev)
+
+        def fwd_bwd():
+            y = aggregate_pallas(plan, h)
+            return y, torch.autograd.grad(y, h, cot)[0]
+
+        got, got_g = launched(f"square plan d={d}", fwd_bwd, 2)
+        with _plain_spmm():
+            want, want_g = fwd_bwd()
+        errs.append(_held(f"square_plan_dev bs=128 n=3000 d={d} forward",
+                          got.detach(), want.detach()))
+        errs.append(_held(f"  backward", got_g, want_g))
+    h = torch.randn(3000, 41, generator=gen, device=dev, requires_grad=True)
+    try:
+        launched("a refused gradient", lambda: aggregate_pallas(a, h), 0)
+    except RuntimeError as e:
+        if "square_plan_dev" not in str(e):
+            raise
+        print(f"  {'BlockSparseDev under grad':<44} refused, no launch  ok")
+    else:
+        raise AssertionError("aggregate_pallas on a BlockSparseDev ran "
+                             "under grad with an h that requires grad")
+    return {"float32": max(errs), "bfloat16": max(bf16_errs)}
+
+
+def oneshot(dev) -> dict:
+    """Phase 3's one-shot path at the reference kernel bench's micro shape
+    (``sbm_power_law(n=4096, num_classes=8, feat_dim=128, avg_degree=16,
+    seed=7)``, bs 128, d 128): ``block_sparse_dev``'s derivation timed
+    once; with the counts zeroed just before and read just after, for fp32
+    and for bf16 h, ``aggregate_pallas`` on the ``BlockSparseDev`` and a
+    forward and backward through ``square_plan_dev`` (3 launches a dtype),
+    held against the plain version, the one-shot product bitwise the
+    plan's forward; then each dtype's call timed (device time, min of two
+    runs of 20) beside its CUDA-event time, the plain version,
+    ``torch.sparse.mm`` on torch's CSR of the tiles (bf16 values for the
+    bf16 h, held to 1e-2·(1 + max|ref|)) and its bound."""
+    from repro_torch.graph import block_sparse, sbm_power_law
+    from repro_torch.kernels.spmm import (aggregate_pallas, block_sparse_dev,
+                                          spmm_csr, square_plan_dev)
+    from repro_torch.kernels.spmm.spmm import reset_launches
+    g = sbm_power_law(n=4096, num_classes=8, feat_dim=128, avg_degree=16,
+                      seed=7).graph
+    bsg = block_sparse(g, bs=128)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a = block_sparse_dev(bsg, device=dev)
+    torch.cuda.synchronize()
+    derive_ms = (time.perf_counter() - t) * 1e3
+    plan = square_plan_dev(bsg, device=dev)
+    nnz = int(a.row_ptr[-1])
+    rng = np.random.default_rng(0)
+    hs = {dt: torch.from_numpy(rng.normal(size=(g.n, 128)).astype(
+        np.float32)).to(dev).to(dt) for dt in (torch.float32, torch.bfloat16)}
+    gen = torch.Generator(device=dev).manual_seed(5)
+    cots = {dt: torch.randn(g.n, 128, generator=gen, device=dev).to(dt)
+            for dt in hs}
+
+    def path(h, cot):
+        hg = h.detach().requires_grad_()
+        yp = aggregate_pallas(plan, hg)
+        return aggregate_pallas(a, h), yp.detach(), \
+            torch.autograd.grad(yp, hg, cot)[0]
+
+    reset_launches()
+    outs = {dt: path(hs[dt], cots[dt]) for dt in hs}
+    torch.cuda.synchronize()
+    launches = dict(spmm_csr.launches_by_dtype)
+    print(f"  one-shot path (sbm_power_law n=4096, bs 128, d 128, {nnz} "
+          f"nonzeros): block_sparse_dev derived in {derive_ms:.2f} ms; "
+          f"spmm_csr launches by dtype {launches}")
+    if launches != {"float32": 3, "bfloat16": 3}:
+        raise AssertionError(f"one-shot path: launches {launches}, expected "
+                             f"3 a dtype (one one-shot, a plan's forward "
+                             f"and backward)")
+    tiles = [torch.from_numpy(getattr(bsg, f)).to(dev)
+             for f in ("blocks", "block_rows", "block_cols")]
+    rows = {}
+    for dt, h in hs.items():
+        key = str(dt)[6:]
+        with _plain_spmm():
+            want = path(h, cots[dt])
+        held = _held if dt == torch.float32 else _held_bf16
+        err = max(held(f"one-shot {key} h {what}", got, ref)
+                  for what, got, ref in zip(
+                      ("aggregate_pallas", "square plan forward",
+                       "square plan backward"), outs[dt], want))
+        if not torch.equal(outs[dt][0], outs[dt][1]):
+            raise AssertionError(f"one-shot {key}: the BlockSparseDev's "
+                                 f"product differs from the plan's forward")
+
+        def kern():
+            return aggregate_pallas(a, h)
+
+        def plain():
+            with _plain_spmm():
+                return aggregate_pallas(a, h)
+
+        a_csr = _csr_of_tiles(tiles[0].to(dt), *tiles[1:], g.n, g.n)
+
+        def lib():
+            return torch.sparse.mm(a_csr, h)
+
+        lib_err = _held(f"  torch.sparse.mm ({key} CSR) vs kernel",
+                        lib().float(), outs[dt][0].float(),
+                        KERNEL_TOL if dt == torch.float32 else SDPA_TOL)
+        k_runs = [_device_ms(kern, 20), _device_ms(kern, 20)]
+        k_ms = [t for t, _ in k_runs]
+        l_ms = [_device_ms(lib, 20)[0], _device_ms(lib, 20)[0]]
+        ev_ms = _time_ms(kern, 20)
+        p_ms = _time_ms(plain, 5)
+        bound_ms, by, nbytes, flops = _spmm_bound(
+            nnz, g.n, g.n, 128, itemsize=h.element_size())
+        rows[key] = dict(
+            ms=min(k_ms), ms_runs=k_ms,
+            memset_ms=min(m for _, m in k_runs), event_ms=ev_ms,
+            plain_ms=p_ms, library_ms=min(l_ms), library_ms_runs=l_ms,
+            library_err=lib_err, bound_ms=bound_ms, bound_by=by, nnz=nnz,
+            bytes=nbytes, flops=flops, max_abs_err=err,
+            launches=launches[key])
+        print(f"  one-shot {key} h: kernel {k_ms[0]:.4f} / {k_ms[1]:.4f} ms "
+              f"device time (memset {rows[key]['memset_ms']:.4f}; "
+              f"{ev_ms:.4f} ms a call by CUDA events), plain {p_ms:.4f} ms,"
+              f" torch.sparse.mm {l_ms[0]:.4f} / {l_ms[1]:.4f} ms; bound "
+              f"{bound_ms:.4f} ms by {by} ({nbytes / 1e6:.2f} MB, "
+              f"{flops / 1e9:.4f} GFLOP)")
+    return {"derive_ms": derive_ms, "launches": launches, **rows}
 
 
 def _free_port() -> int:
@@ -748,9 +989,8 @@ def _hold_step0(name, vg, vg_segment, params0, mask, first_loss) -> None:
     """The step-0 loss and grads of the kernel path against the same path
     with the plain version patched in on the card, and against the
     segment backend, each within ``PATH_RTOL``."""
-    from repro_torch.kernels.spmm import ops, spmm_csr_ref
     got = vg(params0, mask)
-    with mock.patch.object(ops, "spmm_csr", spmm_csr_ref):
+    with _plain_spmm():
         plain = vg(params0, mask)
     _hold_same(name, got, [("kernel vs plain", plain),
                            ("kernel vs segment", vg_segment(params0, mask))],
@@ -1852,12 +2092,13 @@ def _device_ms(fn, iters: int) -> tuple[float, float]:
                        "profiles")
 
 
-def _spmm_bound(nnz, n_in, n_out, d):
+def _spmm_bound(nnz, n_in, n_out, d, itemsize=4):
     """Least time the card could take for a sparse product with these
     inputs: the nonzeros (value and source index, 8 B each), the row
-    pointers, h read once and the output written once, against the fp32
-    operations the nonzeros need (2 per nonzero per column)."""
-    nbytes = 8 * nnz + 4 * (n_out + 1) + 4 * n_in * d + 4 * n_out * d
+    pointers, h read once and the output written once (``itemsize`` bytes
+    an element: 2 for bf16), against the fp32 operations the nonzeros
+    need (2 per nonzero per column)."""
+    nbytes = 8 * nnz + 4 * (n_out + 1) + itemsize * (n_in + n_out) * d
     flops = 2 * nnz * d
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FP32_FLOP_PER_S * 1e3
@@ -2582,7 +2823,8 @@ def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
     1e-2·(1 + max|ref|) and timed, never on the path."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
+    from repro_torch.kernels.flash_attn import (flash_attention_bhsd,
+                                                flash_ref, hbm_bytes_model)
     q, k, v = (torch.randn(b, h, s, d, generator=gen, device=dev)
                .to(torch.bfloat16)
                for h, d in ((hq, hd), (hkv, hd), (hkv, hdv)))
@@ -2624,7 +2866,20 @@ def _flash_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
           f"{bd['pairs']} visible pairs a head at the bf16 tensor-core "
           f"peak, {bd['bound_fp32_ms']:.4f} ms at the fp32 peak; "
           f"{bd['bytes'] / 1e6:.1f} MB, {bd['t_bytes_ms']:.4f} ms)")
+    row.update(_modeled(hbm_bytes_model(b, hq, hkv, s, s, hd, hdv,
+                                        itemsize=2, causal=True,
+                                        window=window), row["ms"]))
     return row
+
+
+def _modeled(nbytes: int, ms: float) -> dict:
+    """Print and return the bytes a kernel's schedule requests
+    (``hbm_bytes_model``) and the rate they imply at the measured time;
+    the rate may pass the card's 3.35 TB/s where re-reads hit L2."""
+    gb_s = nbytes / (ms * 1e-3) / 1e9
+    print(f"    hbm_bytes_model: {nbytes / 1e6:.1f} MB requested, "
+          f"{gb_s:.1f} GB/s at {ms:.4f} ms")
+    return {"model_bytes": nbytes, "model_gb_s": gb_s}
 
 
 def _flash_tf32x3_bound(b, hq, hkv, s, hd, hdv, window) -> dict:
@@ -2671,7 +2926,8 @@ def _flash_fp32_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
     bound from ``_flash_tf32x3_bound``."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_attn import flash_attention_bhsd, flash_ref
+    from repro_torch.kernels.flash_attn import (flash_attention_bhsd,
+                                                flash_ref, hbm_bytes_model)
     q = torch.randn(b, hq, s, hd, generator=gen, device=dev)
     k = torch.randn(b, hkv, s, hd, generator=gen, device=dev)
     v = torch.randn(b, hkv, s, hdv, generator=gen, device=dev)
@@ -2716,6 +2972,9 @@ def _flash_fp32_row(gen, dev, b, hq, hkv, s, hd, hdv, *, window=None,
           f"passes at the tensor-core peak {bd['t_tf32x3_ms']:.4f} ms, at "
           f"the fp32 CUDA-core peak {bd['bound_fp32_ms']:.4f} ms; "
           f"{bd['bytes'] / 1e6:.1f} MB, {bd['t_bytes_ms']:.4f} ms)")
+    row.update(_modeled(hbm_bytes_model(b, hq, hkv, s, s, hd, hdv,
+                                        causal=True, window=window),
+                        row["ms"]))
     return row
 
 
@@ -2734,7 +2993,8 @@ def _ssd_row(gen, dev, bsz, s, h, p, n, qc) -> dict:
     """One SSD launch at a path's shape held against the plain version,
     device time (``torch.profiler``, two runs) with its CUDA-event time
     beside, the plain version and the bound."""
-    from repro_torch.kernels.ssd import ssd_intra_chunk, ssd_intra_chunk_ref
+    from repro_torch.kernels.ssd import (hbm_bytes_model, ssd_intra_chunk,
+                                         ssd_intra_chunk_ref)
     args = _ssd_inputs(bsz, s, h, p, n, gen, dev)
     name = f"ssd ({bsz},{s},{h},{p}) N={n} Q={qc}"
     y, st = ssd_intra_chunk(*args, chunk=qc)
@@ -2760,7 +3020,9 @@ def _ssd_row(gen, dev, bsz, s, h, p, n, qc) -> dict:
           f"{bd['bound_fp32_ms']:.4f} ms)")
     return dict(shape=[bsz, s, h, p, n, qc], ms=min(k_ms), ms_runs=k_ms,
                 event_ms=ev_ms, plain_ms=p_ms, library_ms=None,
-                max_abs_err=err, **bd)
+                max_abs_err=err, **bd,
+                **_modeled(hbm_bytes_model(bsz, s, h, p, n, chunk=qc),
+                           min(k_ms)))
 
 
 def lm_timing(dev):
@@ -4713,6 +4975,25 @@ def _flash_paths(lm_rows, gemma_info, deepseek_info, mm_info):
                      ("flash_musicgen", "musicgen-large", mg)))
 
 
+def _oneshot_entry(info, key, case_err) -> dict:
+    """The ``kernels`` line's entry of the one-shot path at one dtype of
+    h (phase 3)."""
+    row = info[key]
+    return {"name": "spmm_csr", "route": "cuda",
+            "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
+            "replaces": "src/repro/kernels/spmm/spmm.py:64",
+            "held_against": "ref.spmm_csr_ref", "dtype": key,
+            "path": "one-shot aggregate_pallas on block_sparse_dev and "
+                    "square_plan_dev (phase 3), sbm_power_law n=4096, bs "
+                    "128, d 128",
+            "launches": row["launches"],
+            "launches_by_dtype": info["launches"],
+            "max_abs_err": max(case_err, row["max_abs_err"]),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "event_ms")},
+            "ms_by": "profiler", "derive_ms": info["derive_ms"]}
+
+
 def _flash_fp32_entry(row, path, launches, case_err) -> dict:
     """The ``kernels`` line's entry of one fp32 flash shape."""
     return {"name": "flash_attention_bhsd", "route": "cuda",
@@ -4779,8 +5060,14 @@ def main() -> int:
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
           f"one load, one nvcc per source) in {build_s:.1f} s")
 
-    print("[3/31] spmm kernel against its plain version")
+    print("[3/31] spmm kernel against its plain version; the one-shot "
+          "entry points")
     spmm_err = kernel_cases(dev)
+    oneshot_err = oneshot_cases(dev)
+    # the skewed plan's bf16 repeat is the bf16 kernel's only other case
+    oneshot_err["bfloat16"] = max(oneshot_err["bfloat16"],
+                                  spmm_err["bfloat16"])
+    oneshot_info = oneshot(dev)
     print("[4/31] flash kernel against its plain version")
     flash_err = flash_cases(dev)
     print("[5/31] ssd kernel against its plain version")
@@ -4883,7 +5170,8 @@ def main() -> int:
 
     fwd, bwd, nl0 = rows["forward"], rows["backward"], rows["naive_l0"]
     fl, sd = lm_rows["flash"], lm_rows["ssd"]
-    print(json.dumps({"timing": rows, "gcn": gcn, "naive": naive_info,
+    print(json.dumps({"timing": rows, "oneshot": oneshot_info,
+                      "gcn": gcn, "naive": naive_info,
                       "dp": dp_info, "stream": stream_info,
                       "gat": gat_info, "gat_naive": gat_naive_info,
                       "sage": like_info["sage"], "gin": like_info["gin"],
@@ -4934,7 +5222,7 @@ def main() -> int:
                                  multihost_info["placed"]["launches"],
                              "multihost_unplaced": multihost_info[
                                  "placed"]["unplaced_launches"]},
-        "max_abs_err": max(spmm_err, path_err, dp_err),
+        "max_abs_err": max(spmm_err["float32"], path_err, dp_err),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
         "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
         "library_ms": fwd["library_ms"], "ms_by": "profiler",
@@ -4942,7 +5230,9 @@ def main() -> int:
         "backward_library_ms": bwd["library_ms"],
         "naive_l0_ms": nl0["ms"], "naive_l0_plain_ms": nl0["plain_ms"],
         "naive_l0_bound_ms": nl0["bound_ms"],
-        "naive_l0_library_ms": nl0["library_ms"]}, {
+        "naive_l0_library_ms": nl0["library_ms"]},
+        *[_oneshot_entry(oneshot_info, key, oneshot_err[key])
+          for key in ("float32", "bfloat16")], {
         "name": "flash_attention_bhsd", "route": "cuda",
         "source": "src/repro_torch/kernels/flash_attn/csrc/"
                   "flash_attention_mma.cu",

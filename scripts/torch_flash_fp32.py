@@ -5,14 +5,13 @@ repo on one GPU, at the shapes the fp32 cross-checks launch it at.
     python3 scripts/torch_flash_fp32.py [--library] [--cases] [--ptxas]
         [--sweep] [--out FILE] [ROOT ...]
 
-Each ROOT (default: this checkout) runs in a fresh process, in the order
-given, with that ROOT's ``repro_torch`` (its kernels built from its own
-sources into its own ``build/torch_kernels/``) and this checkout's
-``chip_smoke.flash_fp32_timing``: ``chip_smoke.FLASH_FP32_ROWS``, each
-shape held against the plain version at 1e-5·(1 + max|ref|) and timed
-(CUDA events, two runs) beside the plain version and its bound.  To
-compare two trees in one call, unpack the other under ``build/`` (``git
-archive``) and give parent, change, change, parent.
+Each ROOT (default: this checkout) runs as ``torch_roots.run_roots``
+runs it: in a fresh process, in the order given, with that ROOT's
+``repro_torch`` and this checkout's ``chip_smoke.flash_fp32_timing``:
+``chip_smoke.FLASH_FP32_ROWS``, each shape held against the plain version
+at 1e-5·(1 + max|ref|) and timed (CUDA events, two runs) beside the plain
+version and its bound.  Give parent, change, change, parent to compare two
+trees in one call.
 
 ``--library`` also times the library yardstick of each row (fp32 SDPA,
 or the compiled ``flex_attention``); ``--cases`` first runs
@@ -36,13 +35,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import json
 import re
 import subprocess
 import sys
 from pathlib import Path
 
-HERE = Path(__file__).resolve().parents[1]
+from torch_roots import HERE, card, report, run_roots
+
 SOURCE = (HERE / "src" / "repro_torch" / "kernels" / "flash_attn" / "csrc"
           / "flash_attention_tf32x3.cu")
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode=arch=compute_90a,code=sm_90a",
@@ -63,22 +62,8 @@ SWEEP = {
 }
 
 CHILD = r"""
-import json, sys, time, torch
-sys.path.insert(0, {src!r})
-import repro_torch
-sys.path.insert(0, {here!r})
-import chip_smoke as cs
-from repro_torch.kernels import build
-
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-dev = torch.device("cuda", 0)
-torch.cuda.set_device(dev)
-print("repro_torch from", repro_torch.__file__)
-t = time.perf_counter()
-build.build()
-print(f"built {{[p.name for p in build.SOURCES]}} in "
-      f"{{time.perf_counter() - t:.1f}} s")
 out = {{"root": {root!r}, "sources": [p.name for p in build.SOURCES]}}
 if {cases}:
     out["cases_max_abs_err"] = cs.flash_cases(dev)
@@ -226,14 +211,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     sys.path.insert(0, str(HERE / "src"))
-    import torch
-    if not torch.cuda.is_available():
-        print("torch_flash_fp32: no CUDA device", file=sys.stderr)
+    card_line = card("torch_flash_fp32")
+    if card_line is None:
         return 1
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
     results = []
     if args.ptxas:
         regs = _ptxas()
@@ -244,26 +224,12 @@ def main() -> int:
     if args.sweep:
         results.append({"sweep": sweep()})
     else:
-        for root in [r.resolve() for r in args.roots] or [HERE]:
-            child = CHILD.format(src=str(root / "src"), here=str(HERE),
-                                 root=str(root), cases=args.cases,
-                                 library=args.library)
-            proc = subprocess.run([sys.executable, "-c", child],
-                                  capture_output=True, text=True)
-            print(f"==== {root}\n{proc.stdout}{proc.stderr[-3000:]}")
-            if proc.returncode:
-                print(f"run from {root} failed (exit {proc.returncode})",
-                      file=sys.stderr)
-                return 1
-            line = [ln for ln in proc.stdout.splitlines()
-                    if ln.startswith("RESULT ")][-1]
-            results.append(json.loads(line[len("RESULT "):]))
-    print(card)
-    for res in results:
-        print(json.dumps({**res, "card": card}))
-    if args.out:
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps({"card": card, "runs": results}))
+        runs = run_roots(CHILD, args.roots, cases=args.cases,
+                         library=args.library)
+        if runs is None:
+            return 1
+        results += runs
+    report(card_line, results, args.out)
     return 0
 
 

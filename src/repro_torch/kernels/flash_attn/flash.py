@@ -27,6 +27,13 @@ from ..build import kernel_fn
 
 MAX_HEAD_DIM = 256
 VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "mma_tf32x3"}
+# the kernels' head-dim buckets as compiled: (DK, DV, query rows a block =
+# 16 · warps, keys a K/V tile); the first bucket holding (hd, hdv) runs
+_BUCKETS = {
+    4: ((32, 32, 64, 64), (64, 64, 64, 64), (80, 80, 128, 64),   # tf32x3
+        (128, 128, 64, 32), (192, 128, 64, 32), (256, 256, 128, 16)),
+    2: ((256, 256, 128, 64),),                                   # mma_bf16
+}
 _ENTRIES = {"mma_bf16": "flash_attention_fwd_bf16_mma",
             "mma_tf32x3": "flash_attention_fwd_f32_tf32x3"}
 
@@ -124,3 +131,49 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 reset_launches()
+
+
+def hbm_bytes_model(b: int, hq: int, hkv: int, sq: int, skv: int,
+                    hd: int, hdv: int, *, block_q: int | None = None,
+                    itemsize: int = 4, causal: bool = False,
+                    window: int | None = None) -> int:
+    """Global-memory bytes the kernel's schedule requests for one call.
+
+    Each block (a tile of ``block_q`` query rows of one query head) reads
+    its Q rows once, writes its output rows once, and reads the K and V
+    rows of each key tile it visits once.  The key tile, and by default
+    ``block_q``, are those of the bucket that holds (hd, hdv) in the
+    kernel of ``itemsize``: 4 is the three-pass TF32 kernel
+    (``flash_attention_tf32x3.cu``), 2 the bf16 one
+    (``flash_attention_mma.cu``: 128 query rows, 64-key tiles).  Rows past
+    Skv are zero-filled, not read.  Where the TPU kernel's schedule
+    (``repro/kernels/flash_attn/flash.py::hbm_bytes_model``) differs:
+
+    - GQA: every query head's blocks re-read its kv head's K and V (a
+      block serves one query head), where the TPU model counts K/V per kv
+      head; with g = Hq / Hkv = 1 the two agree.
+    - Causal (and window) tiles the kernel skips are not read or counted
+      (``causal``, ``window``: the kernel's key-tile range per query
+      tile); the TPU model reads every key for every query block.  With
+      ``causal=False`` and no window, g = 1 and the same ``block_q``, the
+      two models give the same bytes.
+    """
+    bucket = next((c for c in _BUCKETS.get(itemsize, ())
+                   if hd <= c[0] and hdv <= c[1]), None)
+    if bucket is None:
+        raise ValueError(f"hbm_bytes_model: no kernel of itemsize "
+                         f"{itemsize} takes hd={hd}, hdv={hdv}")
+    block_q = block_q or bucket[2]
+    block_kv = bucket[3]
+    n_kv_tiles = -(-skv // block_kv)
+    keys = 0
+    for q0 in range(0, sq, block_q):
+        j_hi = n_kv_tiles - 1
+        if causal:
+            j_hi = min(j_hi, (min(q0 + block_q, sq) - 1) // block_kv)
+        j_lo = (q0 - window + 1) // block_kv \
+            if window and q0 - window + 1 > 0 else 0
+        keys += max(0, min((j_hi + 1) * block_kv, skv) - j_lo * block_kv)
+    q_o = b * hq * sq * (hd + hdv)
+    kv = b * hq * keys * (hd + hdv)
+    return (q_o + kv) * itemsize

@@ -1,5 +1,5 @@
 // Nonzero-balanced SpMM for full-graph GNN aggregation, written for Hopper
-// (sm_90a), fp32.
+// (sm_90a): fp32 values, h and out in fp32 or bf16, fp32 sums.
 //
 // Replaces the TPU kernel repro/kernels/spmm/spmm.py::spmm_block_sparse
 // (Pallas body `_kernel`).  It computes the same function,
@@ -50,6 +50,18 @@
 // before every launch, so no launch depends on what an earlier one left.
 // Columns >= d are masked, so any d works; y-tiles of 32 * NC columns
 // cover wider d.
+//
+// Types.  The kernel is a template on the element type T of h and out:
+// float, or __nv_bfloat16 (the one-shot entry point's bf16 features).  A
+// bf16 element is widened to fp32 exactly as it is loaded, every sum (the
+// carried parts of straddling rows too) is fp32, and a row is rounded to T
+// once, to nearest even, as it is stored.  The TPU kernel rounds its
+// output block after each tile's product; one rounding of the whole sum is
+// at least as close to the exact sum.  At T = float the instructions are
+// the ones the fp32-only kernel had.  A bf16 h halves the gathered bytes
+// but, the gathers being latency-bound, is no faster than fp32 on the card
+// (PERF.md has the times).
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -81,22 +93,38 @@ __device__ __forceinline__ int warp_lower_bound(const int* __restrict__ a,
   return lo + __popc(__ballot_sync(kFull, idx < hi && __ldg(a + idx) < v));
 }
 
-template <int NC>
-__device__ __forceinline__ void store_row(float* dst, int d, int c0,
-                                          int lane, const float (&acc)[NC]) {
+// an element of h as fp32: a bf16 value's 16 bits are the top half of its
+// fp32 value, so the widening is exact.  The bf16 element is a plain
+// 16-bit load: of the forms tried on the card (this one, through the
+// read-only path, as an L2-only load, and as the aligned 32-bit word
+// holding it), it was the fastest
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  const unsigned short bits = *reinterpret_cast<const unsigned short*>(p);
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <int NC, typename T>
+__device__ __forceinline__ void store_row(T* dst, int d, int c0, int lane,
+                                          const float (&acc)[NC]) {
 #pragma unroll
   for (int c = 0; c < NC; ++c) {
     const int col = c0 + lane + 32 * c;
-    if (col < d) dst[col] = acc[c];
+    if (col < d) put(dst + col, acc[c]);
   }
 }
 
-template <int NC>
+template <int NC, typename T>
 __global__ void __launch_bounds__(kThreads)
 spmm_csr_kernel(const int* __restrict__ row_ptr,
                 const int* __restrict__ col_idx,
                 const float* __restrict__ vals, int n_rows,
-                const float* __restrict__ h, int d, float* __restrict__ out,
+                const T* __restrict__ h, int d, T* __restrict__ out,
                 float* carry, int* flags, int n_seg_cap, int n_xblocks) {
   __shared__ int vblock;
   if (threadIdx.x == 0) vblock = atomicAdd(flags, 1);
@@ -173,11 +201,11 @@ spmm_csr_kernel(const int* __restrict__ row_ptr,
         if ((slot >> 5) == p) { cv = col_r[p]; vv = val_r[p]; }
       const int src = __shfl_sync(kFull, cv, slot & 31);
       w[u] = __shfl_sync(kFull, vv, slot & 31);
-      const float* hr = h + src * d + c0 + lane;
+      const T* hr = h + src * d + c0 + lane;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
         x[u][c] = (e + u < seg1 && c0 + lane + 32 * c < d)
-                      ? __ldg(hr + 32 * c) : 0.f;
+                      ? load(hr + 32 * c) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
@@ -233,18 +261,36 @@ spmm_csr_kernel(const int* __restrict__ row_ptr,
   }
 }
 
-template <int NC>
+template <int NC, typename T>
 int launch(const int* row_ptr, const int* col_idx, const float* vals,
-           int n_rows, const float* h, int d, float* out, float* carry,
-           int* flags, int n_seg, cudaStream_t s) {
+           int n_rows, const T* h, int d, T* out, float* carry, int* flags,
+           int n_seg, cudaStream_t s) {
   const int ny = (d + 32 * NC - 1) / (32 * NC);
   const int nbx = (n_seg + kWarps - 1) / kWarps;
   const cudaError_t err = cudaMemsetAsync(
       flags, 0, sizeof(int) * (1 + static_cast<size_t>(ny) * n_seg), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  spmm_csr_kernel<NC><<<nbx * ny, kThreads, 0, s>>>(
+  spmm_csr_kernel<NC, T><<<nbx * ny, kThreads, 0, s>>>(
       row_ptr, col_idx, vals, n_rows, h, d, out, carry, flags, n_seg, nbx);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the launch of the y-tile width for d
+template <typename T>
+int launch_for(const int* row_ptr, const int* col_idx, const float* vals,
+               int n_rows, const void* h, int d, void* out, float* carry,
+               int* flags, int n_seg, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const T* ht = static_cast<const T*>(h);
+  T* ot = static_cast<T*>(out);
+  if (d <= 32)
+    return launch<1>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry, flags,
+                     n_seg, s);
+  if (d <= 64)
+    return launch<2>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry, flags,
+                     n_seg, s);
+  return launch<4>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry, flags,
+                   n_seg, s);
 }
 
 }  // namespace
@@ -259,25 +305,26 @@ extern "C" int spmm_csr_tile_cols(int d) {
 // C interface, bound from Python with ctypes.  Pointers are device pointers
 // of contiguous tensors: row_ptr (n_rows + 1) int32 with row_ptr[0] = 0 and
 // row_ptr[n_rows] = nnz <= cap; col_idx, vals (cap) int32 / float32, entries
-// past nnz ignored; h (n_in, d) float32 with n_in * d < 2^31; out (n_rows,
-// d) float32.  Scratch: carry (ny, n_seg, d) float32 and flags (1 + ny *
-// n_seg) int32, with n_seg = max(ceil(cap / kSeg), 1) and ny = ceil(d /
-// spmm_csr_tile_cols(d)), so the launch needs no count from the device.
-// Both may hold anything: the flags are zeroed on the stream before the
-// kernel starts.  The caller has checked shapes, types and devices and
-// launches only for n_rows, d > 0.  Returns the cudaError_t of the memset
-// or the launch.
+// past nnz ignored; h (n_in, d) with n_in * d < 2^31 and out (n_rows, d),
+// both float32 (spmm_csr_f32) or both bfloat16 (spmm_csr_bf16).  Scratch:
+// carry (ny, n_seg, d) float32 and flags (1 + ny * n_seg) int32, with n_seg
+// = max(ceil(cap / kSeg), 1) and ny = ceil(d / spmm_csr_tile_cols(d)), so
+// the launch needs no count from the device.  Both may hold anything: the
+// flags are zeroed on the stream before the kernel starts.  The caller has
+// checked shapes, types and devices and launches only for n_rows, d > 0.
+// Returns the cudaError_t of the memset or the launch.
 extern "C" int spmm_csr_f32(const int* row_ptr, const int* col_idx,
-                            const float* vals, int n_rows, const float* h,
-                            int d, float* out, float* carry, int* flags,
+                            const float* vals, int n_rows, const void* h,
+                            int d, void* out, float* carry, int* flags,
                             int n_seg, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 32)
-    return launch<1>(row_ptr, col_idx, vals, n_rows, h, d, out, carry, flags,
-                     n_seg, s);
-  if (d <= 64)
-    return launch<2>(row_ptr, col_idx, vals, n_rows, h, d, out, carry, flags,
-                     n_seg, s);
-  return launch<4>(row_ptr, col_idx, vals, n_rows, h, d, out, carry, flags,
-                   n_seg, s);
+  return launch_for<float>(row_ptr, col_idx, vals, n_rows, h, d, out, carry,
+                           flags, n_seg, stream);
+}
+
+extern "C" int spmm_csr_bf16(const int* row_ptr, const int* col_idx,
+                             const float* vals, int n_rows, const void* h,
+                             int d, void* out, float* carry, int* flags,
+                             int n_seg, void* stream) {
+  return launch_for<__nv_bfloat16>(row_ptr, col_idx, vals, n_rows, h, d, out,
+                                   carry, flags, n_seg, stream);
 }

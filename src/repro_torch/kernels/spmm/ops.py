@@ -1,4 +1,16 @@
-"""Plan-based SpMM aggregation with an exact backward.
+"""SpMM aggregation on the kernel's compressed rows: plans with an exact
+backward, and one-shot forward products.
+
+Two device-side containers, as in the JAX package:
+
+* :class:`BlockSparsePlanDev` — forward and transposed arrays of a plan;
+  :func:`aggregate_plan` through it carries an exact backward.
+* :class:`BlockSparseDev` — the forward arrays of a whole-graph
+  :class:`~repro_torch.graph.format.BlockSparseGraph` only
+  (:func:`block_sparse_dev`): one-shot aggregation and kernel timing,
+  forward only.  :func:`square_plan_dev` builds a square plan of Â and Âᵀ
+  from the same graph where a gradient is needed, and
+  :func:`aggregate_pallas` takes either.
 
 :func:`block_sparse_plan_dev` takes a :class:`~repro_torch.graph.format
 .BlockSparsePlan` (dense (bs × bs) tiles of Â and of Âᵀ, as the TPU kernel
@@ -33,7 +45,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...graph.format import BlockSparsePlan
+from ...graph.format import (BlockSparseGraph, BlockSparsePlan,
+                             block_sparse_transpose)
 from .. import refuse_fake
 from .ref import spmm_csr_ref
 from .spmm import spmm_csr
@@ -109,9 +122,11 @@ def compress_tiles(blocks: torch.Tensor, block_rows: torch.Tensor,
 
 
 def _compress_stack(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray,
-                    n_out: int, n_src: int, device, what: str):
+                    n_out: int, n_src: int, device, what: str,
+                    dtype: torch.dtype = torch.float32):
     """:func:`compress_tiles` for each instance of a (possibly stacked)
-    tile table, one instance's tiles on the device at a time; the stack's
+    tile table, one instance's tiles on the device at a time, their values
+    rounded through ``dtype`` and held as float32; the stack's
     ``col_idx``/``vals`` are padded with zeros to the largest instance."""
     stacked = blocks.ndim == 4
     if not stacked:
@@ -120,8 +135,9 @@ def _compress_stack(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray,
     for c in range(blocks.shape[0]):
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-        parts.append(compress_tiles(dev(blocks[c]), dev(rows[c]),
-                                    dev(cols[c]), n_out))
+        tiles = dev(blocks[c]).to(dtype).float()
+        parts.append(compress_tiles(tiles, dev(rows[c]), dev(cols[c]),
+                                    n_out))
     cap = max(p[1].shape[0] for p in parts)
     hi = max((int(p[1].max()) for p in parts if p[1].numel()), default=-1)
     if hi >= n_src:
@@ -137,7 +153,8 @@ def _compress_stack(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray,
     return row_ptr, col_idx, vals
 
 
-def _compress_plan(plan: BlockSparsePlan, device):
+def _compress_plan(plan: BlockSparsePlan, device,
+                   dtype: torch.dtype = torch.float32):
     """The forward and the transposed compressed arrays of ``plan``."""
     r_blocks = plan.rows_padded // plan.bs
     c_blocks = plan.cols_padded // plan.bs
@@ -146,17 +163,23 @@ def _compress_plan(plan: BlockSparsePlan, device):
     _check_tiles(plan.block_rows_t, plan.block_cols_t, c_blocks, r_blocks,
                  "transposed")
     fwd = _compress_stack(plan.blocks, plan.block_rows, plan.block_cols,
-                          plan.rows_padded, plan.n_cols, device, "forward")
+                          plan.rows_padded, plan.n_cols, device, "forward",
+                          dtype)
     bwd = _compress_stack(plan.blocks_t, plan.block_rows_t,
                           plan.block_cols_t, plan.cols_padded, plan.n_rows,
-                          device, "transposed")
+                          device, "transposed", dtype)
     return fwd, bwd
 
 
 def block_sparse_plan_dev(plan: BlockSparsePlan,
-                          device: str | torch.device = "cuda"
+                          device: str | torch.device = "cuda",
+                          dtype: torch.dtype = torch.float32
                           ) -> BlockSparsePlanDev:
-    fwd, bwd = _compress_plan(plan, device)
+    """``plan`` on ``device`` in the kernel's compressed form, the tile
+    values rounded through ``dtype`` (the JAX package's tile dtype) and
+    held as float32: a bf16 value is exact in fp32, so bf16 tiles multiply
+    exactly what the reference's bf16 tiles multiply."""
+    fwd, bwd = _compress_plan(plan, device, dtype)
     return BlockSparsePlanDev(
         row_ptr=fwd[0], col_idx=fwd[1], vals=fwd[2],
         row_ptr_t=bwd[0], col_idx_t=bwd[1], vals_t=bwd[2],
@@ -234,3 +257,79 @@ def spmm_half(plan: HalfPlan, h: torch.Tensor) -> torch.Tensor:
     kernel on CUDA tensors, the plain version on CPU tensors.  ``h`` is
     (n_in, d) with n_in ≤ its source rows (missing rows are zeros)."""
     return _run(plan.row_ptr, plan.col_idx, plan.vals, h, plan.n_src)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSparseDev:
+    """The forward tiles of a whole-graph :class:`BlockSparseGraph` in the
+    kernel's compressed form, on a device: ``row_ptr`` (n_padded + 1),
+    ``col_idx`` (int32 source row < n_padded) and ``vals`` (float32).
+    Forward only: :func:`aggregate_pallas` refuses a gradient through it
+    (:func:`square_plan_dev` carries one)."""
+
+    row_ptr: torch.Tensor
+    col_idx: torch.Tensor
+    vals: torch.Tensor
+    n: int
+    n_padded: int
+    bs: int
+
+
+def block_sparse_dev(bsg: BlockSparseGraph, dtype: torch.dtype = torch.float32,
+                     device: str | torch.device = "cuda") -> BlockSparseDev:
+    """``bsg``'s forward tiles on ``device`` (the card unless the caller
+    asks for the CPU), their values rounded through ``dtype`` and held as
+    float32, derived once by :func:`compress_tiles` with the plans' checks:
+    tiles within the (n_padded / bs)² grid, rows non-decreasing, and every
+    entry's source row below ``n_padded`` (h is zero-padded to it)."""
+    n_blocks = bsg.n_padded // bsg.bs
+    _check_tiles(bsg.block_rows, bsg.block_cols, n_blocks, n_blocks,
+                 "forward")
+    row_ptr, col_idx, vals = _compress_stack(
+        bsg.blocks, bsg.block_rows, bsg.block_cols, bsg.n_padded,
+        bsg.n_padded, device, "forward", dtype)
+    return BlockSparseDev(row_ptr=row_ptr, col_idx=col_idx, vals=vals,
+                          n=bsg.n, n_padded=bsg.n_padded, bs=bsg.bs)
+
+
+def square_plan_dev(bsg: BlockSparseGraph, dtype: torch.dtype = torch.float32,
+                    device: str | torch.device = "cuda"
+                    ) -> BlockSparsePlanDev:
+    """The full-graph (square Â) plan of ``bsg``: its forward tiles and
+    Âᵀ's (:func:`~repro_torch.graph.format.block_sparse_transpose`) for the
+    exact backward, as :func:`block_sparse_plan_dev` derives them."""
+    t = block_sparse_transpose(bsg)
+    plan = BlockSparsePlan(
+        n_rows=bsg.n, n_cols=bsg.n, rows_padded=bsg.n_padded,
+        cols_padded=bsg.n_padded, bs=bsg.bs, block_rows=bsg.block_rows,
+        block_cols=bsg.block_cols, row_first=bsg.row_first,
+        blocks=bsg.blocks, block_rows_t=t.block_rows,
+        block_cols_t=t.block_cols, row_first_t=t.row_first, blocks_t=t.blocks)
+    return block_sparse_plan_dev(plan, device, dtype)
+
+
+def aggregate_pallas(bsg: BlockSparseDev | BlockSparsePlanDev,
+                     h: torch.Tensor) -> torch.Tensor:
+    """Â @ h for the (n, d) features h (fp32 or bf16; a bf16 result is the
+    fp32 sum rounded once).
+
+    Given a :class:`BlockSparsePlanDev` (square), the product carries the
+    exact backward of :func:`aggregate_plan`.  Given a
+    :class:`BlockSparseDev`, it is forward only: h is zero-padded to
+    ``n_padded`` rows, multiplied, and the first n rows returned; under
+    grad mode with an h that requires grad it raises, as the JAX package's
+    ``jax.grad`` through the kernel does.  CUDA tensors go to the kernel
+    (a failure raises), CPU tensors to the plain version.
+
+    Only static-weight aggregation can use these arrays (module
+    docstring)."""
+    n = h.shape[0]
+    if isinstance(bsg, BlockSparsePlanDev):
+        return aggregate_plan(bsg, h)[:n]
+    if torch.is_grad_enabled() and h.requires_grad:
+        raise RuntimeError(
+            "aggregate_pallas on a BlockSparseDev has no backward: it holds "
+            "Â's tiles only, and no kernel differentiates through them. "
+            "Build the graph with square_plan_dev(bsg), whose Âᵀ arrays "
+            "carry the exact gradient, or call it under torch.no_grad().")
+    return _run(bsg.row_ptr, bsg.col_idx, bsg.vals, h, bsg.n_padded)[:n]

@@ -4,8 +4,10 @@
 kernel does; :func:`spmm_csr_ref` through the compressed form that
 :func:`repro_torch.kernels.spmm.ops.block_sparse_plan_dev` derives from the
 same tiles, as the CUDA kernel does.  ``spmm_csr_ref`` is the CPU path of
-:func:`repro_torch.kernels.spmm.ops.aggregate_plan`; ``chip_smoke.py``
-holds the CUDA kernel against both on the card.
+:func:`repro_torch.kernels.spmm.ops.aggregate_plan` and
+:func:`~repro_torch.kernels.spmm.ops.aggregate_pallas`; ``chip_smoke.py``
+holds the CUDA kernel against both on the card.  :func:`spmm_dense_ref`
+is the dense oracle of small graphs.
 """
 from __future__ import annotations
 
@@ -37,11 +39,20 @@ def spmm_csr_ref(row_ptr: torch.Tensor, col_idx: torch.Tensor,
 
     ``row_ptr`` is (n_out + 1,); ``col_idx``/``vals`` may run past
     ``row_ptr[-1]`` (a stacked plan's padding), which is ignored.  A gather
-    and one ``index_add_``.  Returns (n_out, d)."""
+    and one ``index_add_``, in fp32 where h is narrower (bf16), as the
+    kernel sums, rounded to h's dtype once.  Returns (n_out, d)."""
     n_out = row_ptr.shape[0] - 1
     nnz = int(row_ptr[-1])
     rows = torch.repeat_interleave(
         torch.arange(n_out, device=h.device), row_ptr.diff().long(),
         output_size=nnz)
-    contrib = vals[:nnz, None] * h.index_select(0, col_idx[:nnz].long())
-    return h.new_zeros(n_out, h.shape[1]).index_add_(0, rows, contrib)
+    hf = h.to(torch.promote_types(h.dtype, torch.float32))
+    contrib = vals[:nnz, None] * hf.index_select(0, col_idx[:nnz].long())
+    return hf.new_zeros(n_out, h.shape[1]).index_add_(0, rows, contrib) \
+        .to(h.dtype)
+
+
+def spmm_dense_ref(dense_a: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Fully dense oracle (small graphs only): the fp32 product
+    ``dense_a @ h``, rounded to h's dtype."""
+    return (dense_a.float() @ h.float()).to(h.dtype)

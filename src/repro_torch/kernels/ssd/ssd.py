@@ -22,6 +22,10 @@ from ..build import kernel_fn
 MAX_CHUNK = 1024
 MAX_HEAD_DIM = 64
 MAX_STATE_DIM = 128
+# the kernel's schedule as compiled (ssd_intra_chunk.cu): kT rows a row or
+# column tile, kG heads sharing one score tile
+_TILE = 64
+_GROUP = 4
 
 
 @functools.cache
@@ -82,3 +86,38 @@ def ssd_intra_chunk(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 ssd_intra_chunk.launches = 0
+
+
+def hbm_bytes_model(bsz: int, s: int, h: int, p: int, n: int, *,
+                    chunk: int = 64, itemsize: int = 4) -> int:
+    """Global-memory bytes the kernel's schedule requests for one call.
+
+    Work is cut per (batch, chunk, group of 4 heads): one block per 64-row
+    tile I of the chunk and one for the group's boundary states.  A
+    row-tile block reads dt of the group's heads over the chunk, ``a``,
+    C_I, and for every column tile J ≤ I the B_J rows and the heads' x_J
+    rows, and writes the heads' y rows of I.  The state block reads dt and
+    ``a`` again, x of every head and B once per pass of heads (4 heads a
+    pass, 2 where N > 64), and writes the states.  Rows past the chunk
+    and heads past H are not read.  Where the TPU kernel's schedule
+    (``repro/kernels/ssd/ssd.py::hbm_bytes_model``: one program per
+    (batch · head, chunk) reading x, dt, B, C once and writing y and the
+    state) differs: B and C are read once per group of heads, not per
+    head; B_J and x_J once per row tile at or below J (the triangle), and
+    once more by the state block with dt; ``a`` once per block.  At one
+    head and a chunk of one tile (64 rows) the port's bytes are the TPU
+    model's plus the state block's second read of dt, B and x and the two
+    reads of ``a``.
+    """
+    nc = -(-s // chunk)
+    rows = [min(_TILE, chunk - t) for t in range(0, chunk, _TILE)]
+    per_chunk = 0
+    for h0 in range(0, h, _GROUP):
+        hg = min(_GROUP, h - h0)
+        for it, r_i in enumerate(rows):
+            per_chunk += hg * chunk + hg + r_i * n + hg * r_i * p
+            per_chunk += sum(rows[: it + 1]) * (n + hg * p)
+        passes = -(-hg // (2 if n > 64 else 4))
+        per_chunk += (hg * chunk + hg + passes * chunk * n
+                      + hg * chunk * p + hg * p * n)
+    return bsz * nc * per_chunk * itemsize
