@@ -191,20 +191,22 @@ def prepare_bundle(data: GraphData, n_workers: int | None = None,
     n_replicas = 1 if n_replicas is None else n_replicas
     g = data.graph
     n_padded = padded_size(g.n, n_workers * n_chunks * n_replicas)
-    gp = _pad_graph(g, n_padded)
-    cg = gf.chunk_graph(gp, n_chunks)
-    plan = CH.build_chunk_comm_plan(cg, n_workers, n_padded, device)
-    bsp, dense_adj = AGG.build_chunk_plans(gp, n_chunks, agg,
-                                           bs=agg_block_size, device=device)
+    with T.span("prepare.chunk_graph"):
+        gp = _pad_graph(g, n_padded)
+        cg = gf.chunk_graph(gp, n_chunks)
+    with T.span("prepare.comm_plan"):
+        plan = CH.build_chunk_comm_plan(cg, n_workers, n_padded, device)
+    with T.span("prepare.agg_plans"):
+        bsp, dense_adj = AGG.build_chunk_plans(gp, n_chunks, agg,
+                                               bs=agg_block_size,
+                                               device=device)
+    with T.span("prepare.graph_upload"):
+        edges = L.edge_list_dev(gp, device)
+        chunked = L.chunked_dev(cg, device)
 
     in_dim = data.features.shape[1]
     in_dim_padded = padded_size(in_dim, n_workers)
     c_padded = padded_size(data.num_classes, n_workers)
-
-    feats = np.zeros((n_padded, in_dim_padded), np.float32)
-    feats[: g.n, :in_dim] = data.features
-    labels = np.zeros((n_padded,), np.int64)
-    labels[: g.n] = data.labels
 
     # with a mesh the node arrays stay on the host until placed: only this
     # rank's rows are copied to the device
@@ -215,20 +217,27 @@ def prepare_bundle(data: GraphData, n_workers: int | None = None,
         out[: g.n] = m.astype(np.float32)
         return torch.from_numpy(out).to(node_dev)
 
+    with T.span("prepare.node_arrays"):
+        feats = np.zeros((n_padded, in_dim_padded), np.float32)
+        feats[: g.n, :in_dim] = data.features
+        labels = np.zeros((n_padded,), np.int64)
+        labels[: g.n] = data.labels
+        nodes = dict(features=torch.from_numpy(feats).to(node_dev),
+                     labels=torch.from_numpy(labels).to(node_dev),
+                     train_mask=pad_mask(data.train_mask),
+                     val_mask=pad_mask(data.val_mask),
+                     test_mask=pad_mask(data.test_mask))
+
     graph = TPGraph(
-        edges=L.edge_list_dev(gp, device), chunked=L.chunked_dev(cg, device),
-        comm_plan=plan,
+        edges=edges, chunked=chunked, comm_plan=plan,
         n=g.n, n_padded=n_padded, n_workers=n_workers,
         num_classes=data.num_classes, c_padded=c_padded,
         in_dim_padded=in_dim_padded, agg=agg, bsp=bsp, dense_adj=dense_adj)
-    bundle = TPBundle(
-        graph=graph,
-        features=torch.from_numpy(feats).to(node_dev),
-        labels=torch.from_numpy(labels).to(node_dev),
-        train_mask=pad_mask(data.train_mask),
-        val_mask=pad_mask(data.val_mask),
-        test_mask=pad_mask(data.test_mask))
-    return bundle if mesh is None else place_bundle(bundle, mesh, device)
+    bundle = TPBundle(graph=graph, **nodes)
+    if mesh is None:
+        return bundle
+    with T.span("prepare.place"):
+        return place_bundle(bundle, mesh, device)
 
 
 def padded_gnn_config(data: GraphData, bundle: TPBundle,
@@ -252,20 +261,23 @@ def padded_gnn_config(data: GraphData, bundle: TPBundle,
 # gather schedule.  Buffers written by the chunk steps carry one dump row
 # for the -1 pads of the comm tables (core.chunks).
 
-def _aggregate_once(graph: TPGraph, z, agg: str, w_chunk, scale: float):
-    """One full aggregation round over all chunks."""
-    if agg == "segment":
-        return L.aggregate_chunked(graph.chunked, z, edge_weight=w_chunk)
+def _aggregate_once(graph: TPGraph, z, agg: str, w_chunk, scale: float,
+                    r: int = 0):
+    """One full aggregation round (round ``r``) over all chunks."""
     cs = graph.chunked.chunk_size
-    outs = [AGG.chunk_agg(agg, z, ax, cs, scale)
-            for ax in AGG.chunk_xs(graph, agg, w_chunk)]
+    outs = []
+    for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
+        with T.span("agg.r%d.c%d", r, c):
+            outs.append(AGG.chunk_agg(agg, z, ax, cs, scale))
     return torch.cat(outs)[: z.shape[0]]
 
 
 def _propagate_plain(graph: TPGraph, z, w_chunk, rounds: int,
-                     agg: str = "segment", scale: float = 1.0):
-    for _ in range(rounds):
-        z = _aggregate_once(graph, z, agg, w_chunk, scale)
+                     agg: str = "segment", scale: float = 1.0,
+                     first: int = 0):
+    """Rounds ``first`` .. ``first + rounds - 1``."""
+    for r in range(first, first + rounds):
+        z = _aggregate_once(graph, z, agg, w_chunk, scale, r)
     return z
 
 
@@ -276,21 +288,27 @@ def _round_split_pipelined(h_local, graph: TPGraph, w_chunk, mesh: TPMesh,
     zbuf = h_local.new_zeros(plan.n_padded + 1, h_local.shape[1] // mesh.size)
     outs = []
     for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
-        zbuf = CH.chunk_split_step(h_local, plan.split_rows[c], zbuf, mesh)
-        outs.append(AGG.chunk_agg(agg, zbuf[:-1], ax, cs, scale))
+        with T.span("tp.split.c%d", c):
+            zbuf = CH.chunk_split_step(h_local, plan.split_rows[c], zbuf,
+                                       mesh)
+        with T.span("agg.r0.c%d", c):
+            outs.append(AGG.chunk_agg(agg, zbuf[:-1], ax, cs, scale))
     return torch.cat(outs)[: plan.n_padded]
 
 
 def _round_gather_pipelined(z, graph: TPGraph, w_chunk, d_full: int,
                             mesh: TPMesh, agg: str = "segment",
-                            scale: float = 1.0):
-    """Last propagation round with per-chunk gather interleaved."""
+                            scale: float = 1.0, r: int = 1):
+    """Last propagation round (round ``r``) with per-chunk gather
+    interleaved."""
     cs, plan = graph.chunked.chunk_size, graph.comm_plan
     h_out = z.new_zeros(plan.n_padded // mesh.size + 1, d_full)
     for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
-        out_c = AGG.chunk_agg(agg, z, ax, cs, scale)
-        h_out = CH.chunk_gather_step(out_c, plan.gather_rows[c], c * cs,
-                                     h_out, mesh)
+        with T.span("agg.r%d.c%d", r, c):
+            out_c = AGG.chunk_agg(agg, z, ax, cs, scale)
+        with T.span("tp.gather.c%d", c):
+            h_out = CH.chunk_gather_step(out_c, plan.gather_rows[c], c * cs,
+                                         h_out, mesh)
     return h_out[:-1]
 
 
@@ -302,10 +320,14 @@ def _round_split_gather_pipelined(h_local, graph: TPGraph, w_chunk,
     zbuf = h_local.new_zeros(plan.n_padded + 1, h_local.shape[1] // mesh.size)
     h_out = h_local.new_zeros(plan.n_padded // mesh.size + 1, d_full)
     for c, ax in enumerate(AGG.chunk_xs(graph, agg, w_chunk)):
-        zbuf = CH.chunk_split_step(h_local, plan.split_rows[c], zbuf, mesh)
-        out_c = AGG.chunk_agg(agg, zbuf[:-1], ax, cs, scale)
-        h_out = CH.chunk_gather_step(out_c, plan.gather_rows[c], c * cs,
-                                     h_out, mesh)
+        with T.span("tp.split.c%d", c):
+            zbuf = CH.chunk_split_step(h_local, plan.split_rows[c], zbuf,
+                                       mesh)
+        with T.span("agg.r0.c%d", c):
+            out_c = AGG.chunk_agg(agg, zbuf[:-1], ax, cs, scale)
+        with T.span("tp.gather.c%d", c):
+            h_out = CH.chunk_gather_step(out_c, plan.gather_rows[c], c * cs,
+                                         h_out, mesh)
     return h_out[:-1]
 
 
@@ -318,9 +340,10 @@ def _gat_alpha_tp(p, edges: L.EdgeListDev, h_local, mesh: TPMesh):
     paper's generalized decoupling.  Each rank scores its own vertices,
     and the two (V/N,) score halves are shared by an all-gather — O(V)
     communication, not O(E·D)."""
-    sl = C.all_gather(h_local @ p["a_l"], mesh.group, axis=mesh.axis)
-    sr = C.all_gather(h_local @ p["a_r"], mesh.group, axis=mesh.axis)
-    return L.gat_alpha(edges, sl, sr)
+    with T.span("gat.alpha"):
+        sl = C.all_gather(h_local @ p["a_l"], mesh.group, axis=mesh.axis)
+        sr = C.all_gather(h_local @ p["a_r"], mesh.group, axis=mesh.axis)
+        return L.gat_alpha(edges, sl, sr)
 
 
 def _edge_weights_tp(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
@@ -364,27 +387,32 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
     row-wise), and the result is sliced back to this replica's rows."""
     rep = mesh.replicas()
     agg, scale = _effective_agg(cfg, agg)
-    h = M.mlp_phase(params, cfg, x_local)              # NN phase, local rows
+    with T.span("gnn.nn_phase"):
+        h = M.mlp_phase(params, cfg, x_local)          # NN phase, local rows
     h = C.replica_gather(h, rep)                       # (V/N, C)
     w_chunk = None
     if agg == "segment":
-        w_flat = _edge_weights_tp(params, cfg, graph.edges, h, mesh)
-        w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
+        with T.span("gnn.edge_weights"):
+            w_flat = _edge_weights_tp(params, cfg, graph.edges, h, mesh)
+            w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
     n_rounds = cfg.num_layers
     d_full = h.shape[1]
 
     if not pipelined:
-        z = tp.split(h, mesh)                          # (V, C/N)
+        with T.span("tp.split"):
+            z = tp.split(h, mesh)                      # (V, C/N)
         z = _propagate_plain(graph, z, w_chunk, n_rounds, agg, scale)
-        out = tp.gather(z, mesh)                       # (V/N, C)
+        with T.span("tp.gather"):
+            out = tp.gather(z, mesh)                   # (V/N, C)
     elif n_rounds == 1:
         out = _round_split_gather_pipelined(
             h, graph, w_chunk, d_full, mesh, agg, scale)
     else:
         z = _round_split_pipelined(h, graph, w_chunk, mesh, agg, scale)
-        z = _propagate_plain(graph, z, w_chunk, n_rounds - 2, agg, scale)
+        z = _propagate_plain(graph, z, w_chunk, n_rounds - 2, agg, scale,
+                             first=1)
         out = _round_gather_pipelined(z, graph, w_chunk, d_full, mesh, agg,
-                                      scale)
+                                      scale, r=n_rounds - 1)
     return C.replica_slice(out, rep)
 
 
@@ -570,12 +598,13 @@ def global_loss_and_acc(logits, labels, mask, num_classes: int,
 
     The three sums travel in one stacked psum of 12 bytes per axis group;
     the reference makes three scalar psums of the same bytes."""
-    sums = torch.stack(M.masked_loss_and_acc(logits, labels, mask,
-                                             num_classes))
-    sums = C.psum(sums, mesh.group, axis=mesh.axis)
-    loss_sum, correct, cnt = C.psum_replicas(sums, mesh.replicas())
-    cnt = torch.clamp(cnt, min=1.0)
-    return loss_sum / cnt, correct / cnt
+    with T.span("tp.loss"):
+        sums = torch.stack(M.masked_loss_and_acc(logits, labels, mask,
+                                                 num_classes))
+        sums = C.psum(sums, mesh.group, axis=mesh.axis)
+        loss_sum, correct, cnt = C.psum_replicas(sums, mesh.replicas())
+        cnt = torch.clamp(cnt, min=1.0)
+        return loss_sum / cnt, correct / cnt
 
 
 def global_loss_and_acc_constraint(logits, labels, mask, num_classes: int):
@@ -729,8 +758,9 @@ def value_and_grad(loss_and_acc, mesh: TPMesh, backend: str = "explicit"):
         # weights on the decoupled path) gets zeros, as under JAX
         grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
                                     materialize_grads=True)
-        return loss.detach(), tree_unflatten(
-            params, sum_grads(grads, mesh))
+        with T.span("tp.grad_sum"):
+            grads = sum_grads(grads, mesh)
+        return loss.detach(), tree_unflatten(params, grads)
 
     return value_and_grad_fn
 
@@ -746,9 +776,13 @@ def train_fns(loss_and_acc, mesh: TPMesh, optimizer, masks: dict,
         loss_and_acc = K.plain(loss_and_acc, mesh)
 
     def train_step(params, opt_state):
-        loss, grads = vg(params, masks["train"])
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return apply_updates(params, updates), opt_state, loss
+        with T.span("tp.train_step"):
+            loss, grads = vg(params, masks["train"])
+            with T.span("optim.update"):
+                updates, opt_state = optimizer.update(grads, opt_state,
+                                                      params)
+                params = apply_updates(params, updates)
+        return params, opt_state, loss
 
     @torch.no_grad()
     def evaluate(params, split: str = "val"):

@@ -160,22 +160,72 @@ collectives under op kind :data:`H2D_OP` (:func:`record_h2d`).
 
 When no ledger is collecting, a collective pays one ``ContextVar`` read
 (:func:`active_ledgers`) and nothing else.
+
+Spans
+-----
+
+Beside the byte counters, the engine marks where a step's time goes:
+:func:`span` names a stretch of host code, and each span has two sinks.
+
+* **The profiler.**  While ``torch.profiler`` records, a span opens a
+  ``record_function`` of its name, so it lands in the same trace, on the
+  same clock, as the kernels it launches and the host operations around
+  it (category ``user_annotation``).  A reader attributes each device
+  operation to the innermost span open around its launch.
+* **A** :class:`SpanLog`, while one collects (:func:`collect_spans`, a
+  ``ContextVar`` as :func:`collect_comm`): each span appends ``(name,
+  parent index, start_ns, end_ns)`` on ``time.perf_counter_ns``.  The log
+  stays in memory and is read when the run ends.
+
+With neither sink on, a span costs one flag read (the profiler's
+``torch.autograd.profiler._is_profiler_enabled``) and one ``ContextVar``
+read: it enters no ``record_function`` (one costs microseconds even with
+the profiler off), formats no name (``span("agg.r%d.c%d", r, c)`` formats
+only when a sink is on) and adds no autograd node, view or tensor op.
+
+There are no spans in the backward pass.  Autograd already links each
+backward node to the forward op that made it: in the profiler's trace an
+``autograd::engine::evaluate_function: ...`` event carries the forward
+op's ``Sequence number``.  A reader attributes the device work launched
+inside it to ``<span of that forward op>.bwd``, so the backward costs
+nothing to mark and needs nothing on autograd's own thread.
+
+The engine's spans (``core/decouple.py``; ``r`` a propagation round, ``c``
+a chunk):
+
+* ``tp.train_step`` — the whole training step, enqueue to return (the
+  root); ``optim.update`` — the optimizer's update and its application;
+  ``tp.grad_sum`` — the parameter gradients' sum across ranks;
+  ``tp.loss`` — the masked loss and accuracy with their psum;
+* ``gnn.nn_phase`` — the vertex-sharded NN phase (``mlp_phase``);
+  ``gnn.edge_weights`` — the propagation weights and their rechunk, with
+  ``gat.alpha`` inside it for GAT (score products, the two all-gathers,
+  the edge softmax);
+* ``tp.split.c{c}`` / ``tp.gather.c{c}`` — a pipelined chunk's split or
+  gather (``tp.split`` / ``tp.gather`` unpipelined);
+  ``agg.r{r}.c{c}`` — chunk ``c``'s aggregation in round ``r``, whatever
+  the backend;
+* ``prepare.chunk_graph``, ``prepare.comm_plan``, ``prepare.agg_plans``,
+  ``prepare.graph_upload``, ``prepare.node_arrays``, ``prepare.place`` —
+  the stages of ``prepare_bundle``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
+import time
 from contextvars import ContextVar
 from typing import Iterator, Mapping
 
 import torch
+import torch.autograd.profiler as _profiler
 
-__all__ = ["CommEntry", "CommLedger", "H2D_OP", "TelemetryError",
+__all__ = ["CommEntry", "CommLedger", "H2D_OP", "SpanLog", "TelemetryError",
            "TransitionRecord", "active_ledgers", "backward_scope",
-           "collect_comm", "implied_collectives", "normalize_spec",
-           "recompute_scope", "record", "record_h2d", "record_transition",
-           "ring_wire_factor"]
+           "collect_comm", "collect_spans", "implied_collectives",
+           "normalize_spec", "recompute_scope", "record", "record_h2d",
+           "record_transition", "ring_wire_factor", "span"]
 
 
 class TelemetryError(RuntimeError):
@@ -583,3 +633,92 @@ def record_h2d(tensors, *, label: str = "host") -> None:
     dtype = str(tensors[0].dtype).removeprefix("torch.")
     for ledger in ledgers:
         ledger.add(H2D_OP, label, dtype, payload=payload, wire=payload)
+
+
+# ---------------------------------------------------------------------------
+# Spans
+# ---------------------------------------------------------------------------
+
+class SpanLog:
+    """The spans closed while collecting (:func:`collect_spans`), in the
+    order they opened: ``records[i] = [name, parent, start_ns, end_ns]``,
+    ``parent`` the index of the span open around it (-1 at the top), times
+    on ``time.perf_counter_ns``."""
+
+    def __init__(self) -> None:
+        self.records: list[list] = []
+        self._open: list[int] = []
+
+    def _enter(self, name: str) -> int:
+        i = len(self.records)
+        parent = self._open[-1] if self._open else -1
+        self.records.append([name, parent, time.perf_counter_ns(), None])
+        self._open.append(i)
+        return i
+
+    def _exit(self, i: int) -> None:
+        self.records[i][3] = time.perf_counter_ns()
+        self._open.pop()
+
+
+_SPAN_LOG: ContextVar[SpanLog | None] = ContextVar("repro_torch_span_log",
+                                                   default=None)
+
+
+@contextlib.contextmanager
+def collect_spans(log: SpanLog | None = None) -> Iterator[SpanLog]:
+    """Collect the spans opened inside the block into ``log`` (a new
+    :class:`SpanLog` by default).  An inner context takes the spans of
+    its block from an outer one."""
+    log = SpanLog() if log is None else log
+    token = _SPAN_LOG.set(log)
+    try:
+        yield log
+    finally:
+        _SPAN_LOG.reset(token)
+
+
+class _NoSpan:
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_NO_SPAN = _NoSpan()
+
+
+class _Span:
+    __slots__ = ("name", "log", "index", "marker")
+
+    def __init__(self, name: str, log: SpanLog | None, profiled: bool):
+        self.name, self.log = name, log
+        self.marker = _profiler.record_function(name) if profiled else None
+
+    def __enter__(self) -> None:
+        if self.marker is not None:
+            self.marker.__enter__()
+        if self.log is not None:
+            self.index = self.log._enter(self.name)
+
+    def __exit__(self, *exc) -> bool:
+        if self.log is not None:
+            self.log._exit(self.index)
+        if self.marker is not None:
+            self.marker.__exit__(*exc)
+        return False
+
+
+def span(name: str, *args):
+    """A context manager marking a stretch of host code as the span
+    ``name % args`` (``name`` alone without ``args``), in the profiler's
+    trace while it records and in the collecting :class:`SpanLog`; a
+    shared no-op when neither is on (module docstring)."""
+    log = _SPAN_LOG.get()
+    profiled = _profiler._is_profiler_enabled
+    if log is None and not profiled:
+        return _NO_SPAN
+    return _Span(name % args if args else name, log, profiled)
