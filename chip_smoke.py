@@ -89,8 +89,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               the backward's on autograd's own thread, and 2 all-reduces),
               held against the ledger with no finding and printed;
               then the step-0 loss and grads recomputed with the plain
-              version on the card and with the segment backend, each held
-              within rtol 1e-4 (per tensor, max|Δ| ≤ 1e-4·max|ref|);
+              version on the card and on the segment backend's per-edge
+              route (``index_select`` · w → ``index_add_``, no kernel),
+              each held within rtol 1e-4 (per tensor, max|Δ| ≤
+              1e-4·max|ref|);
 7. naive    — the same, with ``mode="naive"`` on phase 6's bundle: a
               split, one aggregation round and a gather per layer; 12 SpMM
               launches a step (layer 0 forward only, its input features
@@ -150,7 +152,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               bundle (γ·Â propagation): each 3 warm-up + 10 timed steps
               with finite, falling loss and 16 SpMM launches a step, one
               step profiled; step-0 loss and grads against the plain
-              version and the segment backend, rtol 1e-4 (GIN's ``eps``
+              version and the segment backend's per-edge route, rtol
+              1e-4 (GIN's ``eps``
               gets zero gradients, as under JAX);
 13. hybrid  — hybrid DP×TP on ``hybrid_mesh(model=1, data=1)`` over the
               1-rank NCCL world (model and data subgroups of one rank):
@@ -198,7 +201,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
               min of two runs of 20 after a warm-up; the SpMM's includes
               the memset of its flags, printed apart), beside the CUDA-event
               time of a call, the plain version and the bound of these
-              inputs (nonzeros, row pointers, h once, output once);
+              inputs (nonzeros, row pointers, h once, output once).
+              Then the default GCN path's aggregation (the segment
+              backend's static weights on compressed rows): the
+              benchmark's ``gcn-reddit`` graph (232 965 vertices, 114.8 M
+              edges with the self-loops, ``tpbench.graphgen`` on the card)
+              cut into 4 chunks on the card, ``core.agg.csr_plan`` of all
+              of them timed; on the chunk with the most edges, at d = 41
+              (one card's columns, the wide kernel) and d = 11 (a rank's
+              at four cards, the narrow one), the kernel forward and
+              transposed held against the per-edge route it replaced
+              (``index_select`` · w → ``index_add_``, within
+              1e-5·(1 + max|ref|)), a repeat launch bitwise equal, both
+              timed as device time beside the bound.  Last, GCN and GAT
+              through ``make_tp_train_fns`` with its defaults on phase 6's
+              graph (a segment bundle): 3 warm-up + 10 timed steps, 16
+              SpMM launches a GCN step and 0 a GAT step; one more step of
+              each with the launches and the route counter
+              (``telemetry.collect_agg_routes``) reset just before: 16
+              launches and 8 ``csr`` chunk aggregations for GCN, 0 and 8
+              ``segment`` for GAT; the bundle carries no compressed rows;
+              GCN's step-0 loss and grads held as phase 6's;
 16. serve   — the LM main path: Zamba2-2.7B at full width and depth
               (2.06 B parameters, random fp32 weights from seed 0 drawn on
               the card), bf16 compute, ``attn_impl="flash"``,
@@ -436,7 +459,9 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 The last lines are a JSON summary of the kernels, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``.  The ``kernels`` line
 has one entry per kernel and shape: the SpMM on the GCN paths, the SpMM
-on phase 3's one-shot path with an fp32 h and with a bf16 h (each with
+on the default GCN path's compressed rows (phase 15: a Reddit-sized
+chunk's times at d = 41 and 11 and the default steps' launches and
+routes), the SpMM on phase 3's one-shot path with an fp32 h and with a bf16 h (each with
 its dtype's launches, ``launches_by_dtype`` beside), the flash kernel at
 Zamba2's shape,
 gemma2's global and local layers', MLA's, InternVL2-1B's and
@@ -459,6 +484,7 @@ SpMM's ``event_ms`` are always CUDA events.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -985,15 +1011,42 @@ def _hold_same(name, got, others, first_loss: float) -> None:
                   PATH_RTOL, 0.0)
 
 
-def _hold_step0(name, vg, vg_segment, params0, mask, first_loss) -> None:
+def _per_edge_rows():
+    """Build steps whose segment backend aggregates the static weights by
+    the per-edge route (``index_select`` · w → ``index_add_``, γ after the
+    sum) in place of the compressed rows (``core.agg.with_csr``): the
+    route that backend took for them before the rows, and that it takes
+    for GAT's α.  Patched in while a step is built; the step keeps it."""
+    from repro_torch.core import agg as AGG
+
+    def edge_arrays(graph):
+        cg = graph.chunked
+        return dataclasses.replace(graph, csr=[
+            (cg.src[c], cg.dst_local[c], cg.weight[c])
+            for c in range(cg.n_chunks)])
+
+    return mock.patch.object(AGG, "with_csr", edge_arrays)
+
+
+def _per_edge_vg(cfg, bundle, mesh, mode: str):
+    """``make_tp_value_and_grad`` on the segment backend's per-edge
+    route (:func:`_per_edge_rows`)."""
+    from repro_torch.core import decouple as D
+    with _per_edge_rows():
+        return D.make_tp_value_and_grad(cfg, bundle, mesh, mode=mode,
+                                        agg="segment")
+
+
+def _hold_step0(name, vg, vg_edges, params0, mask, first_loss) -> None:
     """The step-0 loss and grads of the kernel path against the same path
     with the plain version patched in on the card, and against the
-    segment backend, each within ``PATH_RTOL``."""
+    per-edge route with no kernel (``vg_edges``), each within
+    ``PATH_RTOL``."""
     got = vg(params0, mask)
     with _plain_spmm():
         plain = vg(params0, mask)
     _hold_same(name, got, [("kernel vs plain", plain),
-                           ("kernel vs segment", vg_segment(params0, mask))],
+                           ("kernel vs per-edge", vg_edges(params0, mask))],
                first_loss)
 
 
@@ -1045,9 +1098,7 @@ def train(dev):
     _hold_step0("decoupled_pipelined",
                 D.make_tp_value_and_grad(cfg, bundle, mesh,
                                          mode="decoupled_pipelined"),
-                D.make_tp_value_and_grad(cfg, bundle, mesh,
-                                         mode="decoupled_pipelined",
-                                         agg="segment"),
+                _per_edge_vg(cfg, bundle, mesh, "decoupled_pipelined"),
                 params0, bundle.train_mask, losses[0])
     return bundle, data, cfg, _path_info(launches, median_ms, profile,
                                          ledger, losses)
@@ -1084,8 +1135,7 @@ def naive(bundle, data, cfg, dev) -> dict:
                           _param_bytes(params0))
     _hold_step0("naive",
                 D.make_tp_value_and_grad(cfg, bundle, mesh, mode="naive"),
-                D.make_tp_value_and_grad(cfg, bundle, mesh, mode="naive",
-                                         agg="segment"),
+                _per_edge_vg(cfg, bundle, mesh, "naive"),
                 params0, bundle.train_mask, losses[0])
     return _path_info(launches, median_ms, profile, ledger, losses)
 
@@ -1244,9 +1294,7 @@ def gcn_like(bundle, data, dev) -> dict:
         _hold_step0(model,
                     D.make_tp_value_and_grad(cfg, bundle, mesh,
                                              mode="decoupled_pipelined"),
-                    D.make_tp_value_and_grad(cfg, bundle, mesh,
-                                             mode="decoupled_pipelined",
-                                             agg="segment"),
+                    _per_edge_vg(cfg, bundle, mesh, "decoupled_pipelined"),
                     params0, bundle.train_mask, losses[0])
         out[model] = {"launches": launches, "step_ms": median_ms,
                       "profile": profile, "loss_first": losses[0],
@@ -2190,6 +2238,160 @@ def timing(bundle, data, dev):
               f"{l_ms[1]:.4f} ms device time; bound {bound_ms:.4f} ms by {by}"
               f" ({nbytes / 1e6:.2f} MB, {flops / 1e9:.4f} GFLOP)")
     return rows, err
+
+
+def _reddit_chunks(dev, n_chunks: int = 4):
+    """The benchmark's ``gcn-reddit`` graph (``tpbench/configs/
+    gcn-reddit.json``, drawn and normalised on the card by
+    ``tpbench.graphgen``) as the port's chunked view, built on the card
+    as ``graph.format.chunk_graph`` cuts it: vertices padded to a
+    multiple of 16, as a four-rank bundle pads them, each chunk's edges
+    (sorted by destination) padded to the largest chunk's count with
+    ``dst_local == chunk_size``.  Returns the ``ChunkedDev``."""
+    from repro_torch.gnn import layers as L
+    from tpbench import graphgen
+    conf = json.loads((ROOT / "tpbench" / "configs" / "gcn-reddit.json")
+                      .read_text())
+    raw = graphgen.draw_graph(conf["graph"], 1, dev)
+    g = graphgen.normalize(raw["src"], raw["dst"], raw["n"])
+    n = raw["n"]
+    del raw
+    n_pad = -(-n // 16) * 16
+    cs = -(-n_pad // n_chunks)
+    indptr = torch.cat([g["indptr"].long(),
+                        g["indptr"][-1:].long().expand(n_pad - n)])
+    spans = [(int(indptr[min(c * cs, n_pad)]),
+              int(indptr[min((c + 1) * cs, n_pad)]))
+             for c in range(n_chunks)]
+    cap = max(hi - lo for lo, hi in spans)
+    src = torch.zeros(n_chunks, cap, dtype=torch.int32, device=dev)
+    dst = torch.full((n_chunks, cap), cs, dtype=torch.int32, device=dev)
+    w = torch.zeros(n_chunks, cap, dtype=torch.float32, device=dev)
+    for c, (lo, hi) in enumerate(spans):
+        src[c, :hi - lo] = g["src"][lo:hi].int()
+        dst[c, :hi - lo] = (g["dst"][lo:hi] - c * cs).int()
+        w[c, :hi - lo] = g["weight"][lo:hi].float()
+    del g
+    return L.ChunkedDev(src=src, dst_local=dst, weight=w,
+                        edge_id=torch.zeros_like(src), n=n_pad,
+                        chunk_size=cs)
+
+
+def csr_route(data, dev) -> tuple[dict, float]:
+    """Phase 15's second half: the default GCN path's aggregation.
+    Returns (its numbers, the largest max|Δ|)."""
+    from repro_torch import optim
+    from repro_torch.core import agg as AGG
+    from repro_torch.core import decouple as D
+    from repro_torch.gnn import layers as L
+    from repro_torch.gnn import models as M
+    from repro_torch.kernels.spmm import spmm_csr
+    from repro_torch.kernels.spmm.spmm import reset_launches
+    from repro_torch.runtime import TPMesh
+    from repro_torch.runtime import telemetry as T
+
+    t0 = time.perf_counter()
+    cg = _reddit_chunks(dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    plan = AGG.csr_plan(cg)
+    torch.cuda.synchronize()
+    derive_ms = (time.perf_counter() - t1) * 1e3
+    nnzs = plan.row_ptr[:, -1].tolist()
+    c = max(range(len(nnzs)), key=nnzs.__getitem__)
+    p, nnz, cs, n = plan.instance(c), nnzs[c], cg.chunk_size, cg.n
+    print(f"  gcn-reddit: {n} padded vertices, {sum(nnzs)} edges in "
+          f"{len(nnzs)} chunks of {cs} rows ({nnzs} nonzeros), drawn and "
+          f"chunked in {t1 - t0:.1f} s; csr_plan derived all chunks' rows "
+          f"in {derive_ms:.1f} ms; chunk {c} timed")
+    src, dst, w = cg.src[c], cg.dst_local[c], cg.weight[c]
+
+    def per_edge_fwd(h):
+        return L.aggregate_chunk(h, src, dst, w, cs)
+
+    def per_edge_bwd(gy):
+        ext = torch.cat([gy, gy.new_zeros(1, gy.shape[1])])
+        return gy.new_zeros(n, gy.shape[1]).index_add_(
+            0, src, ext.index_select(0, dst) * w[:, None])
+
+    rows, err = {}, 0.0
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for d in (41, 11):
+        h = torch.randn(n, d, generator=gen, device=dev)
+        gy = torch.randn(cs, d, generator=gen, device=dev)
+        for way, arrays, x, per_edge in (
+                ("forward", (p.row_ptr, p.col_idx, p.vals), h, per_edge_fwd),
+                ("transposed", (p.row_ptr_t, p.col_idx_t, p.vals_t), gy,
+                 per_edge_bwd)):
+            key = f"{way} d={d}"
+
+            def kern():
+                return spmm_csr(*arrays, x)
+
+            got = kern()
+            err = max(err, _held(f"csr chunk {key} vs the per-edge route",
+                                 got, per_edge(x)))
+            if not torch.equal(got, kern()):
+                raise AssertionError(f"csr chunk {key}: a second launch "
+                                     f"differs bitwise")
+            k_ms = [_device_ms(kern, 10)[0] for _ in range(2)]
+            e_ms = [_device_ms(lambda: per_edge(x), 10)[0] for _ in range(2)]
+            bound_ms, by, nbytes, _ = _spmm_bound(nnz, x.shape[0],
+                                                  arrays[0].numel() - 1, d)
+            rows[key] = dict(ms=min(k_ms), ms_runs=k_ms,
+                             per_edge_ms=min(e_ms), per_edge_ms_runs=e_ms,
+                             bound_ms=bound_ms, bound_by=by, bytes=nbytes)
+            print(f"  csr chunk {key}: kernel {k_ms[0]:.4f} / {k_ms[1]:.4f}"
+                  f" ms device time, the per-edge route {e_ms[0]:.4f} / "
+                  f"{e_ms[1]:.4f} ms; bound {bound_ms:.4f} ms by {by} "
+                  f"({nbytes / 1e6:.1f} MB)")
+    del cg, plan, p, src, dst, w, h, gy
+    torch.cuda.empty_cache()
+
+    # the default path (segment backend) on phase 6's graph
+    mesh = TPMesh()
+    bundle = D.prepare_bundle(data, n_workers=1, n_chunks=4, device=dev)
+    steps = {}
+    for model in ("gcn", "gat"):
+        cfg = D.padded_gnn_config(data, bundle, model=model, hidden_dim=128,
+                                  num_layers=2)
+        params0 = M.init_params(cfg, torch.Generator().manual_seed(0), dev)
+        opt = optim.adamw(1e-2, weight_decay=5e-4)
+        step, evaluate = D.make_tp_train_fns(cfg, bundle, mesh, opt)
+        per_step = 16 if model == "gcn" else 0
+        params, state, losses, launches, median_ms = _drive(
+            f"default {model}", step, evaluate, params0, opt, per_step,
+            "2 rounds × 4 chunks × forward and backward on the compressed "
+            "rows" if model == "gcn" else "GAT's α needs a gradient: "
+            "per-edge sums")
+        reset_launches()
+        with T.collect_agg_routes() as routes:
+            step(params, state)
+        torch.cuda.synchronize()
+        counted = {"step_launches": spmm_csr.launches,
+                   "routes": dict(routes)}
+        want = ({"step_launches": 16, "routes": {"csr": 8}}
+                if model == "gcn"
+                else {"step_launches": 0, "routes": {"segment": 8}})
+        print(f"  default {model} step: {counted} (counts reset just "
+              f"before)")
+        if counted != want:
+            raise AssertionError(f"default {model} step: {counted}, "
+                                 f"expected {want}")
+        if bundle.graph.csr is not None:
+            raise AssertionError("the bundle carries compressed rows")
+        if model == "gcn":
+            _hold_step0("default gcn",
+                        D.make_tp_value_and_grad(cfg, bundle, mesh),
+                        _per_edge_vg(cfg, bundle, mesh,
+                                     "decoupled_pipelined"),
+                        params0, bundle.train_mask, losses[0])
+        steps[model] = {"launches": launches, "step_ms": median_ms,
+                        **counted, "loss_first": losses[0],
+                        "loss_last": losses[-1]}
+    del bundle
+    return {"derive_ms": derive_ms, "nnz": nnz, "n_in": n, "n_out": cs,
+            "rows": rows, "steps": steps}, err
 
 
 # ---------------------------------------------------------------------------
@@ -5026,6 +5228,35 @@ def _flash_entry(row, path, launches, case_err) -> dict:
             "ms_by": "events"}
 
 
+def _csr_entry(info: dict, err: float) -> dict:
+    """The ``kernels`` line's entry of the SpMM on the default GCN path:
+    the compressed rows ``csr_plan`` derives, at a Reddit-sized chunk,
+    d = 41 (one card's columns) and d = 11 (a rank's at four cards)."""
+    rows = info["rows"]
+    return {
+        "name": "spmm_csr", "route": "cuda",
+        "source": "src/repro_torch/kernels/spmm/csrc/spmm_csr.cu",
+        "replaces": "src/repro/kernels/spmm/spmm.py:64",
+        "held_against": "the per-edge route (index_select · w → "
+                        "index_add_), gnn.layers.aggregate_chunk",
+        "path": "segment backend, static weights: core.agg.csr_plan rows "
+                "of a gcn-reddit chunk",
+        "shape": [info["n_out"], info["n_in"], info["nnz"]],
+        "launches": info["steps"]["gcn"]["launches"],
+        "launches_by_path": {f"default_{m}": info["steps"][m]["launches"]
+                             for m in ("gcn", "gat")},
+        "routes_by_path": {f"default_{m}": info["steps"][m]["routes"]
+                           for m in ("gcn", "gat")},
+        "max_abs_err": err, "derive_ms": info["derive_ms"],
+        "ms": rows["forward d=41"]["ms"],
+        "plain_ms": rows["forward d=41"]["per_edge_ms"],
+        "bound_ms": rows["forward d=41"]["bound_ms"],
+        "bound_by": rows["forward d=41"]["bound_by"],
+        "library_ms": None, "ms_by": "profiler",
+        **{f"{k.replace(' d=', '_d')}_{f}": r[f] for k, r in rows.items()
+           for f in ("ms", "per_edge_ms", "bound_ms")}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false — this "
@@ -5058,7 +5289,7 @@ def main() -> int:
     kbuild.build()
     build_s = time.perf_counter() - t0
     print(f"  {', '.join(p.name for p in kbuild.SOURCES)} built (sm_90a, "
-          f"one load, one nvcc per source) in {build_s:.1f} s")
+          f"one library a source) in {build_s:.1f} s")
 
     print("[3/31] spmm kernel against its plain version; the one-shot "
           "entry points")
@@ -5102,8 +5333,10 @@ def main() -> int:
               "transitions through the choke point) beside the explicit "
               "one")
         constraint_info = constraint(bundle, data, dev, card)
-        print("[15/31] spmm timing at the GCN paths' shapes")
+        print("[15/31] spmm timing at the GCN paths' shapes; the default "
+              "path's compressed rows at a Reddit-sized chunk and its steps")
         rows, path_err = timing(bundle, data, dev)
+        csr_info, csr_err = csr_route(data, dev)
     finally:
         dist.destroy_process_group()
     del bundle, data
@@ -5176,7 +5409,8 @@ def main() -> int:
                       "gat": gat_info, "gat_naive": gat_naive_info,
                       "sage": like_info["sage"], "gin": like_info["gin"],
                       "hybrid": hybrid_info,
-                      "constraint": constraint_info, "build_s": build_s,
+                      "constraint": constraint_info, "csr": csr_info,
+                      "build_s": build_s,
                       "serve": serve_info,
                       "score": score_info, "lm_timing": lm_rows,
                       "fp32_logits_err": fp32_err,
@@ -5231,6 +5465,7 @@ def main() -> int:
         "naive_l0_ms": nl0["ms"], "naive_l0_plain_ms": nl0["plain_ms"],
         "naive_l0_bound_ms": nl0["bound_ms"],
         "naive_l0_library_ms": nl0["library_ms"]},
+        _csr_entry(csr_info, csr_err),
         *[_oneshot_entry(oneshot_info, key, oneshot_err[key])
           for key in ("float32", "bfloat16")], {
         "name": "flash_attention_bhsd", "route": "cuda",

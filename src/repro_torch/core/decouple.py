@@ -98,6 +98,10 @@ class TPGraph:
     agg: str = "segment"
     bsp: Any = None               # SP.BlockSparsePlanDev | None
     dense_adj: Any = None         # (C, chunk_size, n_padded) f32 | None
+    # the segment backend's compressed rows of the static weights, one
+    # core.agg.csr_plan instance a chunk (core.agg.with_csr): set where a
+    # GCN-like step is built, never on a bundle, so GAT's carries none
+    csr: Any = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -346,14 +350,16 @@ def _gat_alpha_tp(p, edges: L.EdgeListDev, h_local, mesh: TPMesh):
         return L.gat_alpha(edges, sl, sr)
 
 
-def _edge_weights_tp(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
-                     h_local, mesh: TPMesh):
-    """γ·w for the GCN-like models; γ·α, the precomputed attention, for
-    GAT."""
-    if cfg.model == "gat":
-        return cfg.gamma * _gat_alpha_tp(params["layers"][-1], edges,
-                                         h_local, mesh)
-    return cfg.gamma * edges.weight
+def _edge_weights_tp(params, cfg: M.GNNConfig, graph: TPGraph, h_local,
+                     mesh: TPMesh):
+    """The chunked propagation weights a step computes: GAT's γ·α, the
+    precomputed attention, rechunked; ``None`` for the GCN-like models,
+    whose static weights Â the backends hold (γ their scale,
+    :func:`_effective_agg`)."""
+    if cfg.model != "gat":
+        return None
+    alpha = _gat_alpha_tp(params["layers"][-1], graph.edges, h_local, mesh)
+    return L.rechunk_edge_values(graph.chunked, cfg.gamma * alpha)
 
 
 def _effective_agg(cfg: M.GNNConfig, agg: str) -> tuple[str, float]:
@@ -361,9 +367,11 @@ def _effective_agg(cfg: M.GNNConfig, agg: str) -> tuple[str, float]:
 
     GAT always aggregates by segment sums: its edge weights α are computed
     at run time from the features, so they cannot be baked into the
-    precomputed tiles or dense rows, and γ is already inside α.  For the
-    tile-based backends the static γ of the propagation weights (γ·Â)
-    becomes a scalar post-multiplier, since γ·(Â@z) = (γÂ)@z."""
+    compressed rows, tiles or dense rows, and γ is already inside α.  For
+    the other models every backend holds the static weights Â (the
+    segment backend as compressed rows, :func:`repro_torch.core.agg
+    .csr_plan`), and γ becomes a scalar post-multiplier, since γ·(Â@z) =
+    (γÂ)@z."""
     if cfg.model == "gat":
         return "segment", 1.0
     return agg, cfg.gamma
@@ -390,11 +398,8 @@ def tp_decoupled_forward(params, cfg: M.GNNConfig, graph: TPGraph,
     with T.span("gnn.nn_phase"):
         h = M.mlp_phase(params, cfg, x_local)          # NN phase, local rows
     h = C.replica_gather(h, rep)                       # (V/N, C)
-    w_chunk = None
-    if agg == "segment":
-        with T.span("gnn.edge_weights"):
-            w_flat = _edge_weights_tp(params, cfg, graph.edges, h, mesh)
-            w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
+    with T.span("gnn.edge_weights"):
+        w_chunk = _edge_weights_tp(params, cfg, graph, h, mesh)
     n_rounds = cfg.num_layers
     d_full = h.shape[1]
 
@@ -480,21 +485,23 @@ def _aggregate_chunked_constraint(graph: TPGraph, z, w_chunk, axis: str,
         (None, axis), z)
 
 
-def _edge_weights_constraint(params, cfg: M.GNNConfig, edges: L.EdgeListDev,
-                             h, axis: str):
-    """γ·w, or GAT's γ·α from the model-sharded global ``h``.  The
-    reference anchors the two (V,) score vectors replicated (``P(None)``)
-    and lets its partitioner gather them; here that O(V) all-gather is a
-    transition through the choke point, and α is computed on the whole
-    vectors on every rank as a local tensor, whose gradient the
-    all-gather's backward sums."""
-    if cfg.model == "gat":
-        p = params["layers"][-1]
-        sl, sr = (K.layout_cast(h @ p[k], (None,), src_spec=(axis,),
-                                mirror=True).to_local()
-                  for k in ("a_l", "a_r"))
-        return cfg.gamma * L.gat_alpha(edges, sl, sr)
-    return cfg.gamma * edges.weight
+def _edge_weights_constraint(params, cfg: M.GNNConfig, graph: TPGraph, h,
+                             axis: str):
+    """GAT's chunked γ·α from the model-sharded global ``h``; ``None`` for
+    the static weights (:func:`_edge_weights_tp`).  The reference anchors
+    the two (V,) score vectors replicated (``P(None)``) and lets its
+    partitioner gather them; here that O(V) all-gather is a transition
+    through the choke point, and α is computed on the whole vectors on
+    every rank as a local tensor, whose gradient the all-gather's backward
+    sums."""
+    if cfg.model != "gat":
+        return None
+    p = params["layers"][-1]
+    sl, sr = (K.layout_cast(h @ p[k], (None,), src_spec=(axis,),
+                            mirror=True).to_local()
+              for k in ("a_l", "a_r"))
+    return L.rechunk_edge_values(
+        graph.chunked, cfg.gamma * L.gat_alpha(graph.edges, sl, sr))
 
 
 def tp_decoupled_forward_constraint(params, cfg: M.GNNConfig,
@@ -512,10 +519,7 @@ def tp_decoupled_forward_constraint(params, cfg: M.GNNConfig,
     h = K.constrain(M.mlp_phase(params, cfg, x), vspec)
     if data_axes:
         h = K.layout_cast(h, (axis, None), src_spec=vspec, mirror=True)
-    w_chunk = None
-    if agg == "segment":
-        w_flat = _edge_weights_constraint(params, cfg, graph.edges, h, axis)
-        w_chunk = L.rechunk_edge_values(graph.chunked, w_flat)
+    w_chunk = _edge_weights_constraint(params, cfg, graph, h, axis)
     z = tp.split_constraint(h, axis)
     for _ in range(cfg.num_layers):
         z = _aggregate_chunked_constraint(graph, z, w_chunk, axis, agg,
@@ -705,9 +709,10 @@ def _make_local_loss(cfg: M.GNNConfig, bundle: TPBundle, mesh: TPMesh,
     Under the constraint backend the rows enter as the shards of global
     DTensors laid out ``vertex_spec``."""
     _check_bundle_fits(bundle, mesh)
-    body = _make_tp_loss_and_acc(cfg, mesh, mode,
-                                 AGG.resolve_choice(bundle.graph, agg),
-                                 backend)
+    agg = AGG.resolve_choice(bundle.graph, agg)
+    if agg == "segment" and cfg.model != "gat":
+        bundle = dataclasses.replace(bundle, graph=AGG.with_csr(bundle.graph))
+    body = _make_tp_loss_and_acc(cfg, mesh, mode, agg, backend)
     mine = local_rows(bundle.n_padded, mesh, bundle.block)
     x, labels = mine(bundle.features), mine(bundle.labels)
     if backend == "constraint":

@@ -1,9 +1,12 @@
 """GNN aggregation / update primitives on tensors.
 
 The graph lives on the device as edge arrays.  Aggregation is a weighted
-SpMM ``out[v] = Σ_{(u,v)∈E} w_uv · h[u]`` written as ``index_select`` plus
-``index_add``; the block-sparse kernel in :mod:`repro_torch.kernels.spmm`
-computes the same product from tiles.
+SpMM ``out[v] = Σ_{(u,v)∈E} w_uv · h[u]``, written here as ``index_select``
+plus ``index_add``: the plain form, which the engines run where the
+weights are given per step (GAT's α, which needs a gradient).  With the
+graph's static weights the engines' segment backend runs the SpMM kernel
+in :mod:`repro_torch.kernels.spmm` on compressed rows derived from the
+chunked edges (:func:`repro_torch.core.agg.csr_plan`).
 """
 from __future__ import annotations
 

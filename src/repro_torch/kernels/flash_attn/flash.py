@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from ..build import kernel_fn
+from ..build import FLASH_MMA, FLASH_TF32X3, kernel_fn
 
 MAX_HEAD_DIM = 256
 VARIANTS = {torch.bfloat16: "mma_bf16", torch.float32: "mma_tf32x3"}
@@ -34,14 +34,14 @@ _BUCKETS = {
         (128, 128, 64, 32), (192, 128, 64, 32), (256, 256, 128, 16)),
     2: ((256, 256, 128, 64),),                                   # mma_bf16
 }
-_ENTRIES = {"mma_bf16": "flash_attention_fwd_bf16_mma",
-            "mma_tf32x3": "flash_attention_fwd_f32_tf32x3"}
+_ENTRIES = {"mma_bf16": (FLASH_MMA, "flash_attention_fwd_bf16_mma"),
+            "mma_tf32x3": (FLASH_TF32X3, "flash_attention_fwd_f32_tf32x3")}
 
 
 @functools.cache
 def _kernel(variant: str):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    return kernel_fn(_ENTRIES[variant],
+    return kernel_fn(*_ENTRIES[variant],
                      [p, p, p, p, i, i, i, i, i, i, i, f, i, i, f, p])
 
 

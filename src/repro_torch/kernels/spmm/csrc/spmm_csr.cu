@@ -20,7 +20,12 @@
 // the earlier tile kernel could not get under 0.16 ms whatever its code.
 // Tensor cores and TMA buy nothing at that fill: each nonzero is one
 // multiply-add per feature column, and the cost is the gather of its
-// source row, which comes from the 50 MB L2 (h is 3.8 MB).
+// source row, which comes from the 50 MB L2 (h is 3.8 MB).  The default
+// GCN path (core/agg.py::csr_plan, rows derived from the chunked edge
+// lists) runs it at Reddit's size: a chunk of 58 244 rows over 232 976
+// sources, 28.8 M nonzeros, 279 MB at d = 41, 0.083 ms at 3.35 TB/s; the
+// kernel takes about 2 ms there, bound by the latency of its row gathers
+// (PERF.md has the times).
 //
 // Design.  The degree skew is large (in-degree 43 on average, 3 712 at the
 // most), so a warp per destination row would leave one warp walking 3 712
@@ -50,6 +55,19 @@
 // before every launch, so no launch depends on what an earlier one left.
 // Columns >= d are masked, so any d works; y-tiles of 32 * NC columns
 // cover wider d.
+//
+// Narrow rows.  Tensor parallelism hands each rank a slice of the
+// feature columns (11 of 44 on four cards), and with one lane a column
+// two thirds of every gather's lanes would idle.  For d <= 16 the warp
+// is cut into G = 32 / L groups of L lanes, L the power of two >= d, and
+// each group gathers its own nonzero of the stream, so a warp has G
+// source rows in flight per load.  Each group keeps a partial sum of the
+// row being summed; where a row ends, the groups whose nonzeros belong to
+// it add theirs in, and a butterfly of shuffles over the groups (a fixed
+// order) gives every lane the row's sum, which group 0 stores or hands on
+// as above.  The segments, the carry and the flags are the wide path's,
+// so the result is as deterministic; for d > 16 the instructions are the
+// ones the kernel had before.
 //
 // Types.  The kernel is a template on the element type T of h and out:
 // float, or __nv_bfloat16 (the one-shot entry point's bf16 features).  A
@@ -261,6 +279,153 @@ spmm_csr_kernel(const int* __restrict__ row_ptr,
   }
 }
 
+// The narrow kernel (d <= 16, header): L lanes a row, G = 32 / L nonzeros
+// gathered at once; one column a lane, scratch carry (n_seg, d).
+template <int L, typename T>
+__global__ void __launch_bounds__(kThreads)
+spmm_csr_narrow_kernel(const int* __restrict__ row_ptr,
+                       const int* __restrict__ col_idx,
+                       const float* __restrict__ vals, int n_rows,
+                       const T* __restrict__ h, int d, T* __restrict__ out,
+                       float* carry, int* flags) {
+  constexpr int G = 32 / L;
+  constexpr int kStep = kUnroll * G;  // nonzeros an unrolled round covers
+  __shared__ int vblock;
+  if (threadIdx.x == 0) vblock = atomicAdd(flags, 1);
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int grp = lane / L, col = lane % L;
+  const bool col_ok = col < d;
+  const int s = vblock * kWarps + (threadIdx.x >> 5);
+  const int nnz = __ldg(row_ptr + n_rows);
+  const int n_seg = max((nnz + kSeg - 1) / kSeg, 1);
+  if (s >= n_seg) return;
+  const int seg0 = s * kSeg;
+  const int seg1 = min(seg0 + kSeg, nnz);
+  const bool last = s == n_seg - 1;
+  int* my_flag = flags + 1;
+
+  int col_r[kPer];
+  float val_r[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int e = seg0 + 32 * p + lane;
+    col_r[p] = e < seg1 ? __ldg(col_idx + e) : 0;
+    val_r[p] = e < seg1 ? __ldg(vals + e) : 0.f;
+  }
+
+  const int r0 = warp_lower_bound(row_ptr, n_rows, seg0, lane);
+  int base = r0;  // rp holds row_ptr[base + lane]
+  int rp = base + lane <= n_rows ? __ldg(row_ptr + base + lane) : nnz;
+  int cur = r0 - 1;                      // the row being summed
+  int end = __shfl_sync(kFull, rp, 0);   // where its nonzeros end
+  float acc = 0.f, pre = 0.f;            // this group's part of row cur
+  bool has_pre = false;
+
+  // the row's sum over the groups, the same in every lane
+  auto group_sum = [&]() {
+    float v = acc;
+#pragma unroll
+    for (int o = L; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+    return v;
+  };
+  // close row cur, which ends at `end`: store its sum (or keep it as the
+  // leading row's last part) and move to the next row; false where no
+  // further row is this segment's
+  auto close = [&]() -> bool {
+    const float tot = group_sum();
+    if (cur == r0 - 1) {
+      if (end > seg0) {
+        has_pre = true;
+        pre = tot;
+      }
+    } else if (grp == 0 && col_ok) {
+      put(out + static_cast<long long>(cur) * d + col, tot);
+    }
+    acc = 0.f;
+    if (++cur >= n_rows || (!last && end == seg1)) return false;
+    int idx = cur + 1 - base;
+    if (idx > 31) {
+      base = cur;
+      rp = base + lane <= n_rows ? __ldg(row_ptr + base + lane) : nnz;
+      idx = 1;
+    }
+    end = __shfl_sync(kFull, rp, idx);
+    return true;
+  };
+
+  for (int e0 = seg0; e0 < seg1; e0 += kStep) {
+    float w[kUnroll], x[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      // the step's G slots lie in one 32-slot block of the loaded pairs
+      const int step0 = e0 - seg0 + u * G;
+      const int slot = step0 + grp;
+      int cv = col_r[0];
+      float vv = val_r[0];
+#pragma unroll
+      for (int p = 1; p < kPer; ++p)
+        if ((step0 >> 5) == p) { cv = col_r[p]; vv = val_r[p]; }
+      const int src = __shfl_sync(kFull, cv, slot & 31);
+      w[u] = __shfl_sync(kFull, vv, slot & 31);
+      x[u] = (seg0 + slot < seg1 && col_ok) ? load(h + src * d + col) : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int b = e0 + u * G;  // the step's nonzeros are [b, b2)
+      if (b < seg1) {
+        const int b2 = min(b + G, seg1);
+        int lo = 0;  // the step's groups before lo are summed already
+        while (end < b2) {  // row cur ends inside the step
+          const int hi = end - b;
+          if (grp >= lo && grp < hi) acc = fmaf(w[u], x[u], acc);
+          lo = hi;
+          if (!close()) break;
+        }
+        if (grp >= lo && b + grp < b2) acc = fmaf(w[u], x[u], acc);
+      }
+    }
+  }
+  if (end == seg1) {
+    // in the last segment also every row left, all empty
+    while (end == seg1 && close()) {
+    }
+  } else {  // row cur runs past the segment: hand its part on
+    const float part = group_sum();
+    if (grp == 0 && col_ok) carry[static_cast<long long>(s) * d + col] = part;
+    __threadfence();
+    __syncwarp();
+    if (lane == 0) atomicExch(my_flag + s, 1);
+  }
+
+  if (has_pre) {  // the leading row ends in this segment: add its parts
+    const int r = r0 - 1;
+    const int s0 = __ldg(row_ptr + r) / kSeg;
+    for (int t0 = s0; t0 < s; t0 += 32) {
+      const int t = t0 + lane;
+      bool ready = t >= s;
+      while (!__all_sync(kFull, ready)) {
+        if (!ready) {
+          int f;
+          asm volatile("ld.relaxed.gpu.global.b32 %0, [%1];"
+                       : "=r"(f) : "l"(my_flag + t) : "memory");
+          ready = f != 0;
+        }
+      }
+    }
+    __syncwarp();
+    __threadfence();
+    float tot = 0.f;
+    if (col_ok) {
+#pragma unroll 4
+      for (int t = s0; t < s; ++t)
+        tot += __ldcg(carry + static_cast<long long>(t) * d + col);
+    }
+    tot += pre;
+    if (grp == 0 && col_ok) put(out + static_cast<long long>(r) * d + col, tot);
+  }
+}
+
 template <int NC, typename T>
 int launch(const int* row_ptr, const int* col_idx, const float* vals,
            int n_rows, const T* h, int d, T* out, float* carry, int* flags,
@@ -275,7 +440,21 @@ int launch(const int* row_ptr, const int* col_idx, const float* vals,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the launch of the y-tile width for d
+template <int L, typename T>
+int launch_narrow(const int* row_ptr, const int* col_idx, const float* vals,
+                  int n_rows, const T* h, int d, T* out, float* carry,
+                  int* flags, int n_seg, cudaStream_t s) {
+  const int nbx = (n_seg + kWarps - 1) / kWarps;
+  const cudaError_t err = cudaMemsetAsync(
+      flags, 0, sizeof(int) * (1 + static_cast<size_t>(n_seg)), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  spmm_csr_narrow_kernel<L, T><<<nbx, kThreads, 0, s>>>(
+      row_ptr, col_idx, vals, n_rows, h, d, out, carry, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the launch for d: the narrow kernel up to 16 columns, else the y-tile
+// width
 template <typename T>
 int launch_for(const int* row_ptr, const int* col_idx, const float* vals,
                int n_rows, const void* h, int d, void* out, float* carry,
@@ -283,6 +462,21 @@ int launch_for(const int* row_ptr, const int* col_idx, const float* vals,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const T* ht = static_cast<const T*>(h);
   T* ot = static_cast<T*>(out);
+  if (d <= 1)
+    return launch_narrow<1>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry,
+                            flags, n_seg, s);
+  if (d <= 2)
+    return launch_narrow<2>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry,
+                            flags, n_seg, s);
+  if (d <= 4)
+    return launch_narrow<4>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry,
+                            flags, n_seg, s);
+  if (d <= 8)
+    return launch_narrow<8>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry,
+                            flags, n_seg, s);
+  if (d <= 16)
+    return launch_narrow<16>(row_ptr, col_idx, vals, n_rows, ht, d, ot,
+                             carry, flags, n_seg, s);
   if (d <= 32)
     return launch<1>(row_ptr, col_idx, vals, n_rows, ht, d, ot, carry, flags,
                      n_seg, s);

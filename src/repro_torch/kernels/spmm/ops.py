@@ -62,7 +62,11 @@ class BlockSparsePlanDev:
     Arrays may carry one leading stack axis (chunks); ``col_idx``/``vals``
     are then padded to the largest instance, and the padding lies past
     each instance's ``row_ptr[-1]``.  :meth:`instance` takes one plan out
-    of the stack."""
+    of the stack.
+
+    A plan of 1 × 1 tiles (``bs = 1``, nothing padded) is a matrix's
+    compressed rows as they are: :func:`repro_torch.core.agg.csr_plan`
+    derives one from the chunked edge lists."""
 
     row_ptr: torch.Tensor
     col_idx: torch.Tensor

@@ -8,8 +8,7 @@ in which a row that straddles several warps' segments ends adds their
 parts in a fixed order; its source says how.  h and the output are fp32
 or bf16 (one C entry point each, picked by h's dtype); the sums are fp32
 and a bf16 output is rounded once.  It is compiled for ``sm_90a`` on first
-use with the port's other kernels (:mod:`..build`) and bound with
-``ctypes``.
+use, alone (:mod:`..build`), and bound with ``ctypes``.
 
 :func:`spmm_csr` takes CUDA tensors only and launches the kernel or
 raises; the plain version for CPU tensors is :func:`..ref.spmm_csr_ref`,
@@ -22,7 +21,7 @@ import functools
 
 import torch
 
-from ..build import kernel_fn
+from ..build import SPMM, kernel_fn
 
 
 _ENTRIES = {torch.float32: "spmm_csr_f32", torch.bfloat16: "spmm_csr_bf16"}
@@ -31,7 +30,7 @@ _ENTRIES = {torch.float32: "spmm_csr_f32", torch.bfloat16: "spmm_csr_bf16"}
 @functools.cache
 def _kernel(dtype: torch.dtype):
     p, i = ctypes.c_void_p, ctypes.c_int
-    return kernel_fn(_ENTRIES[dtype], [p, p, p, i, p, i, p, p, p, i, p])
+    return kernel_fn(SPMM, _ENTRIES[dtype], [p, p, p, i, p, i, p, p, p, i, p])
 
 
 def reset_launches() -> None:
@@ -44,13 +43,13 @@ def reset_launches() -> None:
 @functools.cache
 def _segment() -> int:
     """Nonzeros per warp segment, as the kernel was compiled."""
-    return kernel_fn("spmm_csr_segment", [])()
+    return kernel_fn(SPMM, "spmm_csr_segment", [])()
 
 
 @functools.cache
 def _tile_cols(d: int) -> int:
     """Columns per y-tile of the launch at width d."""
-    return kernel_fn("spmm_csr_tile_cols", [ctypes.c_int])(d)
+    return kernel_fn(SPMM, "spmm_csr_tile_cols", [ctypes.c_int])(d)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int,

@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from ..build import kernel_fn
+from ..build import SSD, kernel_fn
 
 MAX_CHUNK = 1024
 MAX_HEAD_DIM = 64
@@ -31,7 +31,7 @@ _GROUP = 4
 @functools.cache
 def _kernel():
     p, i = ctypes.c_void_p, ctypes.c_int
-    return kernel_fn("ssd_intra_chunk_f32",
+    return kernel_fn(SSD, "ssd_intra_chunk_f32",
                      [p, p, p, p, p, p, p, i, i, i, i, i, i, p])
 
 

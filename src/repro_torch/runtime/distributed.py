@@ -42,6 +42,12 @@ Departures from the reference (``repro.runtime.distributed``):
   default process group, where JAX on one process needs no distributed
   client: with no coordinator and one process, :func:`initialize` opens
   a one-rank group on a free localhost port.
+* **The host's cores are shared.**  Processes that share a machine each
+  drive a card and each would start torch's intra-op pool over every core
+  the machine has.  :func:`initialize` gives a CUDA rank its share of
+  them (:func:`_share_host_threads`), as ``torchrun`` caps
+  ``OMP_NUM_THREADS`` for the processes it starts; an ``OMP_NUM_THREADS``
+  the launcher set is kept.
 * **Placement is a slice, not a global array.**  :func:`put_global`
   returns this rank's block as a plain tensor; the engine's factories
   take it in place of the whole array.
@@ -215,6 +221,21 @@ def _rank_device(device, process_id: int) -> torch.device:
     return dev
 
 
+def _share_host_threads(num_processes: int, dev: torch.device) -> None:
+    """Set torch's intra-op threads to this process's share of the cores
+    it may run on: the ``min(num_processes, cards)`` processes on this
+    machine (one a card, :func:`_rank_device`) split them evenly.  Only
+    for CUDA ranks of a multi-process job, and only where the launcher set
+    no ``OMP_NUM_THREADS``.  Four ranks of a Reddit-sized GCN step on a
+    four-card machine are host-bound, and took longer to issue a step
+    with every rank's pool over all of its cores."""
+    if (dev.type != "cuda" or num_processes < 2
+            or os.environ.get("OMP_NUM_THREADS")):
+        return
+    local = min(num_processes, max(1, torch.cuda.device_count()))
+    torch.set_num_threads(max(1, len(os.sched_getaffinity(0)) // local))
+
+
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, *,
@@ -262,6 +283,7 @@ def initialize(coordinator_address: str | None = None,
             "context the launcher and the meshes read)")
 
     dev = _rank_device(device, process_id)
+    _share_host_threads(num_processes, dev)
     backend = "nccl" if dev.type == "cuda" else "gloo"
     address = coordinator_address or _free_local_address()
     if num_processes > 1:

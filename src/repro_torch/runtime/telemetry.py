@@ -158,6 +158,15 @@ How the port's semantics differ from the reference's:
 Host→device staging (the out-of-core path) is counted beside the
 collectives under op kind :data:`H2D_OP` (:func:`record_h2d`).
 
+Beside the ledger, :func:`collect_agg_routes` counts the chunk
+aggregations a block runs by the route ``core.agg.chunk_agg`` takes:
+``"csr"`` (the SpMM kernel's compressed rows: the segment backend's
+static weights, or the blocksparse tile plans), ``"segment"``
+(``index_select`` · w → ``index_add_``, for weights given per step, as
+GAT's α) or ``"dense"``.  Forward calls only: a 2-round, 4-chunk step
+counts 8, and each ``"csr"`` one launches the kernel again in the
+backward (``kernels.spmm.spmm_csr.launches``).
+
 When no ledger is collecting, a collective pays one ``ContextVar`` read
 (:func:`active_ledgers`) and nothing else.
 
@@ -198,9 +207,10 @@ a chunk):
   ``tp.grad_sum`` — the parameter gradients' sum across ranks;
   ``tp.loss`` — the masked loss and accuracy with their psum;
 * ``gnn.nn_phase`` — the vertex-sharded NN phase (``mlp_phase``);
-  ``gnn.edge_weights`` — the propagation weights and their rechunk, with
-  ``gat.alpha`` inside it for GAT (score products, the two all-gathers,
-  the edge softmax);
+  ``gnn.edge_weights`` — the propagation weights a step computes: GAT's
+  γ·α and its rechunk, with ``gat.alpha`` inside it (score products, the
+  two all-gathers, the edge softmax); no device work for the static
+  weights, which the aggregation backends hold;
 * ``tp.split.c{c}`` / ``tp.gather.c{c}`` — a pipelined chunk's split or
   gather (``tp.split`` / ``tp.gather`` unpipelined);
   ``agg.r{r}.c{c}`` — chunk ``c``'s aggregation in round ``r``, whatever
@@ -215,6 +225,7 @@ import contextlib
 import dataclasses
 import math
 import time
+from collections import Counter
 from contextvars import ContextVar
 from typing import Iterator, Mapping
 
@@ -223,7 +234,8 @@ import torch.autograd.profiler as _profiler
 
 __all__ = ["CommEntry", "CommLedger", "H2D_OP", "SpanLog", "TelemetryError",
            "TransitionRecord", "active_ledgers", "backward_scope",
-           "collect_comm", "collect_spans", "implied_collectives",
+           "collect_agg_routes", "collect_comm", "collect_spans",
+           "count_agg_route", "implied_collectives",
            "normalize_spec", "recompute_scope", "record", "record_h2d",
            "record_transition", "ring_wire_factor", "span"]
 
@@ -633,6 +645,33 @@ def record_h2d(tensors, *, label: str = "host") -> None:
     dtype = str(tensors[0].dtype).removeprefix("torch.")
     for ledger in ledgers:
         ledger.add(H2D_OP, label, dtype, payload=payload, wire=payload)
+
+
+# ---------------------------------------------------------------------------
+# Aggregation routes
+# ---------------------------------------------------------------------------
+
+_AGG_ROUTES: ContextVar[Counter | None] = ContextVar(
+    "repro_torch_agg_routes", default=None)
+
+
+@contextlib.contextmanager
+def collect_agg_routes() -> Iterator[Counter]:
+    """Count the chunk aggregations run inside the block by route (module
+    docstring) into the ``Counter`` it yields."""
+    counts = Counter()
+    token = _AGG_ROUTES.set(counts)
+    try:
+        yield counts
+    finally:
+        _AGG_ROUTES.reset(token)
+
+
+def count_agg_route(route: str) -> None:
+    """One chunk aggregation by ``route``, where a count is collecting."""
+    counts = _AGG_ROUTES.get()
+    if counts is not None:
+        counts[route] += 1
 
 
 # ---------------------------------------------------------------------------

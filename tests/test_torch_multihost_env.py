@@ -13,6 +13,8 @@ globals().update(take_tests(
     'test_single_process_context_without_init',
     'test_topology_query_before_initialize_raises',
     'test_initialize_is_idempotent_and_owns_the_group',
+    'test_cuda_ranks_share_the_host_threads',
+    'test_host_threads_left_alone',
     'test_put_global_blocks_on_one_rank',
     'test_resolve_mesh_shape_note_names_process_topology',
     'test_ledger_roundtrip_and_merge',

@@ -194,6 +194,40 @@ def test_initialize_is_idempotent_and_owns_the_group():
         tdist.destroy_process_group()
 
 
+def _host_threads(monkeypatch, world, dev, omp=None) -> int:
+    """Torch's intra-op threads after ``_share_host_threads`` on a
+    32-core, four-card machine, starting from 5."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(os, "sched_getaffinity", lambda pid: set(range(32)))
+    if omp is None:
+        monkeypatch.delenv("OMP_NUM_THREADS", raising=False)
+    else:
+        monkeypatch.setenv("OMP_NUM_THREADS", omp)
+    before = torch.get_num_threads()
+    try:
+        torch.set_num_threads(5)
+        dist._share_host_threads(world, torch.device(dev))
+        return torch.get_num_threads()
+    finally:
+        torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("world", [4, 8])
+def test_cuda_ranks_share_the_host_threads(monkeypatch, world):
+    """One rank a card: four ranks on the four cards take a quarter of
+    the cores each, and so do eight (at most four share the machine)."""
+    assert _host_threads(monkeypatch, world, "cuda:1") == 8
+
+
+def test_host_threads_left_alone(monkeypatch):
+    """One process keeps torch's own count, the launcher's
+    ``OMP_NUM_THREADS`` is kept, and CPU ranks (which compute on the
+    host) are not touched."""
+    assert _host_threads(monkeypatch, 1, "cuda:0") == 5
+    assert _host_threads(monkeypatch, 4, "cuda:1", omp="3") == 5
+    assert _host_threads(monkeypatch, 4, "cpu") == 5
+
+
 def test_put_global_blocks_on_one_rank():
     """On one rank every spec's block is the whole value, copied into a
     buffer of its own (never a view of the host value)."""
